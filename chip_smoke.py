@@ -8,10 +8,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 1. device      - a CUDA card must be present; its name and power limit.
 2. build       - nvcc builds every kernel from nanodiloco_tpu_torch/csrc.
 3. kernels     - each kernel against its plain PyTorch version on the
-                 card, at the training shape (bf16) and at small float32
-                 shapes (MHA, GQA, non-causal, ragged S); CUDA-event times
-                 of the kernel, the plain version and the PyTorch library
-                 call, and the least time the card could take (bound_ms).
+                 card, at the training shape (bf16, hd 128), at bf16 hd-128
+                 edge shapes (ragged S, non-causal S < one tile, MHA) that
+                 run the tensor-core kernels, and at one shape for every
+                 other (dtype, head dim) row of the route table (float32
+                 and bf16 at hd 32/64 run the FMA kernels); at the training
+                 shape, CUDA-event times of the kernel, the plain version
+                 and the PyTorch library call, the least time the card
+                 could take (bound_ms), TFLOP/s and the share of the bound.
 4. train_small - two DiLoCo rounds at a small float32 size from one
                  parameter tree, on the card and on the CPU: the losses
                  and the snapshot must agree.
@@ -19,7 +23,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  width (1 layer, W=2 workers, H=2, grad_accum 2, S=2048)
                  with attention_impl="flash"; every kernel's launch count
                  must rise during this phase (counts are reset just
-                 before it).
+                 before it), and every B1 and B3 launch of this bf16 round
+                 must have gone to the tensor-core (wgmma) variant.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/.
@@ -52,28 +57,49 @@ REPLACES = {
     "flash_bwd_dq": "nanodiloco_tpu/ops/pallas/flash_attention.py:254",
     "flash_bwd_dkv": "nanodiloco_tpu/ops/pallas/flash_attention.py:292",
 }
-SOURCE = "nanodiloco_tpu_torch/csrc/flash_attention.cu"
+SOURCE = {  # by variant
+    "fma": "nanodiloco_tpu_torch/csrc/flash_attention.cu",
+    "wgmma": "nanodiloco_tpu_torch/csrc/flash_attention_tc.cu",
+}
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 # (name, dtype, B, H, Hkv, S, hd, causal); the first is the training shape
 SHAPES = [
     ("train_bf16", torch.bfloat16, 2, 32, 8, 2048, 128, True),
+    ("ragged_gqa4_bf16", torch.bfloat16, 1, 8, 2, 1000, 128, True),
+    ("noncausal_gqa2_bf16", torch.bfloat16, 2, 4, 2, 77, 128, False),
+    ("mha_bf16", torch.bfloat16, 2, 4, 4, 256, 128, True),
+    ("gqa2_bf16_hd64", torch.bfloat16, 2, 4, 2, 320, 64, True),
+    ("noncausal_bf16_hd32", torch.bfloat16, 2, 4, 4, 192, 32, False),
     ("mha_f32", torch.float32, 2, 4, 4, 256, 64, True),
     ("gqa4_f32", torch.float32, 1, 8, 2, 320, 128, True),
     ("noncausal_gqa2_f32", torch.float32, 2, 4, 2, 192, 32, False),
     ("ragged_f32", torch.float32, 1, 4, 1, 1000, 128, True),
     ("ragged_noncausal_f32", torch.float32, 1, 2, 2, 77, 64, False),
 ]
-# |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|, elementwise.
-# Both sides compute in float32 from the same inputs and differ only in
-# summation order: ~1e-6 relative in float32; in bf16 the outputs are
-# rounded to bf16 (8 mantissa bits), so a reordered sum may land one ulp
-# (2**-8 relative) away, and two ulps bound it.
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-3, 2.0**-7)}
+# |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|, elementwise, per
+# (dtype, variant). The FMA kernels compute in float32 from the same inputs
+# as the plain versions and differ only in summation order: ~1e-6 relative
+# in float32, and in bf16 the two float32 results may round to neighbouring
+# bf16 values (RTOL 2**-7). The tensor-core kernels also round P (B1) and
+# P and dS (B3) to bf16 (relative error <= 2**-9 each) as the left operand
+# of the second product, where the plain versions keep float32 (rounding
+# error up to 2**-8 of each term). Summed over a row of random-signed terms
+# that adds an error of about 2**-8 / sqrt(3) of the output's rms, a few
+# times that at the worst of millions of outputs: ATOL 2**-8 of max|plain|
+# for those kernels, about twice the largest need measured on the card
+# (2.04e-3, dK at the MHA S=256 shape, where the FMA kernels' 2e-3 failed).
+TOL = {
+    (torch.float32, "fma"): (1e-4, 1e-4),
+    (torch.bfloat16, "fma"): (2e-3, 2.0**-7),
+    (torch.bfloat16, "wgmma"): (2.0**-8, 2.0**-7),
+}
 TOL_REASON = {
-    torch.float32: "f32 on both sides, summation order only",
-    torch.bfloat16: "bf16 outputs of f32 sums: one bf16 ulp apart at most",
+    (torch.float32, "fma"): "f32 on both sides, summation order only",
+    (torch.bfloat16, "fma"): "bf16 outputs of f32 sums: one bf16 ulp apart at most",
+    (torch.bfloat16, "wgmma"): "bf16 outputs one ulp apart, plus P and dS rounded to bf16 "
+                               "(2**-8) before the second product where plain keeps f32",
 }
 
 
@@ -94,8 +120,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, warmup: int = 3, runs: int = 20) -> float:
-    """Median over ``runs`` of one call timed with CUDA events."""
+def cuda_ms(fn, warmup: int = 3, runs: int = 20, reps: int = 10) -> float:
+    """Median over ``runs`` samples of the CUDA-event time of ``reps`` calls
+    back to back, per call. Back to back, the host's share of a call (the
+    wrapper's checks and allocations, the launch) overlaps the previous
+    call's device work, as it does in training; one call alone would add
+    it to a kernel of a fraction of a millisecond."""
     for _ in range(warmup):
         fn()
     times = []
@@ -103,23 +133,27 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 20) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
-def within(name, got, want, dtype) -> float:
-    atol, rtol = TOL[dtype]
+def within(name, got, want, tol) -> tuple[float, float]:
+    """(max |err|, the ATOL share of max|want| that the output needs at this
+    RTOL); fails the phase if that is more than the tolerance's ATOL."""
+    atol, rtol = tol
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         fail("kernels", f"{name}: non-finite kernel output")
     err = (got - want).abs()
-    limit = atol * want.abs().max().item() + rtol * want.abs()
-    if (err > limit).any():
-        fail("kernels", f"{name}: max |err| {err.max().item():.3e} over tolerance")
-    return err.max().item()
+    need = max(0.0, (err - rtol * want.abs()).max().item()) / max(want.abs().max().item(), 1e-30)
+    if need > atol:
+        fail("kernels", f"{name}: max |err| {err.max().item():.3e} over tolerance "
+                        f"(needs atol_of_max {need:.3e} > {atol:.3e})")
+    return err.max().item(), need
 
 
 def attended_pairs(s: int, causal: bool) -> int:
@@ -146,13 +180,20 @@ def bounds(dtype, b, h, hkv, s, hd, causal) -> dict:
         out[name] = {
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops,
         }
     return out
 
 
 def phase_kernels() -> dict:
+    covered = {(dtype, hd) for _, dtype, *_, hd, _ in SHAPES}
+    missing = {(dtype, hd) for _, dtype, hd in fa.ROUTES} - covered
+    if missing:
+        fail("kernels", f"route-table rows without a shape: {sorted(map(str, missing))}")
     results = {}
     for name, dtype, b, h, hkv, s, hd, causal in SHAPES:
+        variant = {kname: fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES}
+        tol = {kname: TOL[dtype, v] for kname, v in variant.items()}
         gen = torch.Generator(device="cuda").manual_seed(0)
 
         def rnd(*shape):
@@ -171,27 +212,32 @@ def phase_kernels() -> dict:
         dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
         dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
         torch.cuda.synchronize()
-        errs = {
-            "flash_fwd": max(
-                within(f"{name} O", o, o_ref, dtype),
-                within(f"{name} lse", lse, lse_ref, torch.float32),
-            ),
-            "flash_bwd_dq": within(f"{name} dQ", dq, dq_ref, dtype),
-            "flash_bwd_dkv": max(
-                within(f"{name} dK", dk, dk_ref, dtype),
-                within(f"{name} dV", dv, dv_ref, dtype),
-            ),
+        f32_tol = TOL[torch.float32, "fma"]
+        checks = {
+            "flash_fwd": [within(f"{name} O", o, o_ref, tol["flash_fwd"]),
+                          within(f"{name} lse", lse, lse_ref, f32_tol)],
+            "flash_bwd_dq": [within(f"{name} dQ", dq, dq_ref, tol["flash_bwd_dq"])],
+            "flash_bwd_dkv": [within(f"{name} dK", dk, dk_ref, tol["flash_bwd_dkv"]),
+                              within(f"{name} dV", dv, dv_ref, tol["flash_bwd_dkv"])],
         }
+        errs = {kname: max(e for e, _ in c) for kname, c in checks.items()}
         line = {"shape": name, "dtype": str(dtype).removeprefix("torch."),
                 "B": b, "H": h, "Hkv": hkv, "S": s, "hd": hd, "causal": causal,
-                "max_abs_err": errs, "tolerance": {"atol_of_max": TOL[dtype][0], "rtol": TOL[dtype][1],
-                                                  "reason": TOL_REASON[dtype]}}
+                "variant": variant, "max_abs_err": errs,
+                "atol_of_max_needed": {kname: max(n for _, n in c) for kname, c in checks.items()},
+                "tolerance": {kname: {"atol_of_max": tol[kname][0], "rtol": tol[kname][1],
+                                      "reason": TOL_REASON[dtype, variant[kname]]}
+                              for kname in errs}}
         if name == "train_bf16":
             timing = time_train_shape(q, k, v, do, lse_ref, delta, causal, b, h, hkv, s, hd)
             bnd = bounds(dtype, b, h, hkv, s, hd, causal)
             for kname in errs:
-                results[kname] = {"max_abs_err": errs[kname], **timing[kname], **bnd[kname]}
-            line["timing"] = {k2: {**timing[k2], **bnd[k2]} for k2 in errs}
+                t = timing[kname]
+                rate = {"tflops": bnd[kname]["flops"] / (t["ms"] * 1e-3) / 1e12,
+                        "bound_share": bnd[kname]["bound_ms"] / t["ms"]}
+                results[kname] = {"variant": variant[kname], "max_abs_err": errs[kname],
+                                  **t, **bnd[kname], **rate}
+            line["timing"] = {k2: results[k2] for k2 in errs}
         emit(phase="kernels", ok=True, **line)
         del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
         torch.cuda.empty_cache()
@@ -202,15 +248,17 @@ def time_train_shape(q, k, v, do, lse, delta, causal, b, h, hkv, s, hd) -> dict:
     ms = {
         "flash_fwd": (
             cuda_ms(lambda: fa.flash_fwd(q, k, v, causal)),
-            cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, causal), runs=5),
+            cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, causal), runs=5, reps=1),
         ),
         "flash_bwd_dq": (
             cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)),
-            cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), runs=5),
+            cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), runs=5,
+                    reps=1),
         ),
         "flash_bwd_dkv": (
             cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)),
-            cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal), runs=5),
+            cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal), runs=5,
+                    reps=1),
         ),
     }
     # yardstick only: torch's fused attention on the same inputs in its
@@ -285,6 +333,7 @@ def phase_train(smi: str) -> dict:
     fa.reset_launch_counts()
     summary = train(cfg, device="cuda")
     launches = fa.launch_counts()
+    variants = fa.variant_counts()
     losses = summary["losses"]
     if not all(math.isfinite(x) for step in losses for x in step):
         fail("train", f"non-finite loss: {losses}")
@@ -294,13 +343,19 @@ def phase_train(smi: str) -> dict:
         fail("train", f"snapshot unchanged by an outer step: {summary['snapshot_changed']}")
     if min(launches.values()) == 0:
         fail("train", f"a kernel was not launched on the main path: {launches}")
+    # the bf16 hd-128 round: B1 and B3 only through the tensor cores, B2 on FMA
+    if (variants["flash_fwd"]["fma"] or variants["flash_bwd_dkv"]["fma"]
+            or not variants["flash_fwd"]["wgmma"] or not variants["flash_bwd_dkv"]["wgmma"]
+            or not variants["flash_bwd_dq"]["fma"]):
+        fail("train", f"the main path did not run the routed variants: {variants}")
     emit(phase="train", ok=True, nvidia_smi=smi, num_params=summary["num_params"],
          losses=losses, snapshot_changed=summary["snapshot_changed"],
          tokens=summary["tokens"], seconds=summary["seconds"],
          round_seconds=summary["round_seconds"],
          tokens_per_sec=summary["tokens_per_sec"],
          tokens_per_sec_after_first_round=summary["tokens_per_sec_after_first_round"],
-         peak_memory_bytes=summary["peak_memory_bytes"], launches=launches)
+         peak_memory_bytes=summary["peak_memory_bytes"], launches=launches,
+         variant_launches=variants)
     return launches
 
 
@@ -323,8 +378,8 @@ def main() -> None:
     launches = phase_train(smi)
 
     emit(kernels=[
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], **kernels[name]}
+        {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],
+         "replaces": REPLACES[name], "launches": launches[name], **kernels[name]}
         for name in REPLACES
     ])
     print(smi, flush=True)

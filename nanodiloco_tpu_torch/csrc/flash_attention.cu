@@ -28,11 +28,13 @@
 // Bound on the H100. At the training shape (hd 128, S 2048, causal) each
 // kernel does 2 (B1), 3 (B2) or 4 (B3) S x S x hd products per head against
 // O(S x hd) bytes per head, far above the card's ~295 flop/byte ridge: the
-// work is bound by operations. This first version computes those products as
+// work is bound by operations. These kernels compute those products as
 // float32 FMAs from shared memory (64 x 64 tiles, a 4 x 4 or 4 x hd/16
-// register tile per thread), not on the tensor cores, so it runs at a small
-// fraction of the bf16 tensor-core peak. Moving the products to wgmma with
-// TMA-fed tiles is the redesign that closes that gap.
+// register tile per thread) on the CUDA cores, whose float32 peak is
+// 67 TFLOP/s. They serve every float32 case (wgmma has no float32 path, and
+// TF32 would not hold the float32 tolerance), bf16 at hd 32 and 64, and B2
+// everywhere; bf16 B1 and B3 at hd 128 run on the tensor cores in
+// flash_attention_tc.cu (route table in ops/cuda/flash_attention.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

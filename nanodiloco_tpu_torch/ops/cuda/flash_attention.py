@@ -1,8 +1,7 @@
-"""Flash attention on Hopper: three hand-written CUDA kernels behind one
+"""Flash attention on Hopper: hand-written CUDA kernels behind one
 ``torch.autograd.Function``.
 
-Port of ``nanodiloco_tpu/ops/pallas/flash_attention.py``. The kernels
-live in ``nanodiloco_tpu_torch/csrc/flash_attention.cu``:
+Port of ``nanodiloco_tpu/ops/pallas/flash_attention.py``:
 
 ==  ==========================  ==============================================
 B1  ``flash_fwd``               replaces ``_fwd_call`` / ``_fwd_kernel``
@@ -10,17 +9,27 @@ B2  ``flash_bwd_dq``            replaces ``_flash_bwd`` / ``_bwd_dq_kernel``
 B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 ==  ==========================  ==============================================
 
+Each kernel comes in up to two variants, and ``ROUTES`` names the one
+that serves each (kernel, dtype, head dim):
+
+- ``wgmma``: tensor-core kernels for bf16 at hd 128 (B1, B3), wgmma fed
+  by TMA (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``);
+- ``fma``: float32 FMA kernels from shared memory for every other case
+  (``nanodiloco_tpu_torch/csrc/flash_attention.cu``). wgmma has no
+  float32 path, and TF32 would not hold the float32 tolerance.
+
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
-CUDA tensor it launches its kernel, adds one to its ``launches`` count
-and raises if the launch fails; on a CPU tensor it runs its plain
-version (same decomposition: forward returns (O, lse); dQ and dK/dV are
-recomputed from lse and delta). There is no other path.
+CUDA tensor it launches the routed kernel, adds one to its ``launches``
+count and to its variant's count, and raises if the launch fails; on a
+CPU tensor it runs its plain version (same decomposition: forward
+returns (O, lse); dQ and dK/dV are recomputed from lse and delta). There
+is no other path and no fallback from one variant to another.
 
 What bounds them on the H100: at the training shape (hd 128, S 2048,
 causal) every kernel does 2-4 S x S x hd products per head on O(S x hd)
-bytes, so operations bound all three (see the note at the top of the
-CUDA source for the design and the gap to the tensor-core peak).
+bytes, so operations bound all three (see the notes at the top of the
+CUDA sources for the designs).
 """
 
 from __future__ import annotations
@@ -36,6 +45,15 @@ from nanodiloco_tpu_torch.ops.online_softmax import NEG_INF, block_update
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+VARIANTS = ("fma", "wgmma")
+# the variant that serves each (kernel, dtype, head dim): tensor cores for
+# bf16 B1 and B3 at hd 128, the FMA kernels everywhere else
+_WGMMA = {("flash_fwd", torch.bfloat16, 128), ("flash_bwd_dkv", torch.bfloat16, 128)}
+ROUTES = {
+    (name, dtype, hd): "wgmma" if (name, dtype, hd) in _WGMMA else "fma"
+    for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS
+}
 _MAX_GRID_Y = 65535
 # K/V rows per step of the plain versions (their memory is O(S x block))
 PLAIN_BLOCK = 512
@@ -55,10 +73,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _raise_on(rc: int, name: str) -> None:
+@functools.cache
+def _tc_lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention_tc")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nd_flash_fwd_tc.argtypes = [I] + [P] * 5 + [I] * 5 + [F, P]
+    lib.nd_flash_bwd_dkv_tc.argtypes = [I] + [P] * 8 + [I] * 5 + [F, P]
+    for fn in (lib.nd_flash_fwd_tc, lib.nd_flash_bwd_dkv_tc):
+        fn.restype = I
+    lib.nd_tc_error_string.argtypes = [I]
+    lib.nd_tc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(rc: int, name: str, variant: str = "fma") -> None:
     if rc != 0:
-        msg = _lib().nd_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed ({rc}): {msg}")
+        if variant == "wgmma":
+            msg = _tc_lib().nd_tc_error_string(rc).decode()
+        else:
+            msg = _lib().nd_error_string(rc).decode()
+        raise RuntimeError(f"{name} ({variant}) kernel launch failed ({rc}): {msg}")
+
+
+def _counted(fn, variant: str) -> None:
+    fn.launches += 1
+    fn.variant_launches[variant] += 1
 
 
 def _check(name: str, q, k, v, *same_as_q, stats=()) -> None:
@@ -74,6 +113,9 @@ def _check(name: str, q, k, v, *same_as_q, stats=()) -> None:
         raise ValueError(f"{name}: lse and delta must be float32")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: every tensor must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        # TMA reads from 16-byte aligned addresses only
+        raise ValueError(f"{name}: every tensor must start on a 16-byte boundary")
     if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape:
         raise ValueError(
             f"{name}: want q [BH, Sq, hd], k = v [BH/group, Sk, hd]; got "
@@ -192,16 +234,18 @@ def flash_fwd(q, k, v, causal: bool):
         return flash_fwd_plain(q, k, v, causal)
     _check("flash_fwd", q, k, v)
     bh, sq, hd = q.shape
+    variant = ROUTES["flash_fwd", q.dtype, hd]
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), device=q.device, dtype=torch.float32)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
+    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        rc = _lib().nd_flash_fwd(
-            _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, bh // k.shape[0], sq, k.shape[1],
-            int(causal), 1.0 / math.sqrt(hd), _stream(q),
-        )
-    _raise_on(rc, "flash_fwd")
-    flash_fwd.launches += 1
+        if variant == "wgmma":
+            rc = _tc_lib().nd_flash_fwd_tc(hd, *ptrs, *shape, _stream(q))
+        else:
+            rc = _lib().nd_flash_fwd(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
+    _raise_on(rc, "flash_fwd", variant)
+    _counted(flash_fwd, variant)
     return o, lse
 
 
@@ -220,7 +264,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
             _stream(q),
         )
     _raise_on(rc, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _counted(flash_bwd_dq, ROUTES["flash_bwd_dq", q.dtype, hd])
     return dq
 
 
@@ -231,32 +275,43 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
     _check("flash_bwd_dkv", q, k, v, do, stats=(lse, delta))
     bh, sq, hd = q.shape
+    variant = ROUTES["flash_bwd_dkv", q.dtype, hd]
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        rc = _lib().nd_flash_bwd_dkv(
-            _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, bh // k.shape[0], sq, k.shape[1], int(causal),
-            1.0 / math.sqrt(hd), _stream(q),
-        )
-    _raise_on(rc, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+        if variant == "wgmma":
+            rc = _tc_lib().nd_flash_bwd_dkv_tc(hd, *ptrs, *shape, _stream(q))
+        else:
+            rc = _lib().nd_flash_bwd_dkv(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
+    _raise_on(rc, "flash_bwd_dkv", variant)
+    _counted(flash_bwd_dkv, variant)
     return dk, dv
 
 
 KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
-for _fn in KERNELS:
-    _fn.launches = 0
+
+
+def reset_launch_counts() -> None:
+    """Zero both counts: ``launch_counts`` and ``variant_counts``."""
+    for fn in KERNELS:
+        fn.launches = 0
+        fn.variant_launches = dict.fromkeys(VARIANTS, 0)
+
+
+reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
+def variant_counts() -> dict[str, dict[str, int]]:
+    """Launches of each kernel by variant, e.g.
+    ``{"flash_fwd": {"fma": 0, "wgmma": 4}, ...}``."""
+    return {fn.__name__: dict(fn.variant_launches) for fn in KERNELS}
 
 
 class FlashAttention(torch.autograd.Function):

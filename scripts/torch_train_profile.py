@@ -8,8 +8,8 @@ Runs the train phase of chip_smoke.py (Llama-3-8B width, depth cut to
 flash attention, bf16 compute over f32 master weights): one warm-up round,
 then one round under ``torch.profiler``. Prints one JSON line with the
 round's wall time, the device's busy and idle share, device time by group
-(the flash kernels, matrix products, the AdamW and SGD steps, the other
-kernels), the top kernels and the host ops that launched the most device
+(the flash kernels, with each kernel's own share, matrix products, the
+AdamW and SGD steps, the other kernels), the top kernels and the host ops that launched the most device
 time, and writes the Chrome trace to ``--out``. Needs a
 CUDA card; fails without one.
 """
@@ -35,7 +35,10 @@ from nanodiloco_tpu_torch.data.tokenizer import ByteTokenizer  # noqa: E402
 from nanodiloco_tpu_torch.models.config import LLAMA3_8B  # noqa: E402
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig  # noqa: E402
 
-FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")
+# kernel symbol names: the FMA kernels of csrc/flash_attention.cu and the
+# tensor-core kernels of csrc/flash_attention_tc.cu
+FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+         "flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")
 GEMM = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 
@@ -101,9 +104,12 @@ def main() -> None:
         if e.key.startswith("Optimizer.step#") and e.device_type == torch.autograd.DeviceType.CPU
     }
     groups = {"flash_kernels": 0.0, "matmul": 0.0, "other_kernels": 0.0}
+    flash = dict.fromkeys(FLASH, 0.0)
     for e in kernels:
-        if any(f in e.key for f in FLASH):
+        hit = [f for f in FLASH if f in e.key]
+        if hit:
             groups["flash_kernels"] += device_time(e)
+            flash[hit[0]] += device_time(e)
         elif any(g in e.key.lower() for g in GEMM):
             groups["matmul"] += device_time(e)
         else:
@@ -128,6 +134,7 @@ def main() -> None:
         "device_busy_ms": busy / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy / wall_us),
         "groups_ms": {k: v / 1e3 for k, v in groups.items()},
+        "flash_ms": {k: v / 1e3 for k, v in flash.items() if v},
         "top_kernels": [
             {"name": e.key[:120], "ms": device_time(e) / 1e3, "calls": e.count} for e in top
         ],

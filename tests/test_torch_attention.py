@@ -127,6 +127,8 @@ def test_dispatcher_rejects_unknown_impl_and_bad_heads():
         (lambda q, k, v: (q[..., :16].contiguous(), k[..., :16].contiguous(),
                           v[..., :16].contiguous()), "head dim"),
         (lambda q, k, v: (q, torch.zeros(3, 64, 32), torch.zeros(3, 64, 32)), "must divide"),
+        # contiguous, but 4 bytes past an aligned start: TMA cannot read it
+        (lambda q, k, v: (torch.zeros(q.numel() + 1)[1:].view(q.shape), k, v), "16-byte"),
     ],
 )
 def test_wrapper_checks_raise_on_what_the_kernel_does_not_take(bad, match):
@@ -140,3 +142,14 @@ def test_cpu_tensors_never_launch():
     q = torch.randn(1, 16, 2, 32, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert fa.variant_counts() == {name: {"fma": 0, "wgmma": 0} for name in fa.KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("name", fa.KERNEL_NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_route_table(name, dtype, hd):
+    """bf16 at hd 128 goes to the tensor-core kernels for B1 and B3; every
+    float32 case, the other head dims and B2 go to the FMA kernels."""
+    tensor_cores = dtype == torch.bfloat16 and hd == 128 and name != "flash_bwd_dq"
+    assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
