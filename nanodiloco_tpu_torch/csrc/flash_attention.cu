@@ -32,9 +32,9 @@
 // float32 FMAs from shared memory (64 x 64 tiles, a 4 x 4 or 4 x hd/16
 // register tile per thread) on the CUDA cores, whose float32 peak is
 // 67 TFLOP/s. They serve every float32 case (wgmma has no float32 path, and
-// TF32 would not hold the float32 tolerance), bf16 at hd 32 and 64, and B2
-// everywhere; bf16 B1 and B3 at hd 128 run on the tensor cores in
-// flash_attention_tc.cu (route table in ops/cuda/flash_attention.py).
+// TF32 would not hold the float32 tolerance) and bf16 at hd 32 and 64; bf16
+// at hd 128 runs on the tensor cores in flash_attention_tc.cu (route table in
+// ops/cuda/flash_attention.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -461,7 +461,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Supported head dims: 32, 64, 128.
+// dtype: 0 = float32 at head dims 32, 64, 128; 1 = bfloat16 at 32 and 64
+// (bf16 at 128 runs on the tensor cores, in flash_attention_tc.cu).
 #define ND_DISPATCH(LAUNCH, ...)                                              \
   {                                                                           \
     if (dtype == 0) {                                                         \
@@ -471,7 +472,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     } else if (dtype == 1) {                                                  \
       if (hd == 32) return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);            \
       if (hd == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);            \
-      if (hd == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);          \
     }                                                                         \
     return -1;                                                                \
   }

@@ -1,21 +1,22 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16 at head dim 128:
-// forward (B1) and dK/dV (B3). The float32 path, the other head dims and dQ
-// (B2) run on the FMA kernels of flash_attention.cu; ops/cuda/flash_attention.py
+// forward (B1), dQ (B2) and dK/dV (B3). The float32 path and the other head
+// dims run on the FMA kernels of flash_attention.cu; ops/cuda/flash_attention.py
 // holds the route table that picks one kernel per (kernel, dtype, head dim).
 //
 // Replaces the Pallas TPU kernels of nanodiloco_tpu/ops/pallas/flash_attention.py:
 //   B1 flash_fwd_tc_kernel      <- _fwd_call / _fwd_kernel
+//   B2 flash_bwd_dq_tc_kernel   <- _flash_bwd / _bwd_dq_kernel
 //   B3 flash_bwd_dkv_tc_kernel  <- _flash_bwd / _bwd_dkv_kernel
-// Layouts are the TPU kernels' own: q, o, dO [BH, Sq, 128]; k, v, dK, dV
+// Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, 128]; k, v, dK, dV
 // [BH / group, Sk, 128] (GQA: query head bh reads KV head bh / group); lse and
 // delta [BH, Sq] float32.
 //
-// What bounds them. At the training shape (S 2048, causal) B1 does two and B3
-// four S x S x 128 products per head on O(S x 128) bytes, some 300x above the
-// card's ~295 flop/byte ridge: both are bound by operations, and only the
-// tensor cores (wgmma, 989 TFLOP/s in bf16) come near that bound. The FMA
-// kernels they replace ran on the CUDA cores (67 TFLOP/s in f32) and reached
-// about 22 of those.
+// What bounds them. At the training shape (S 2048, causal) B1 does two, B2
+// three and B3 four S x S x 128 products per head on O(S x 128) bytes, some
+// 300x above the card's ~295 flop/byte ridge: all are bound by operations, and
+// only the tensor cores (wgmma, 989 TFLOP/s in bf16) come near that bound. The
+// FMA kernels they replace ran on the CUDA cores (67 TFLOP/s in f32) and
+// reached about 22 of those.
 //
 // Design (the PTX building blocks are in hopper.cuh):
 //   B1: one CTA per (bh, 128-row q tile), longest causal rows first. Two
@@ -36,15 +37,27 @@
 //       P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) in registers,
 //       then dV += P^T dO and dK += dS^T Q (RS wgmma, dO and Q MN-major). The
 //       group sum stays in the CTA's registers: no atomics, deterministic.
-// P and dS are rounded to bf16 as the left operand of the second product, as
-// every tensor-core flash attention does; the plain versions keep them in
-// float32, so the tolerance against them is wider than one output ulp.
+//   B2: B1's grid and threads, with the online softmax replaced by the saved
+//       lse. Q and dO stay resident (loaded once by TMA); the producer streams
+//       64-key K and V tiles through a two-stage ring. Per tile each consumer
+//       warpgroup issues S = Q K^T and dP = dO V^T back to back (SS wgmma,
+//       m64n64k16, all K-major), forms P = exp(S scale - lse) and
+//       dS = P (dP - delta) in registers, and adds dQ += dS K (RS wgmma, K
+//       MN-major, the same shared tile read through a second descriptor).
+//       64-key tiles, not B1's 128, keep a consumer thread near 150
+//       registers: dQ (64) + S (32) + dP (32) + packed dS (16); 128-key tiles
+//       would need over 224, more than 288 threads can hold without spills.
+//       Each CTA owns its dQ rows: no atomics, deterministic.
+// P (B1) and P and dS (B3, B2) are rounded to bf16 as the left operand of the
+// last product, as every tensor-core flash attention does; the plain versions
+// keep them in float32, so the tolerance against them is wider than one
+// output ulp.
 //
 // Ragged lengths: tensor maps are 3-D {128, S, heads}, so rows past S read as
 // zeros inside each head. Zero rows are not masked rows: key columns >= Sk
-// are set to -inf in B1, and query columns >= Sq get lse = +inf in B3, so
-// their p is 0. A fully masked row keeps m = -inf, gets p = 0 and corr = 0,
-// and ends with O = 0 and lse = -inf, never NaN.
+// are set to -inf in B1 and their p to 0 in B2, and query rows >= Sq get
+// lse = +inf in B3 and B2, so their p is 0. A fully masked row keeps m = -inf,
+// gets p = 0 and corr = 0, and ends with O = 0 and lse = -inf, never NaN.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,6 +237,179 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       if ((lane & 3) == 0)
         lse[static_cast<size_t>(bh) * sq + row] =
             l[h] > 0.f ? (m[h] + log2f(l[h])) * kLn2 : -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B2: dQ. grid (BH, n q tiles), blockIdx.y reversed as in B1. Threads 0-255
+// are the two consumer warpgroups, 256-287 the producer warp.
+// ---------------------------------------------------------------------------
+constexpr int kDqRows = 128;                          // q rows per CTA
+constexpr int kDqKeys = 64;                           // keys per K/V tile
+constexpr int kDqThreads = 288;
+constexpr int kDqStages = 2;
+constexpr uint32_t kDqRowBox = kDqRows * 128;         // a 64-column box of Q or dO: 16 KB
+constexpr uint32_t kDqKeyBox = kDqKeys * 128;         // a 64-column box of K or V: 8 KB
+constexpr uint32_t kDqQ = 0;
+constexpr uint32_t kDqDo = 2 * kDqRowBox;
+constexpr uint32_t kDqKv = 4 * kDqRowBox;             // stage s: K at + 4 s key boxes, V + 2 boxes
+constexpr uint32_t kDqBars = kDqKv + kDqStages * 4 * kDqKeyBox;
+constexpr size_t kDqSmem = 1024 + kDqBars + 64;
+
+__global__ void __launch_bounds__(kDqThreads, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap do_map,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           __nv_bfloat16* __restrict__ dq, int group, int sq, int sk, int causal,
+                           float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base + kDqQ, sdO = base + kDqDo;
+  const uint32_t bars = base + kDqBars;
+  const uint32_t qdo_full = bars;
+  // stage s: full at bars + 8 + 8 s, empty at bars + 8 + 8 (kDqStages + s)
+  auto full = [&](int s) { return bars + 8 + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 + 8 * (kDqStages + s); };
+  auto tile_k = [&](int s) { return base + kDqKv + 4 * kDqKeyBox * s; };
+  auto tile_v = [&](int s) { return base + kDqKv + 4 * kDqKeyBox * s + 2 * kDqKeyBox; };
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
+  const int nk = (sk + kDqKeys - 1) / kDqKeys;
+  const int last_q = min(q0 + kDqRows, sq) - 1;
+  const int n_kt = causal ? min(nk, last_q / kDqKeys + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer warp: one thread issues every TMA load ----
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      mbar_arrive_expect_tx(qdo_full, 4 * kDqRowBox);
+      tma_load_3d(sQ, &q_map, qdo_full, 0, q0, bh);
+      tma_load_3d(sQ + kDqRowBox, &q_map, qdo_full, 64, q0, bh);
+      tma_load_3d(sdO, &do_map, qdo_full, 0, q0, bh);
+      tma_load_3d(sdO + kDqRowBox, &do_map, qdo_full, 64, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kDqStages;
+        mbar_wait(empty(s), ((kt / kDqStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(full(s), 4 * kDqKeyBox);
+        tma_load_3d(tile_k(s), &k_map, full(s), 0, kt * kDqKeys, bkv);
+        tma_load_3d(tile_k(s) + kDqKeyBox, &k_map, full(s), 64, kt * kDqKeys, bkv);
+        tma_load_3d(tile_v(s), &v_map, full(s), 0, kt * kDqKeys, bkv);
+        tma_load_3d(tile_v(s) + kDqKeyBox, &v_map, full(s), 64, kt * kDqKeys, bkv);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: q rows q0 + 64 wg .. + 63 ----
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int row_lo = q0 + 64 * wg + 16 * warp + (lane >> 2);  // and row_lo + 8
+    const int row_min = q0 + 64 * wg;
+    // Under the causal mask the first warpgroup sees no key of the CTA's last
+    // tile. It skips that one tile: the ring ends there, so no later load
+    // waits for its release.
+    const int n_kt_wg = causal ? min(n_kt, min(row_min + 63, last_q) / kDqKeys + 1) : n_kt;
+    const float c = scale * kLog2e;
+    const uint32_t qa = sQ + wg * 64 * 128;
+    const uint32_t doa = sdO + wg * 64 * 128;
+
+    // this thread's two rows, in registers for the whole loop; lse = +inf
+    // past Sq makes p = exp2(s - lse) exactly 0 there
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 8 * h;
+      const size_t at = static_cast<size_t>(bh) * sq + row;
+      lse2[h] = row < sq ? lse[at] * kLog2e : INFINITY;
+      dlt[h] = row < sq ? delta[at] : 0.f;
+    }
+
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+    mbar_wait(qdo_full, 0);
+    for (int kt = 0; kt < n_kt_wg; ++kt) {
+      const int s = kt % kDqStages;
+      mbar_wait(full(s), (kt / kDqStages) & 1);
+
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off_q = (kk >> 2) * kDqRowBox + (kk & 3) * 32;
+        const uint32_t off_k = (kk >> 2) * kDqKeyBox + (kk & 3) * 32;
+        wgmma_m64n64k16_ss(sc, smem_desc(qa + off_q, 16, 1024),
+                           smem_desc(tile_k(s) + off_k, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off_q = (kk >> 2) * kDqRowBox + (kk & 3) * 32;
+        const uint32_t off_k = (kk >> 2) * kDqKeyBox + (kk & 3) * 32;
+        wgmma_m64n64k16_ss(dp, smem_desc(doa + off_q, 16, 1024),
+                           smem_desc(tile_v(s) + off_k, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sc);
+      fence_regs(dp);
+
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = exp2f(fmaf(sc[i], c, -lse2[(i >> 1) & 1]));
+      const int kb = kt * kDqKeys;
+      if (kb + kDqKeys > sk || (causal && kb + kDqKeys - 1 > row_min)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = kb + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+          const int row = row_lo + 8 * ((i >> 1) & 1);
+          if (col >= sk || (causal && col > row)) sc[i] = 0.f;
+        }
+      }
+      uint32_t dsf[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int h = j & 1;  // registers 2 j, 2 j + 1 share row half (2 j / 2) % 2
+        dsf[j] = pack_bf16(sc[2 * j] * (dp[2 * j] - dlt[h]),
+                           sc[2 * j + 1] * (dp[2 * j + 1] - dlt[h]));
+      }
+
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n128k16_rs_tb(acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                               smem_desc(tile_k(s) + kk * 16 * 128, kDqKeyBox, 1024), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      fence_regs(dsf);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 8 * h;
+      if (row >= sq) continue;
+      uint32_t* out = reinterpret_cast<uint32_t*>(dq + (static_cast<size_t>(bh) * sq + row) * kHd);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        out[4 * j + (lane & 3)] =
+            pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
     }
   }
 }
@@ -446,6 +632,23 @@ int nd_flash_fwd_tc(int hd, const void* q, const void* k, const void* v, void* o
   const dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows);
   flash_fwd_tc_kernel<<<grid, kFwdThreads, kFwdSmem, static_cast<cudaStream_t>(stream)>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, group, sq, sk, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int nd_flash_bwd_dq_tc(int hd, const void* q, const void* k, const void* v, const void* dout,
+                       const float* lse, const float* delta, void* dq, int bh, int group, int sq,
+                       int sk, int causal, float scale, void* stream) {
+  if (hd != kHd) return kErrHeadDim;
+  CUtensorMap qm, km, vm, dom;
+  if (!bf16_rows_map(&qm, q, bh, sq, kDqRows) || !bf16_rows_map(&km, k, bh / group, sk, kDqKeys) ||
+      !bf16_rows_map(&vm, v, bh / group, sk, kDqKeys) || !bf16_rows_map(&dom, dout, bh, sq, kDqRows))
+    return kErrTensorMap;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDqSmem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_tc_kernel<<<grid, kDqThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
+      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), group, sq, sk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

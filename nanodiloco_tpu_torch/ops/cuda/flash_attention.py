@@ -12,8 +12,8 @@ B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 Each kernel comes in up to two variants, and ``ROUTES`` names the one
 that serves each (kernel, dtype, head dim):
 
-- ``wgmma``: tensor-core kernels for bf16 at hd 128 (B1, B3), wgmma fed
-  by TMA (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``);
+- ``wgmma``: tensor-core kernels for bf16 at hd 128 (B1, B2, B3), wgmma
+  fed by TMA (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``);
 - ``fma``: float32 FMA kernels from shared memory for every other case
   (``nanodiloco_tpu_torch/csrc/flash_attention.cu``). wgmma has no
   float32 path, and TF32 would not hold the float32 tolerance.
@@ -48,10 +48,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 VARIANTS = ("fma", "wgmma")
 # the variant that serves each (kernel, dtype, head dim): tensor cores for
-# bf16 B1 and B3 at hd 128, the FMA kernels everywhere else
-_WGMMA = {("flash_fwd", torch.bfloat16, 128), ("flash_bwd_dkv", torch.bfloat16, 128)}
+# bf16 at hd 128, the FMA kernels everywhere else
 ROUTES = {
-    (name, dtype, hd): "wgmma" if (name, dtype, hd) in _WGMMA else "fma"
+    (name, dtype, hd): "wgmma" if (dtype, hd) == (torch.bfloat16, 128) else "fma"
     for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS
 }
 _MAX_GRID_Y = 65535
@@ -78,8 +77,9 @@ def _tc_lib() -> ctypes.CDLL:
     lib = build.library("flash_attention_tc")
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nd_flash_fwd_tc.argtypes = [I] + [P] * 5 + [I] * 5 + [F, P]
+    lib.nd_flash_bwd_dq_tc.argtypes = [I] + [P] * 7 + [I] * 5 + [F, P]
     lib.nd_flash_bwd_dkv_tc.argtypes = [I] + [P] * 8 + [I] * 5 + [F, P]
-    for fn in (lib.nd_flash_fwd_tc, lib.nd_flash_bwd_dkv_tc):
+    for fn in (lib.nd_flash_fwd_tc, lib.nd_flash_bwd_dq_tc, lib.nd_flash_bwd_dkv_tc):
         fn.restype = I
     lib.nd_tc_error_string.argtypes = [I]
     lib.nd_tc_error_string.restype = ctypes.c_char_p
@@ -255,16 +255,18 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
     _check("flash_bwd_dq", q, k, v, do, stats=(lse, delta))
     bh, sq, hd = q.shape
+    variant = ROUTES["flash_bwd_dq", q.dtype, hd]
     dq = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr())
+    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        rc = _lib().nd_flash_bwd_dq(
-            _DTYPE_CODE[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh,
-            bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd),
-            _stream(q),
-        )
-    _raise_on(rc, "flash_bwd_dq")
-    _counted(flash_bwd_dq, ROUTES["flash_bwd_dq", q.dtype, hd])
+        if variant == "wgmma":
+            rc = _tc_lib().nd_flash_bwd_dq_tc(hd, *ptrs, *shape, _stream(q))
+        else:
+            rc = _lib().nd_flash_bwd_dq(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
+    _raise_on(rc, "flash_bwd_dq", variant)
+    _counted(flash_bwd_dq, variant)
     return dq
 
 

@@ -38,7 +38,7 @@ from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig  # noqa: E
 # kernel symbol names: the FMA kernels of csrc/flash_attention.cu and the
 # tensor-core kernels of csrc/flash_attention_tc.cu
 FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-         "flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel")
+         "flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
 GEMM = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 

@@ -22,6 +22,7 @@ import torch
 
 from nanodiloco_tpu.ops.pallas.flash_attention import _fwd_call, pallas_flash_attention
 from nanodiloco_tpu_torch.models.llama import dense_attention
+from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.ops.cuda import flash_attention as fa
 from nanodiloco_tpu_torch.ops.flash_attention import flash_attention
 from nanodiloco_tpu_torch.ops.online_softmax import block_update, finalize_grouped
@@ -149,7 +150,74 @@ def test_cpu_tensors_never_launch():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 at hd 128 goes to the tensor-core kernels for B1 and B3; every
-    float32 case, the other head dims and B2 go to the FMA kernels."""
-    tensor_cores = dtype == torch.bfloat16 and hd == 128 and name != "flash_bwd_dq"
+    """bf16 at hd 128 goes to the tensor-core kernels for B1, B2 and B3;
+    every float32 case and the other head dims go to the FMA kernels."""
+    tensor_cores = dtype == torch.bfloat16 and hd == 128
     assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
+
+
+def tensor_core_dq(q, k, v, do, lse, delta, causal):
+    """The tensor-core B2's numerics in plain float32: S and dP from the bf16
+    inputs with float32 sums, as the plain version has them, but dS rounded
+    to bf16 before dQ = dS K (it is the register operand of that wgmma),
+    then scaled and rounded to bf16 as the kernel's epilogue does."""
+    g = q.shape[0] // k.shape[0]
+    kf, vf = (x.float().repeat_interleave(g, dim=0) for x in (k, v))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), kf.transpose(1, 2)) * scale
+    p = torch.exp(s - lse)
+    if causal:
+        p = p.tril()
+    ds = p * (torch.matmul(do.float(), vf.transpose(1, 2)) - delta)
+    return (torch.matmul(ds.to(torch.bfloat16).float(), kf) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group, s", [(1, 64), (4, 200)])
+def test_tensor_core_dq_rounding_within_its_tolerance(group, s, causal):
+    """The tolerance chip_smoke.py holds the tensor-core B2 to, (atol 2**-8
+    of max|ref|, rtol 2**-7), covers rounding dS to bf16 before the last
+    product: the kernel's numerics, emulated on the CPU, stay within it of
+    flash_bwd_dq_plain at hd 128, causal and not, MHA and GQA 4."""
+    bh, hd = 8, 128
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
+        (bh, s, hd), (bh // group, s, hd), (bh // group, s, hd), (bh, s, hd), seed=3))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal).float()
+    got = tensor_core_dq(q, k, v, do, lse, delta, causal).float()
+    assert not torch.equal(got, want)  # the rounding of dS shows in dQ
+    torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * want.abs().max().item())
+
+
+def test_tensor_core_build_failure_raises(tmp_path, monkeypatch):
+    """A failed build of the tensor-core kernels raises when their library
+    is first asked for; nothing falls back to the FMA kernels."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\nexit 1\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path / "kernels")
+    fa._tc_lib.cache_clear()
+    build.library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="kernel build failed"):
+            fa._tc_lib()
+    finally:
+        fa._tc_lib.cache_clear()
+        build.library.cache_clear()
+
+
+def test_tensor_core_launch_failure_raises(monkeypatch):
+    """A launcher's non-zero return code raises with the tensor-core
+    library's message; the wrapper counts a launch only after this check."""
+
+    class Lib:
+        @staticmethod
+        def nd_tc_error_string(rc):
+            return b"too many resources requested for launch"
+
+    monkeypatch.setattr(fa, "_tc_lib", lambda: Lib)
+    fa._raise_on(0, "flash_bwd_dq", "wgmma")
+    with pytest.raises(RuntimeError, match=r"flash_bwd_dq \(wgmma\).*too many resources"):
+        fa._raise_on(7, "flash_bwd_dq", "wgmma")

@@ -12,8 +12,8 @@ FMA kernels compute in float32 from the same inputs as the plain versions
 and differ in summation order, ~1e-6 relative in float32, and bf16
 outputs may land one bf16 ulp (2**-7 relative) apart: atol 2e-3, rtol
 1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16, hd 128) also
-round P and dS to bf16 before the second product, where the plain
-versions keep float32: atol 2**-8.
+round P (B1), dS (B2), P and dS (B3) to bf16 before the last product,
+where the plain versions keep float32: atol 2**-8.
 """
 
 import pytest
@@ -44,7 +44,7 @@ def close(got, want, dtype, variant="fma"):
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernels_match_plain(dtype, hd, causal):
     """B1, B2, B3 at GQA group 4 and a ragged S of 200; bf16 at hd 128 runs
-    the tensor-core kernels for B1 and B3, and their variant counts say so."""
+    the tensor-core kernels for all three, and their variant counts say so."""
     gen = card()
     q, do = (torch.randn(8, 200, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn(2, 200, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
@@ -56,7 +56,8 @@ def test_kernels_match_plain(dtype, hd, causal):
     close(o, o_ref, dtype, variant["flash_fwd"])
     close(lse, lse_ref, torch.float32)
     close(fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),
-          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), dtype)
+          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), dtype,
+          variant["flash_bwd_dq"])
     for got, want in zip(fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal),
                          fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)):
         close(got, want, dtype, variant["flash_bwd_dkv"])
@@ -65,7 +66,26 @@ def test_kernels_match_plain(dtype, hd, causal):
         name: {v: int(v == variant[name]) for v in fa.VARIANTS} for name in fa.KERNEL_NAMES
     }
     if dtype == torch.bfloat16 and hd == 128:
-        assert variant == {"flash_fwd": "wgmma", "flash_bwd_dq": "fma", "flash_bwd_dkv": "wgmma"}
+        assert variant == {"flash_fwd": "wgmma", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}
+
+
+@pytest.mark.cuda
+def test_tensor_core_dq_is_bitwise_deterministic():
+    """Each CTA of the tensor-core B2 owns its dQ rows and sums over the K
+    tiles in one fixed order, without atomics: two launches at a ragged GQA
+    shape (group 4, S 1000, causal) give dQ identical bit for bit."""
+    gen = card()
+    q, do = (torch.randn(8, 1000, 128, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(2, 1000, 128, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = fa.flash_fwd_plain(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    fa.reset_launch_counts()
+    first = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    second = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
+    assert fa.variant_counts()["flash_bwd_dq"] == {"fma": 0, "wgmma": 2}
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
