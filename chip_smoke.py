@@ -6,7 +6,8 @@
 Phases, each printing one JSON line; the first failure exits non-zero:
 
 1. device      - a CUDA card must be present; its name and power limit.
-2. build       - nvcc builds every kernel from nanodiloco_tpu_torch/csrc.
+2. build       - nvcc builds every kernel from nanodiloco_tpu_torch/csrc,
+                 and g++ the tokenshard reader from csrc/tokenshard.cpp.
 3. kernels     - each kernel against its plain PyTorch version on the
                  card, at the training shape (bf16, hd 128), at bf16 hd-128
                  edge shapes (ragged S, non-causal S < one tile, MHA) that
@@ -19,38 +20,79 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 4. train_small - two DiLoCo rounds at a small float32 size from one
                  parameter tree, on the card and on the CPU: the losses
                  and the snapshot must agree.
-5. train       - the port's train(): two DiLoCo rounds at Llama-3-8B
+5. resume      - train() at a small bf16 hd-128 size (2 layers, hidden
+                 1024, 8/4 heads, S 512, W 2, H 2, grad_accum 2, 3 rounds):
+                 two uninterrupted runs (bit-identical or not, and if not,
+                 the first leaf that differs and the spread); one round
+                 with a checkpoint, then a resumed run to round 3, which
+                 must equal the uninterrupted one bit for bit (or within
+                 the measured spread); `python -m nanodiloco_tpu_torch` on
+                 a .tshrd shard in a subprocess, sent SIGTERM after its
+                 first round, must exit 75 with a checkpoint at a round
+                 boundary, and a rerun must finish the remaining rounds;
+                 the checkpoint's bytes, save and restore seconds.
+6. train       - the port's train(): two DiLoCo rounds at Llama-3-8B
                  width (1 layer, W=2 workers, H=2, grad_accum 2, S=2048)
-                 with attention_impl="flash"; every kernel's launch count
-                 must rise during this phase (counts are reset just
-                 before it), and every B1, B2 and B3 launch of this bf16
-                 round must have gone to the tensor-core (wgmma) variant.
+                 with attention_impl="flash", an eval of the snapshot after
+                 each round and the metrics JSONL; every kernel's launch
+                 count must rise during this phase (counts are reset just
+                 before it), every B1, B2 and B3 launch of this bf16 round
+                 must have gone to the tensor-core (wgmma) variant, B1
+                 must launch during the evals, the JSONL must hold one
+                 record per inner step with the eval keys on each round's
+                 last, and `report compare` of the run against itself must
+                 pass. Then the 8B-width state is saved, zeroed, restored
+                 leaf by leaf and checked leaf by leaf against its float64
+                 sums, with the restore's peak device memory (left out,
+                 with a line that says so, if the disk lacks 1.5x the
+                 state's bytes).
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
-{"ok": true, "device": {...}}. Needs one card; builds into build/.
+{"ok": true, "device": {...}}. Needs one card; builds into build/ and
+writes its runs and checkpoints under build/chip_smoke/, removed at the
+end.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import nanodiloco_tpu_torch.ops.cuda.flash_attention as fa
-from nanodiloco_tpu_torch.data.pipeline import DilocoBatcher, pack_corpus, synthetic_corpus
+from nanodiloco_tpu_torch import __main__ as cli
+from nanodiloco_tpu_torch.data import tokenshard
+from nanodiloco_tpu_torch.data.pipeline import (
+    DilocoBatcher,
+    pack_corpus,
+    pack_corpus_to_shard,
+    synthetic_corpus,
+)
 from nanodiloco_tpu_torch.data.tokenizer import ByteTokenizer
 from nanodiloco_tpu_torch.models.config import LLAMA3_8B, LlamaConfig
 from nanodiloco_tpu_torch.models.llama import init_params, tree_leaves
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager, named_leaves, state_tree
+from nanodiloco_tpu_torch.training.metrics import read_jsonl_records, summarize_run
 from nanodiloco_tpu_torch.training.train_loop import TrainConfig, train
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
 
 REPLACES = {
     "flash_fwd": "nanodiloco_tpu/ops/pallas/flash_attention.py:347",
@@ -323,13 +365,168 @@ def phase_train_small() -> None:
          max_rel_err=err, snapshot_max_rel_err=snap_err, tolerance=1e-3)
 
 
-def phase_train(smi: str) -> dict:
-    """Two DiLoCo rounds at Llama-3-8B width, depth cut to one layer."""
+def state_leaves(state) -> list[tuple[str, torch.Tensor]]:
+    """Every tensor a checkpoint holds, by name ("params/layers/wq",
+    "inner_opt_state/embed/exp_avg", ...)."""
+    tree = state_tree(state)
+    del tree["inner_step_count"]
+    return named_leaves(tree)
+
+
+def run_spread(a: dict, b: dict) -> tuple[str | None, float]:
+    """(first state leaf or "losses" that differs between two train()
+    summaries, or None; the largest difference over losses and leaves, as
+    max |a - b| / max |b| per tensor)."""
+    first, spread = None, 0.0
+    pairs = [("losses", torch.tensor(a["losses"]), torch.tensor(b["losses"]))]
+    pairs += [(n, x, y) for (n, x), (_, y) in zip(state_leaves(a["state"]),
+                                                  state_leaves(b["state"]))]
+    for name, x, y in pairs:
+        if not torch.equal(x, y):
+            first = first or name
+            d = (x.double() - y.double()).abs().max() / y.double().abs().max().clamp_min(1e-30)
+            spread = max(spread, float(d))
+    return first, spread
+
+
+# the resume phase's size: bf16 at hd 128, so the tensor-core kernels run
+RESUME_MODEL = LlamaConfig(
+    vocab_size=384, hidden_size=1024, intermediate_size=4096, num_hidden_layers=2,
+    num_attention_heads=8, num_key_value_heads=4, dtype="bfloat16", remat=True,
+    attention_impl="flash",
+)
+RESUME_RUN = dict(seed=0, batch_size=2, per_device_batch_size=1, seq_length=512,
+                  warmup_steps=1, inner_steps=2, num_workers=2, model=RESUME_MODEL,
+                  quiet=True)
+
+
+def phase_resume() -> None:
+    """Bit-exact resume, the preemption exit of the CLI, and the cost of a
+    checkpoint, at a small bf16 hd-128 size. Warmup is 1 step of H = 2, so
+    the first round's learning rates do not depend on total_steps and a
+    1-round run is the first round of a 3-round one."""
+    work = WORK / "resume"
+    shutil.rmtree(work, ignore_errors=True)
+
+    def run(**kw) -> dict:
+        return train(TrainConfig(**{**RESUME_RUN, "log_dir": str(work / "runs"), **kw}),
+                     device="cuda")
+
+    a = run(total_steps=6, run_name="a")
+    b = run(total_steps=6, run_name="b")
+    first_diff, spread = run_spread(a, b)
+    ck_dir = str(work / "ck")
+    run(total_steps=2, checkpoint_dir=ck_dir, run_name="c")
+    d = run(total_steps=6, checkpoint_dir=ck_dir, run_name="d")
+    resumed_from = read_jsonl_records(str(work / "runs" / "d.jsonl"))[0][0].get("resume")
+    if resumed_from != 2 or d["rounds"] != 2:
+        fail("resume", f"the resumed run did not start from step 2: {resumed_from}")
+    d["losses"] = a["losses"][:2] + d["losses"]  # compare whole trajectories
+    resume_diff, resume_err = run_spread(d, a)
+    if first_diff is None and resume_diff is not None:
+        fail("resume", f"uninterrupted runs are bit-identical but the resumed one differs "
+                       f"first at {resume_diff} (max rel {resume_err:.3e})")
+    if first_diff is not None and resume_err > 2 * spread:
+        fail("resume", f"resumed run off by {resume_err:.3e}, run-to-run spread {spread:.3e}")
+
+    # cost of one checkpoint at this size (the page cache is warm for the
+    # restore: it reads what the save just wrote)
+    ck = CheckpointManager(str(work / "ck_time"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(6, a["state"])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ck.restore(a["state"])
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(ck.path(6))
+    preempt = phase_resume_sigterm(work)
+    emit(phase="resume", ok=True, bit_identical_runs=first_diff is None,
+         first_differing_leaf=first_diff, run_to_run_spread=spread,
+         resumed_bit_exact=resume_diff is None, resumed_first_diff=resume_diff,
+         resumed_max_rel_err=resume_err, losses=a["losses"],
+         checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s, **preempt)
+    del a, b, d
+    torch.cuda.empty_cache()
+
+
+def phase_resume_sigterm(work: Path) -> dict:
+    """``python -m nanodiloco_tpu_torch`` on a .tshrd shard, SIGTERM after
+    the first round: exit 75 with a checkpoint at a round boundary; a
+    rerun resumes there and finishes."""
+    shard = work / "data.tshrd"
+    with tokenshard.ShardWriter(str(shard), RESUME_RUN["seq_length"]) as w:
+        pack_corpus_to_shard(synthetic_corpus(seed=0), ByteTokenizer(),
+                             RESUME_RUN["seq_length"], w)
+    with open(str(shard) + ".manifest.json", "w") as f:
+        json.dump({"vocab_size": ByteTokenizer.vocab_size, "tokenizer": "byte-level"}, f)
+    model_file = work / "model.json"
+    model_file.write_text(json.dumps(RESUME_MODEL.to_dict()))
+    total, jsonl, ck_dir = 100, work / "cli_runs" / "sig.jsonl", work / "ck_sig"
+    cmd = [sys.executable, "-m", "nanodiloco_tpu_torch", "--llama-config-file", str(model_file),
+           "--dataset-path", str(shard), "--seed", "0", "--batch-size", "2",
+           "--per-device-batch-size", "1", "--seq-length", str(RESUME_RUN["seq_length"]),
+           "--warmup-steps", "1", "--total-steps", str(total), "--inner-steps", "2",
+           "--num-workers", "2", "--eval-every", "1", "--eval-batches", "2",
+           "--checkpoint-dir", str(ck_dir), "--checkpoint-every", "1000",
+           "--log-dir", str(jsonl.parent), "--run-name", "sig", "--quiet"]
+
+    def records() -> list[dict]:
+        return read_jsonl_records(str(jsonl))[0] if jsonl.exists() else []
+
+    def launch(log: str) -> subprocess.Popen:
+        out = open(work / log, "w")
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+
+    proc = launch("sig_first.log")
+    try:
+        t0 = time.perf_counter()
+        while not any(r.get("outer_synced") for r in records()):
+            if proc.poll() is not None or time.perf_counter() - t0 > 300:
+                fail("resume", f"the CLI run ended (rc {proc.returncode}) or stalled before "
+                               f"its first round: {(work / 'sig_first.log').read_text()[-2000:]}")
+            time.sleep(0.05)
+        t_signal = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+        exit_s = time.perf_counter() - t_signal
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    preempts = [r for r in records() if "preempt" in r]
+    latest = CheckpointManager(str(ck_dir)).latest_step
+    if rc != 75 or len(preempts) != 1 or preempts[0]["checkpoint_step"] != latest:
+        fail("resume", f"SIGTERM: exit {rc}, preempt records {preempts}, checkpoint {latest}")
+    if not latest or latest % 2 or latest >= total:
+        fail("resume", f"SIGTERM checkpoint at step {latest}, not a round boundary < {total}")
+    proc = launch("sig_rerun.log")
+    try:
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    recs = records()
+    resumes = [r["resume"] for r in recs if "resume" in r]
+    last = max(r["step"] for r in recs if "loss" in r)
+    if rc != 0 or resumes != [latest] or last != total:
+        fail("resume", f"rerun: exit {rc}, resumed from {resumes}, last step {last}: "
+                       f"{(work / 'sig_rerun.log').read_text()[-2000:]}")
+    return {"sigterm_exit_code": 75, "sigterm_checkpoint_step": latest,
+            "sigterm_exit_s": exit_s, "rerun_exit_code": rc, "rerun_last_step": last}
+
+
+def phase_train(smi: str) -> tuple[dict, dict]:
+    """Two DiLoCo rounds at Llama-3-8B width, depth cut to one layer, with
+    an eval of the snapshot after each round and the metrics JSONL."""
     model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1)
+    log_dir = WORK / "train_runs"
+    shutil.rmtree(log_dir, ignore_errors=True)
     cfg = TrainConfig(
         seed=0, batch_size=2, per_device_batch_size=1, seq_length=2048,
         warmup_steps=1, total_steps=4, inner_steps=2, num_workers=2,
         model=model, fit_vocab=False, quiet=True,
+        eval_every=1, eval_batches=2, log_dir=str(log_dir), run_name="train8b",
     )
     fa.reset_launch_counts()
     summary = train(cfg, device="cuda")
@@ -347,6 +544,29 @@ def phase_train(smi: str) -> dict:
     # the bf16 hd-128 round: every kernel only through the tensor cores
     if any(v["fma"] or not v["wgmma"] for v in variants.values()):
         fail("train", f"the main path did not run the routed variants: {variants}")
+    # the evals: forward only, B1 on the tensor cores
+    ev = summary["eval_kernel_launches"]
+    if (not ev["flash_fwd"]["wgmma"] or ev["flash_fwd"]["fma"]
+            or any(sum(ev[k].values()) for k in ("flash_bwd_dq", "flash_bwd_dkv"))):
+        fail("train", f"the evals did not run B1 (wgmma) alone: {ev}")
+    if not math.isfinite(summary.get("eval_loss", math.nan)):
+        fail("train", f"no finite final eval_loss: {summary.get('eval_loss')}")
+    jsonl = str(log_dir / "train8b.jsonl")
+    recs = [r for r in read_jsonl_records(jsonl)[0] if "loss" in r]
+    with_eval = [r["step"] for r in recs if "eval_loss" in r]
+    if [r["step"] for r in recs] != [1, 2, 3, 4] or with_eval != [2, 4]:
+        fail("train", f"JSONL steps {[r['step'] for r in recs]}, eval keys on {with_eval}")
+    report = summarize_run(jsonl)
+    if "final_loss" not in report or "final_eval_loss" not in report:
+        fail("train", f"report lacks final_loss / final_eval_loss: {report}")
+    compare_out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(compare_out):
+            cli.main(["report", "compare", jsonl, jsonl])
+    except SystemExit as e:
+        fail("train", f"report compare of the run against itself exited {e.code}: "
+                      f"{compare_out.getvalue()}")
+    round_ends = [r for r in recs if r["outer_synced"]]
     emit(phase="train", ok=True, nvidia_smi=smi, num_params=summary["num_params"],
          losses=losses, snapshot_changed=summary["snapshot_changed"],
          tokens=summary["tokens"], seconds=summary["seconds"],
@@ -354,8 +574,61 @@ def phase_train(smi: str) -> dict:
          tokens_per_sec=summary["tokens_per_sec"],
          tokens_per_sec_after_first_round=summary["tokens_per_sec_after_first_round"],
          peak_memory_bytes=summary["peak_memory_bytes"], launches=launches,
-         variant_launches=variants)
-    return launches
+         variant_launches=variants, eval_launches=ev,
+         eval_loss=[r["eval_loss"] for r in round_ends],
+         eval_ms_per_call=[r["t_eval"] * 1e3 for r in round_ends],
+         t_data_s=[r["t_data"] for r in round_ends],
+         t_sync_s=[r["t_sync"] for r in round_ends],
+         avg_sync_time_s=summary["avg_sync_time_s"], comm_share=summary["comm_share"],
+         report=report, report_compare="exit 0")
+    return launches, summary
+
+
+def phase_checkpoint_full(summary: dict, smi: str) -> None:
+    """Save the 8B-width state, zero it, restore it leaf by leaf from the
+    memory-mapped file, and check every leaf's float64 sum."""
+    state = summary["state"]
+    leaves = state_leaves(state)
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    ck_dir = WORK / "ckpt_full"
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    ck_dir.mkdir(parents=True)
+    free = shutil.disk_usage(ck_dir).free
+    if free < 1.5 * nbytes:
+        emit(phase="checkpoint_full", ok=True, skipped=True, state_bytes=nbytes,
+             free_bytes=free, reason="the local disk has less than 1.5x the state's bytes free")
+        return
+    sums = {n: float(t.sum(dtype=torch.float64)) for n, t in leaves}
+    ck = CheckpointManager(str(ck_dir))
+    step = state.inner_step_count
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(step, state)
+    save_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(ck.path(step))
+    with torch.no_grad():
+        for _, t in leaves:
+            t.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    in_use = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ck.restore(state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    after = {n: float(t.sum(dtype=torch.float64)) for n, t in state_leaves(state)}
+    bad = [n for n in sums if after.get(n) != sums[n]]
+    shutil.rmtree(ck_dir)
+    if bad:
+        fail("checkpoint_full", f"{len(bad)} leaves differ after restore, first {bad[0]}")
+    if peak >= 80e9:
+        fail("checkpoint_full", f"restore peak {peak} bytes is not under 80 GB")
+    emit(phase="checkpoint_full", ok=True, skipped=False, nvidia_smi=smi, state_bytes=nbytes,
+         file_bytes=file_bytes, free_bytes=free, leaves=len(sums), save_s=save_s,
+         restore_s=restore_s, save_gb_per_s=file_bytes / save_s / 1e9,
+         restore_gb_per_s=file_bytes / restore_s / 1e9, bytes_in_use_before_restore=in_use,
+         restore_peak_bytes=peak)
 
 
 def main() -> None:
@@ -366,15 +639,24 @@ def main() -> None:
          count=torch.cuda.device_count(), torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    report = build.build_all()
+    with ThreadPoolExecutor(max_workers=1) as pool:  # g++ beside the nvcc builds
+        native = pool.submit(tokenshard.native_available)
+        report = build.build_all()
+        if not native.result():
+            fail("build", f"g++ could not build {tokenshard.lib_path()}")
     for r in report.values():
         print(r["log"], file=sys.stderr)  # ptxas: registers, shared memory, spills
     emit(phase="build", ok=True, seconds=time.perf_counter() - t0,
-         built={n: r["seconds"] for n, r in report.items()}, dir=str(build.build_dir()))
+         built={n: r["seconds"] for n, r in report.items()}, dir=str(build.build_dir()),
+         tokenshard=str(tokenshard.lib_path()))
 
     kernels = phase_kernels()
     phase_train_small()
-    launches = phase_train(smi)
+    phase_resume()
+    launches, summary = phase_train(smi)
+    phase_checkpoint_full(summary, smi)
+    del summary
+    shutil.rmtree(WORK, ignore_errors=True)
 
     emit(kernels=[
         {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],

@@ -190,10 +190,9 @@ class Diloco:
             p.copy_(s.unsqueeze(0).expand_as(p))
         return state
 
-    def round_step(self, state: DilocoState, tokens, loss_mask):
-        """One full round: ``inner_steps`` inner updates, then the outer
-        sync. tokens/loss_mask: [H, W, accum, B, S]. Returns (state,
-        [H, W] losses)."""
+    def inner_round(self, state: DilocoState, tokens, loss_mask):
+        """``inner_steps`` inner updates, no sync. tokens/loss_mask:
+        [H, W, accum, B, S]. Returns (state, [H, W] losses)."""
         H = self.cfg.inner_steps
         if len(tokens) != H or np.ndim(tokens) != 5:
             raise ValueError(
@@ -204,4 +203,10 @@ class Diloco:
         for h in range(H):
             state, loss = self.inner_step(state, tokens[h], loss_mask[h])
             losses.append(loss)
-        return self.outer_step(state), torch.stack(losses)
+        return state, torch.stack(losses)
+
+    def round_step(self, state: DilocoState, tokens, loss_mask):
+        """One full round: ``inner_round``, then the outer sync. Returns
+        (state, [H, W] losses)."""
+        state, losses = self.inner_round(state, tokens, loss_mask)
+        return self.outer_step(state), losses

@@ -19,8 +19,13 @@ where the plain versions keep float32: atol 2**-8.
 import pytest
 import torch
 
+from nanodiloco_tpu_torch.models.config import LlamaConfig
+from nanodiloco_tpu_torch.models.llama import init_params, tree_leaves, tree_map
 from nanodiloco_tpu_torch.ops.cuda import flash_attention as fa
 from nanodiloco_tpu_torch.ops.flash_attention import flash_attention
+from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager
+from nanodiloco_tpu_torch.training.evaluate import Evaluator, holdout_batches
 
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 ATOL = {"fma": 2e-3, "wgmma": 2.0 ** -8}
@@ -118,3 +123,55 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="16-byte"):
         fa.flash_fwd(q, q, q, True)
     assert fa.launch_counts()["flash_fwd"] == 0
+
+
+SMALL = LlamaConfig(vocab_size=384, hidden_size=256, intermediate_size=512,
+                    num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                    attention_impl="flash", remat=True, loss_chunk=128)
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_on_the_card(tmp_path):
+    """One round on the card, saved, restored into a fresh state on the
+    card: every leaf, AdamW's moments and step counts and the outer
+    momentum come back bit for bit."""
+    gen = card()
+    dl = Diloco(SMALL, DilocoConfig(num_workers=2, inner_steps=2, warmup_steps=1,
+                                    total_steps=4, lr=1e-3, grad_accum=2), device="cuda")
+    state = dl.init_state(gen)
+    toks = torch.randint(0, SMALL.vocab_size, (2, 2, 2, 1, 200), generator=gen,
+                         device="cuda")
+    dl.round_step(state, toks, torch.ones_like(toks))
+    ck = CheckpointManager(str(tmp_path / "ck"))
+    ck.save(2, state)
+    fresh = ck.restore(dl.init_state(torch.Generator(device="cuda").manual_seed(1)))
+    for a, b in zip(tree_leaves(fresh.params) + tree_leaves(fresh.snapshot),
+                    tree_leaves(state.params) + tree_leaves(state.snapshot)):
+        assert a.is_cuda and torch.equal(a, b)
+    for pa, pb in zip(tree_leaves(fresh.params), tree_leaves(state.params)):
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(fresh.inner_opt.state[pa][k], state.inner_opt.state[pb][k])
+    for sa, sb in zip(tree_leaves(fresh.snapshot), tree_leaves(state.snapshot)):
+        assert torch.equal(fresh.outer_opt.state[sa]["momentum_buffer"],
+                           state.outer_opt.state[sb]["momentum_buffer"])
+    assert fresh.inner_step_count == 2
+
+
+@pytest.mark.cuda
+def test_evaluator_on_the_card_matches_the_cpu():
+    """The snapshot's held-out loss through B1 on the card against the
+    plain versions on the CPU, float32 with TF32 off: the two differ in
+    summation order only, 1e-3 relative bounds it."""
+    card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = init_params(torch.Generator().manual_seed(0), SMALL, device="cpu")
+    rows = torch.randint(0, SMALL.vocab_size, (6, 200),
+                         generator=torch.Generator().manual_seed(1)).numpy()
+    batches = holdout_batches(rows, 2)
+    fa.reset_launch_counts()
+    got = Evaluator(SMALL, "cuda")(tree_map(lambda p: p.cuda(), params), batches)
+    assert fa.launch_counts() == {"flash_fwd": 3 * SMALL.num_hidden_layers,
+                                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    want = Evaluator(SMALL, "cpu")(params, batches)
+    assert got["eval_tokens"] == want["eval_tokens"]
+    assert abs(got["eval_loss"] - want["eval_loss"]) <= 1e-3 * want["eval_loss"]
