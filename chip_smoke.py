@@ -47,6 +47,37 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  with a line that says so, if the disk lacks 1.5x the
                  state's bytes).
 
+7. serve_small - serving at a small float32 size (2 layers, hidden 128,
+                 4/2 heads, vocab 384) from one parameter tree, TF32 off:
+                 greedy generate() gives the same tokens on the card and
+                 on the CPU, and its prefill logits agree; the sampling
+                 noise's uniforms are the same bits on both; on each
+                 device the engine (2 slots, chunk 8, prefix cache on)
+                 serves 3 overlapping requests, greedy and sampled, each
+                 token-identical to solo generate() with its seed; on a
+                 checkpoint train() writes here, `python -m
+                 nanodiloco_tpu_torch generate` prints its continuation
+                 and `... serve`, in a subprocess, answers POST
+                 /v1/generate over a socket with the tokens generate()
+                 gives, and /healthz and /metrics.
+8. serve       - Llama-3-8B at full width and full depth (32 layers, bf16,
+                 weights from seed 0 on the card): an engine of 4 slots,
+                 max_len 1024, chunk 512 serves 8 requests (prompts of
+                 64-600 tokens, 64 new tokens each, greedy and sampled
+                 mixed) submitted faster than they retire. Each greedy
+                 stream must equal solo generate() or part from it first
+                 at a near-tie, and each greedy token must be the argmax
+                 of the training forward (through B1) over prompt and
+                 stream, within the same near-tie tolerance (NEAR_TIE).
+                 Prints the weight, cache and peak bytes; prefill ms per
+                 chunk bucket against its FLOP bound; decode ms per tick
+                 at 1 and 4 live slots against its byte bound; TTFT p50 /
+                 p95, decode tokens/s, and the device's idle share in a
+                 decode tick (torch.profiler). B1's launches in this phase
+                 (the teacher-forcing forward alone: generation and the
+                 engine run no kernel of their own) go to the kernels line
+                 as "launches_serve".
+
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, removed at the
@@ -57,6 +88,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import io
 import json
 import math
@@ -84,9 +116,24 @@ from nanodiloco_tpu_torch.data.pipeline import (
 )
 from nanodiloco_tpu_torch.data.tokenizer import ByteTokenizer
 from nanodiloco_tpu_torch.models.config import LLAMA3_8B, LlamaConfig
-from nanodiloco_tpu_torch.models.llama import init_params, tree_leaves
+from nanodiloco_tpu_torch.models.generate import (
+    MATMUL_KEYS,
+    _cached_block,
+    generate,
+    init_kv_cache,
+    noise_uniforms,
+    serving_params,
+)
+from nanodiloco_tpu_torch.models.llama import forward, init_params, tree_leaves
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+from nanodiloco_tpu_torch.serve import (
+    GenRequest,
+    InferenceEngine,
+    Scheduler,
+    http_get,
+    http_post_json,
+)
 from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager, named_leaves, state_tree
 from nanodiloco_tpu_torch.training.metrics import read_jsonl_records, summarize_run
 from nanodiloco_tpu_torch.training.train_loop import TrainConfig, train
@@ -631,6 +678,350 @@ def phase_checkpoint_full(summary: dict, smi: str) -> None:
          restore_peak_bytes=peak)
 
 
+# -- serving -------------------------------------------------------------------
+
+SERVE_SMALL = LlamaConfig(vocab_size=384, hidden_size=128, intermediate_size=256,
+                          num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                          max_position_embeddings=256, initializer_range=0.2)
+# card against CPU at float32, TF32 off: summation order alone, ~1e-6
+# relative; 1e-4 of max|logit| bounds it. The weights are drawn at std 0.2,
+# so the logits' top-2 gaps (~1e-1) dwarf that and a token cannot flip.
+SERVE_SMALL_TOL = 1e-4
+# bf16 unit roundoff: the near-tie rule of the 8B serve phase
+BF16_U = 2.0 ** -8
+NEAR_TIE = ("the top-2 gap l_a - l_b = sum_i h_i (W_ia - W_ib) of the training forward's "
+            "final hidden state h and head W; if every h_i moves by one bf16 rounding "
+            "(relative 2**-8) the gap moves by at most 2**-8 * sum_i |h_i (W_ia - W_ib)|, "
+            "and rounding each logit to bf16 adds one ulp of each: two computations of the "
+            "same bf16 network in other summation orders (B slots against one row, a chunk "
+            "against a whole prompt, a flash forward) part no further than that")
+
+
+def serve_small_requests(prompt: torch.Tensor) -> list[GenRequest]:
+    return [
+        GenRequest(prompt=tuple(prompt[0].tolist()), max_new_tokens=12, seed=0),
+        GenRequest(prompt=tuple(prompt[1, :9].tolist()), max_new_tokens=10, temperature=0.9,
+                   top_k=50, seed=5),
+        GenRequest(prompt=tuple(prompt[0, :3].tolist()) + tuple(prompt[1].tolist()),
+                   max_new_tokens=8, temperature=0.7, top_p=0.9, seed=9),
+    ]
+
+
+def drive(sched: Scheduler, reqs: list[GenRequest], per_tick: int = 1, ticks: int = 100_000):
+    """Submit ``per_tick`` requests before each tick until all are in, then
+    tick until every ticket is done."""
+    tickets, pending = [], list(reqs)
+    for _ in range(ticks):
+        for _ in range(per_tick):
+            if pending:
+                tickets.append(sched.submit(pending.pop(0)))
+        if sched.tick() == 0 and not pending and all(t.done() for t in tickets):
+            return tickets
+    raise RuntimeError("the scheduler did not finish its requests")
+
+
+def solo(params, cfg, req: GenRequest, device) -> list[int]:
+    return generate(params, [list(req.prompt)], cfg, req.max_new_tokens,
+                    temperature=req.temperature, top_k=req.top_k, top_p=req.top_p,
+                    seed=req.seed, device=device)[0].tolist()
+
+
+def phase_serve_small(smi: str) -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SERVE_SMALL
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
+    toks = {d: generate(params, prompt, cfg, 16, device=d).cpu() for d in ("cuda", "cpu")}
+    if not torch.equal(toks["cuda"], toks["cpu"]):
+        fail("serve_small", f"greedy generate(): card {toks['cuda'].tolist()} "
+                            f"vs CPU {toks['cpu'].tolist()}")
+    logits = {}
+    for d in ("cuda", "cpu"):
+        sp = serving_params(params, cfg, d)
+        cache = init_kv_cache(cfg, 2, 32, d)
+        logits[d] = _cached_block(sp, cfg, prompt.to(d), cache, 0,
+                                  torch.ones((2, 32), dtype=torch.int32, device=d))[0].cpu()
+    logit_err = ((logits["cuda"] - logits["cpu"]).abs().max()
+                 / logits["cpu"].abs().max()).item()
+    if logit_err > SERVE_SMALL_TOL:
+        fail("serve_small", f"prefill logits: card vs CPU {logit_err:.3e} of max|logit|")
+    u = {d: noise_uniforms([3, 2**40 + 1], [0, 0], [0, 63], cfg.vocab_size, d).cpu()
+         for d in ("cuda", "cpu")}
+    if not torch.equal(u["cuda"], u["cpu"]):
+        fail("serve_small", "the sampling noise's uniforms differ between card and CPU")
+    engine_ok = {}
+    for d in ("cuda", "cpu"):
+        eng = InferenceEngine(params, cfg, num_slots=2, max_len=64, chunk_size=8,
+                              prefix_cache_tokens=64, device=d)
+        reqs = serve_small_requests(prompt)
+        tickets = drive(Scheduler(eng), reqs)
+        got = [t.result["tokens"] for t in tickets]
+        want = [solo(params, cfg, r, d) for r in reqs]
+        if got != want:
+            fail("serve_small", f"engine on {d}: {got} vs solo generate() {want}")
+        engine_ok[d] = got
+    cli_result = serve_small_cli()
+    emit(phase="serve_small", ok=True, nvidia_smi=smi, greedy_tokens=toks["cuda"].tolist(),
+         logits_max_err_of_max=logit_err, tolerance=SERVE_SMALL_TOL,
+         tolerance_reason="f32 on both sides, TF32 off: summation order only",
+         engine_streams=engine_ok["cuda"], engine_streams_cpu_equal=(
+             engine_ok["cuda"] == engine_ok["cpu"]), **cli_result)
+
+
+def serve_small_cli() -> dict:
+    """train() writes a checkpoint (with its model_config.json sidecar) on
+    the card; the generate and serve subcommands read it."""
+    work = WORK / "serve_small"
+    shutil.rmtree(work, ignore_errors=True)
+    model = dataclasses.replace(SERVE_SMALL, max_position_embeddings=128)
+    ck_dir = work / "ck"
+    train(TrainConfig(seed=0, batch_size=2, per_device_batch_size=2, seq_length=64,
+                      warmup_steps=1, total_steps=2, inner_steps=2, num_workers=1, model=model,
+                      checkpoint_dir=str(ck_dir), log_dir=str(work / "runs"), run_name="s",
+                      quiet=True), device="cuda")
+    model_cfg, sidecar, snap = cli._load_checkpoint_snapshot(str(ck_dir), None)
+    tok = ByteTokenizer()
+    want = generate(snap, [tok.encode("Hello")], model_cfg, 8, device="cuda")[0].tolist()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["generate", "--checkpoint-dir", str(ck_dir), "--prompt", "Hello",
+                  "--max-new-tokens", "8", "--temperature", "0", "--no-stop-at-eos"])
+    if out.getvalue().strip() != "Hello" + tok.decode(want):
+        fail("serve_small", f"CLI generate printed {out.getvalue()!r}, want {want}")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nanodiloco_tpu_torch", "serve", "--checkpoint-dir", str(ck_dir),
+         "--host", "127.0.0.1", "--slots", "2", "--max-len", "128", "--chunk-size", "16"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        if not line.startswith("serving"):
+            fail("serve_small", f"CLI serve did not start: {line}{proc.stdout.read()[-2000:]}")
+        port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+        base = f"http://127.0.0.1:{port}"
+        code, body = http_post_json(base + "/v1/generate",
+                                    {"prompt": "Hello", "max_new_tokens": 8, "stop": False},
+                                    timeout=120)
+        if code != 200 or body.get("token_ids") != want:
+            fail("serve_small", f"POST /v1/generate: {code} {body}, want {want}")
+        health = http_get(base + "/healthz")[0]
+        code_m, metrics = http_get(base + "/metrics")
+        if health != 200 or code_m != 200 or 'outcome="served"} 1' not in metrics:
+            fail("serve_small", f"/healthz {health}, /metrics {code_m}")
+    finally:
+        proc.terminate()
+        rc = proc.wait(timeout=60)
+    if rc != 0:
+        fail("serve_small", f"CLI serve exited {rc} on SIGTERM")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"cli_generate": out.getvalue().strip(), "cli_serve_tokens": want,
+            "cli_serve_exit_code": rc, "checkpoint_tokenizer": sidecar.get("tokenizer")}
+
+
+# the 8B serve workload: prompt lengths over 64-600, 64 new tokens each
+SERVE_PROMPTS = (64, 600, 200, 448, 96, 333, 512, 150)
+SERVE_NEW = 64
+
+
+def serve_weights(cfg: LlamaConfig):
+    """Llama-3-8B weights from seed 0, made on the card in float32 and cast
+    once to the serving copy; the float32 tree is dropped."""
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    sp = serving_params(params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    return sp
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def tie_tolerance(h: torch.Tensor, head: torch.Tensor, logits: torch.Tensor, a, b):
+    """NEAR_TIE for tokens a, b at each row: 2**-8 * sum_i |h_i (W_ia - W_ib)| plus
+    one bf16 ulp of each logit. h [n, d] bf16, head [d, V], logits [n, V] f32."""
+    diff = (head[:, a].float() - head[:, b].float()).T  # [n, d]
+    spread = (h.float() * diff).abs().sum(-1) * BF16_U
+    la, lb = logits.gather(-1, a[:, None])[:, 0], logits.gather(-1, b[:, None])[:, 0]
+
+    def ulp(x):
+        return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30))) - 7)
+
+    return spread + ulp(la) + ulp(lb)
+
+
+def teacher_forcing(sp, cfg, req: GenRequest, stream: list[int]) -> dict:
+    """The training forward (through B1) over prompt + stream: for each
+    emitted token, its logit gap to the forward's argmax against
+    NEAR_TIE."""
+    fcfg = dataclasses.replace(cfg, remat=False)
+    toks = torch.tensor([list(req.prompt) + stream[:-1]], device="cuda")
+    with torch.no_grad():
+        h = forward(sp, toks, fcfg, return_hidden=True)[0, len(req.prompt) - 1:]
+        logits = torch.matmul(h, sp["lm_head"]).float()
+    emitted = torch.tensor(stream, device="cuda")
+    best = logits.argmax(-1)
+    tol = tie_tolerance(h, sp["lm_head"], logits, best, emitted)
+    gap = logits.gather(-1, best[:, None])[:, 0] - logits.gather(-1, emitted[:, None])[:, 0]
+    return {"exact": int((best == emitted).sum()), "n": len(stream),
+            "max_gap": float(gap.max()), "gap_over_tol": float((gap / tol).max()),
+            "ok": bool((gap <= tol).all()), "h": h, "logits": logits}
+
+
+def phase_serve(smi: str) -> dict:
+    cfg = LLAMA3_8B  # 32 layers, bf16 compute over float32 masters, flash attention
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sp = serve_weights(cfg)
+    weight_s = time.perf_counter() - t0
+    weight_bytes = tree_bytes(sp)
+    matmul_bytes = sum(tree_bytes(sp["layers"][k]) for k in MATMUL_KEYS) + tree_bytes(
+        sp["lm_head"])
+    fa.reset_launch_counts()
+    eng = InferenceEngine(sp, cfg, num_slots=4, max_len=1024, chunk_size=512, device="cuda")
+    gen = torch.Generator().manual_seed(2)
+    reqs = [GenRequest(prompt=tuple(torch.randint(0, cfg.vocab_size, (n,),
+                                                  generator=gen).tolist()),
+                       max_new_tokens=SERVE_NEW, seed=10 + i,
+                       temperature=0.0 if i % 2 == 0 else 0.8,
+                       top_k=0 if i % 4 != 1 else 50, top_p=1.0 if i % 4 != 3 else 0.9)
+            for i, n in enumerate(SERVE_PROMPTS)]
+    sched = Scheduler(eng)
+    t0 = time.perf_counter()
+    tickets = drive(sched, reqs, per_tick=2)
+    workload_s = time.perf_counter() - t0
+    stats = sched.stats()
+    streams = [t.result["tokens"] for t in tickets]
+    if any(len(s) != SERVE_NEW for s in streams):
+        fail("serve", f"stream lengths {[len(s) for s in streams]}, want {SERVE_NEW}")
+    # greedy streams against solo generate() and the training forward
+    checks = []
+    for req, stream in zip(reqs, streams):
+        if req.temperature:
+            continue
+        ref = solo(sp, cfg, req, "cuda")
+        tf = teacher_forcing(sp, cfg, req, stream)
+        first = next((j for j, (a, b) in enumerate(zip(stream, ref)) if a != b), None)
+        entry = {"prompt_len": len(req.prompt), "first_divergence": first,
+                 "teacher_forcing_exact": tf["exact"], "teacher_forcing_n": tf["n"],
+                 "teacher_forcing_max_gap": tf["max_gap"],
+                 "teacher_forcing_gap_over_tol": tf["gap_over_tol"]}
+        if first is not None:
+            # the forward's logits at that position: the gap between the two
+            # tokens the streams chose must be a near-tie
+            a = torch.tensor([ref[first]], device="cuda")
+            b = torch.tensor([stream[first]], device="cuda")
+            row = tf["logits"][first:first + 1]
+            gap = (row[0, a] - row[0, b]).abs().item()
+            tol = tie_tolerance(tf["h"][first:first + 1], sp["lm_head"], row, a, b).item()
+            entry.update(divergence_gap=gap, divergence_tol=tol)
+            if gap > tol:
+                fail("serve", f"greedy stream {entry} parts from solo generate() at {first} "
+                              f"off a near-tie: gap {gap:.4g} > {tol:.4g}")
+        if not tf["ok"]:
+            fail("serve", f"a greedy token is not the training forward's argmax within the "
+                          f"near-tie tolerance: {entry}")
+        checks.append(entry)
+    launches = fa.launch_counts()
+    if launches["flash_fwd"] != cfg.num_hidden_layers * len(checks):
+        fail("serve", f"B1 launches {launches}, want {cfg.num_hidden_layers} per forward")
+    timing = serve_timing(eng, cfg, matmul_bytes)
+    peak = torch.cuda.max_memory_allocated()
+    tf_exact = sum(c["teacher_forcing_exact"] for c in checks)
+    tf_n = sum(c["teacher_forcing_n"] for c in checks)
+    emit(phase="serve", ok=True, nvidia_smi=smi, layers=cfg.num_hidden_layers,
+         weight_bytes=weight_bytes, matmul_weight_bytes=matmul_bytes,
+         cache_bytes=eng.kv_bytes(), peak_memory_bytes=peak, weights_seconds=weight_s,
+         requests=len(reqs), prompt_lens=list(SERVE_PROMPTS), new_tokens=SERVE_NEW,
+         workload_seconds=workload_s, ttft_p50_s=stats["ttft_p50_s"],
+         ttft_p95_s=stats["ttft_p95_s"], decode_tokens_per_sec=stats["decode_tokens_per_sec"],
+         prefill_chunks=stats["prefill_chunks_total"], greedy_checks=checks,
+         teacher_forcing_exact_share=tf_exact / tf_n, near_tie_rule=NEAR_TIE,
+         b1_launches=launches["flash_fwd"], devtime=eng.devtime_stats(), **timing)
+    del eng, sp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_timing(eng: InferenceEngine, cfg: LlamaConfig, matmul_bytes: int) -> dict:
+    """Prefill ms per chunk bucket against its FLOP bound, decode ms per
+    tick at 1 and 4 live slots against its byte bound, and the device's
+    idle share in a 4-slot tick (torch.profiler's kernel time against the
+    unprofiled tick)."""
+    nh, nkv, hd, nl = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim, cfg.num_hidden_layers
+    layer_params = (matmul_bytes - tree_bytes(eng.params["lm_head"])) // 2
+    prefill = {}
+    for c in (64, 128, 256, 512):
+        toks = torch.randint(0, cfg.vocab_size, (1, c), device="cuda")
+        fn = functools.partial(eng._chunk, eng.params, eng.cache, toks, 0, 0, c - 1, None,
+                               0.0, 0, 1.0)
+        ms = cuda_ms(fn, warmup=2, runs=5, reps=2)
+        flops = (2.0 * c * layer_params + 4.0 * hd * nh * nl * c * (c + 1) / 2
+                 + 2.0 * cfg.hidden_size * cfg.vocab_size)
+        bound = max(flops / PEAK_FLOPS[torch.bfloat16], matmul_bytes / PEAK_BYTES) * 1e3
+        prefill[c] = {"ms": ms, "tflops": flops / (ms * 1e-3) / 1e12, "bound_ms": bound,
+                      "bound_by": "operations" if flops / PEAK_FLOPS[torch.bfloat16]
+                      >= matmul_bytes / PEAK_BYTES else "bytes", "bound_share": bound / ms}
+    decode = {}
+    pos = 512
+    for live in (1, 4):
+        for s in range(eng.num_slots):
+            eng.release(s)
+        for s in range(live):
+            eng._active[s], eng._pos[s], eng._key_valid[s] = 1, pos, 1
+        eng._dev_key_valid = None
+        for _ in range(3):
+            eng.step()
+            eng._pos[:live] = pos
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            eng.step()  # ends in the host read of the tokens
+            times.append((time.perf_counter() - t0) * 1e3)
+            eng._pos[:live] = pos
+        ms = statistics.median(times)
+        kv_read = live * (pos + 1) * nl * 2 * nkv * hd * 2
+        bound = (matmul_bytes + kv_read) / PEAK_BYTES * 1e3
+        decode[live] = {"ms": ms, "bound_ms": bound, "bound_by": "bytes",
+                        "bound_share": bound / ms, "kv_read_bytes": kv_read}
+    idle = decode_idle_share(eng, decode[4]["ms"])
+    for s in range(eng.num_slots):
+        eng.release(s)
+    return {"prefill_by_bucket": prefill, "decode_by_live_slots": decode, **idle}
+
+
+def device_busy_us(prof) -> tuple[float, int]:
+    """(microseconds the card was busy, device activities) in a profile:
+    the union of the CUDA-side events' intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(spans)
+
+
+def decode_idle_share(eng: InferenceEngine, tick_ms: float) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            eng.step()
+            eng._pos[:4] = 512
+    busy_us, kernels = device_busy_us(prof)
+    busy_ms = busy_us / 1e3 / n
+    if busy_ms <= 0:
+        return {"decode_idle_share": None,
+                "decode_idle_share_note": "not measured: the profiler showed no device time"}
+    return {"decode_device_busy_ms_per_tick": busy_ms, "decode_kernels_per_tick": kernels / n,
+            "decode_idle_share": max(0.0, 1.0 - busy_ms / tick_ms)}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -656,11 +1047,15 @@ def main() -> None:
     launches, summary = phase_train(smi)
     phase_checkpoint_full(summary, smi)
     del summary
+    torch.cuda.empty_cache()
+    phase_serve_small(smi)
+    serve_launches = phase_serve(smi)
     shutil.rmtree(WORK, ignore_errors=True)
 
     emit(kernels=[
         {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],
-         "replaces": REPLACES[name], "launches": launches[name], **kernels[name]}
+         "replaces": REPLACES[name], "launches": launches[name],
+         "launches_serve": serve_launches[name], **kernels[name]}
         for name in REPLACES
     ])
     print(smi, flush=True)

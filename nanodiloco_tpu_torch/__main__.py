@@ -12,13 +12,23 @@ run summary last. Runs on the CUDA card unless ``--device cpu``.
 JSONL; ``report compare BASELINE CANDIDATE`` is the regression gate
 (exit 1 on a regression). Both give the JAX CLI's output, for a run of
 either package.
+
+``python -m nanodiloco_tpu_torch generate --checkpoint-dir DIR`` samples
+text from a checkpoint's merged snapshot; ``serve --checkpoint-dir DIR``
+runs the continuous-batching HTTP server over it (``POST /v1/generate``,
+``GET /healthz``, ``GET /metrics``). Both take the JAX CLI's flags, plus
+``--device`` (the card unless ``--device cpu``); the serve options whose
+engine half is not ported yet (``--kv-block-size``, ``--kv-dtype int8``,
+``--spec-k``, ``--tp``) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
+import time
 
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.training.metrics import compare_runs, load_comparable, summarize_run
@@ -162,10 +172,288 @@ def report_compare_main(argv: list[str]) -> None:
         raise SystemExit(1)
 
 
+def _load_checkpoint_snapshot(checkpoint_dir: str, step: int | None):
+    """(model_cfg, sidecar dict, snapshot params) from a self-describing
+    checkpoint: the merged global model alone, memory-mapped on the host,
+    not the per-worker params or the optimizer moments."""
+    from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager
+
+    sidecar_path = os.path.join(checkpoint_dir, "model_config.json")
+    try:
+        with open(sidecar_path) as f:
+            sidecar = json.load(f)
+    except FileNotFoundError:
+        raise SystemExit(
+            f"no model_config.json in {checkpoint_dir}: this command needs "
+            "a checkpoint written by this framework's training loop"
+        )
+    model_cfg = LlamaConfig.from_dict(sidecar["model"])
+    state = CheckpointManager(checkpoint_dir).restore_raw(step, only={"snapshot"})
+    return model_cfg, sidecar, state["snapshot"]
+
+
+def build_generate_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nanodiloco_tpu_torch generate",
+        description="Sample text from a trained checkpoint.",
+    )
+    p.add_argument("--checkpoint-dir", type=str, required=True,
+                   help="directory written by training with --checkpoint-dir; "
+                        "its model_config.json sidecar makes the checkpoint "
+                        "self-describing")
+    p.add_argument("--prompt", type=str, default="The",
+                   help="prompt text (encoded with the training tokenizer)")
+    p.add_argument("--prompts-file", type=str, default=None,
+                   help="file with one prompt per line, sampled as one batch "
+                        "(variable lengths left-padded via pad_prompts); "
+                        "overrides --prompt")
+    p.add_argument("--max-new-tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.8,
+                   help="0 = greedy decoding")
+    p.add_argument("--top-k", type=int, default=0)
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling: keep the smallest token set "
+                        "with probability mass >= p (1.0 = off)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to load (default: latest)")
+    p.add_argument("--tokenizer", type=str, default=None,
+                   help="override the tokenizer recorded at training time")
+    p.add_argument("--stop-at-eos", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="end the continuation at the tokenizer's EOS token")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def generate_main(argv: list[str]) -> list[str]:
+    """Prints one continuation per prompt; returns them."""
+    from nanodiloco_tpu_torch.data.tokenizer import get_tokenizer
+    from nanodiloco_tpu_torch.models.generate import generate, pad_prompts
+
+    args = build_generate_parser().parse_args(argv)
+    model_cfg, sidecar, params = _load_checkpoint_snapshot(args.checkpoint_dir, args.step)
+    tokenizer = get_tokenizer(args.tokenizer or sidecar.get("tokenizer"))
+    if args.prompts_file:
+        with open(args.prompts_file) as f:
+            prompts = [line for line in f.read().splitlines() if line.strip()]
+        if not prompts:
+            raise SystemExit(f"no prompts in {args.prompts_file}")
+    else:
+        prompts = [args.prompt]
+    encoded = [tokenizer.encode(p) for p in prompts]
+    for n, (p_text, ids) in enumerate(zip(prompts, encoded), start=1):
+        if not ids:
+            raise SystemExit(f"prompt {n} ({p_text!r}) is empty after tokenization")
+        if any(i >= model_cfg.vocab_size for i in ids):
+            raise SystemExit(
+                f"prompt {n} ({p_text!r}) tokenizes outside the model "
+                f"vocabulary ({model_cfg.vocab_size}); pass the training --tokenizer"
+            )
+    prompt, valid = pad_prompts(encoded)
+    stop = getattr(tokenizer, "eos_id", None) if args.stop_at_eos else None
+    out = generate(
+        params, prompt, model_cfg, args.max_new_tokens, prompt_valid=valid,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        seed=args.seed, stop_token=stop, device=args.device,
+    )
+    texts = []
+    for row, text_in in zip(out.tolist(), prompts):
+        if stop is not None and stop in row:
+            row = row[: row.index(stop)]
+        texts.append(text_in + tokenizer.decode(row))
+        print(texts[-1], flush=True)
+    return texts
+
+
+def build_serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nanodiloco_tpu_torch serve",
+        description="Continuous-batching inference server over a trained "
+                    "checkpoint: POST /v1/generate, GET /healthz, GET /metrics.",
+    )
+    p.add_argument("--checkpoint-dir", type=str, required=True,
+                   help="self-describing checkpoint written by training "
+                        "with --checkpoint-dir (model_config.json sidecar)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to load (default: latest)")
+    p.add_argument("--tokenizer", type=str, default=None,
+                   help="override the tokenizer recorded at training time")
+    p.add_argument("--port", type=int, default=0,
+                   help="HTTP port; 0 (default) picks a free port, printed at startup")
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--slots", type=int, default=4,
+                   help="decode batch size B: concurrent requests decoded "
+                        "per tick; each slot owns a KV-cache region")
+    p.add_argument("--max-len", type=int, default=1024,
+                   help="per-slot cache length: prompt + max_new_tokens "
+                        "must fit (longer requests get 400)")
+    p.add_argument("--max-queue", type=int, default=64,
+                   help="admission queue depth; a full queue answers 429")
+    p.add_argument("--chunk-size", type=int, default=64,
+                   help="prefill chunk length: long prompts prefill in chunks "
+                        "of at most this many tokens, one chunk interleaved per "
+                        "decode tick; chunk lengths are bucketed to powers of two")
+    p.add_argument("--prefix-cache-tokens", type=int, default=4096,
+                   help="shared-prefix KV cache capacity in tokens; 0 disables")
+    p.add_argument("--kv-block-size", type=int, default=0, metavar="TOKENS",
+                   help="paged KV cache block size; not ported yet (0 = the "
+                        "dense per-slot cache)")
+    p.add_argument("--kv-dtype", choices=("model", "int8"), default="model",
+                   help="KV cache storage dtype; 'int8' is not ported yet")
+    p.add_argument("--kv-pool-blocks", type=int, default=None, metavar="N",
+                   help="paged KV pool size in blocks (paged mode only)")
+    p.add_argument("--tp", type=int, default=1, metavar="N",
+                   help="tensor-parallel degree; not ported yet (1)")
+    p.add_argument("--spec-k", type=int, default=0, metavar="K",
+                   help="speculative decoding draft length; not ported yet (0)")
+    p.add_argument("--spec-ngram", type=int, default=3,
+                   help="longest n-gram the prompt-lookup proposer matches")
+    p.add_argument("--starvation-s", type=float, default=30.0,
+                   help="starvation bound for priority admission: a queued "
+                        "request older than this is admitted next regardless "
+                        "of class; 0 = pure priority/EDF")
+    p.add_argument("--stats-jsonl", type=str, default=None, metavar="JSONL",
+                   help="append one final scheduler-stats record to this JSONL "
+                        "at shutdown, readable by `report`")
+    p.add_argument("--max-new-tokens", type=int, default=64,
+                   help="default completion length for requests that omit it")
+    p.add_argument("--max-new-tokens-cap", type=int, default=256,
+                   help="upper bound a request may ask for")
+    p.add_argument("--deadline-s", type=float, default=None,
+                   help="default per-request deadline (unset = no deadline)")
+    p.add_argument("--request-timeout-s", type=float, default=600.0,
+                   help="HTTP-level wait bound per request")
+    p.add_argument("--trace-out", type=str, default=None, metavar="JSON",
+                   help="export per-request serve spans (queued/prefill/decode) "
+                        "as Chrome trace-event JSON at shutdown")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0, metavar="RATE",
+                   help="head-sampling rate for trace contexts minted here")
+    p.add_argument("--trace-reservoir", type=int, default=2, metavar="N",
+                   help="unsampled traces per window promoted anyway (default 2)")
+    p.add_argument("--blackbox", type=str, default=None, metavar="JSON",
+                   help="arm the crash flight recorder: dump recent request "
+                        "outcomes to this path if the engine loop dies")
+    p.add_argument("--profile-dir", type=str, default=None, metavar="DIR",
+                   help="enable POST /debug/profile?seconds=N: capture a "
+                        "torch.profiler trace of the live process here")
+    p.add_argument("--inject-tick-delay-s", type=float, default=0.0, metavar="S",
+                   help="DRILL HOOK: sleep this long before every scheduling tick")
+    p.add_argument("--role", type=str, default="both",
+                   choices=("prefill", "decode", "both"),
+                   help="disaggregation tier this replica declares in its "
+                        "health body (routing only)")
+    p.add_argument("--park-ttl-s", type=float, default=30.0,
+                   help="seconds a prefilled-and-parked stream waits for export")
+    p.add_argument("--device", type=str, default="cuda")
+    return p
+
+
+def serve_main(argv: list[str]) -> None:
+    """Serve until SIGTERM or SIGINT."""
+    import signal
+    import threading
+
+    from nanodiloco_tpu_torch.data.tokenizer import get_tokenizer
+    from nanodiloco_tpu_torch.obs import flightrec
+    from nanodiloco_tpu_torch.obs.tracer import SpanTracer
+    from nanodiloco_tpu_torch.serve import InferenceEngine, Scheduler, ServeServer
+
+    args = build_serve_parser().parse_args(argv)
+    model_cfg, sidecar, params = _load_checkpoint_snapshot(args.checkpoint_dir, args.step)
+    tokenizer = get_tokenizer(args.tokenizer or sidecar.get("tokenizer"))
+    max_len = min(args.max_len, model_cfg.max_position_embeddings)
+    engine = InferenceEngine(
+        params, model_cfg, num_slots=args.slots, max_len=max_len,
+        chunk_size=args.chunk_size, prefix_cache_tokens=args.prefix_cache_tokens,
+        kv_block_size=args.kv_block_size, kv_dtype=args.kv_dtype,
+        kv_pool_blocks=args.kv_pool_blocks, spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram, tp=args.tp, device=args.device,
+    )
+    del params  # the engine holds its own serving copy
+    tracer = None
+    if args.trace_out:
+        # SAME clock as the scheduler (time.monotonic) so the recorded
+        # request-phase timestamps land on this tracer's timebase
+        tracer = SpanTracer(clock=time.monotonic, process_name="nanodiloco serve",
+                            sample_rate=args.trace_sample_rate,
+                            reservoir_per_window=args.trace_reservoir)
+    scheduler = Scheduler(
+        engine, max_queue=args.max_queue, tracer=tracer,
+        starvation_s=args.starvation_s if args.starvation_s > 0 else None,
+        park_ttl_s=args.park_ttl_s,
+    )
+    server = ServeServer(
+        scheduler, tokenizer, port=args.port, host=args.host,
+        default_max_new_tokens=args.max_new_tokens,
+        max_new_tokens_cap=args.max_new_tokens_cap,
+        request_timeout_s=args.request_timeout_s,
+        default_deadline_s=args.deadline_s, profile_dir=args.profile_dir,
+        tick_delay_s=args.inject_tick_delay_s, role=args.role,
+    ).start()
+    print(f"serving {args.checkpoint_dir} on {args.host}:{server.port} "
+          f"(slots={args.slots}, max_len={max_len}, device={engine.device}); "
+          "POST /v1/generate", flush=True)
+    prev_recorder = None
+    if args.blackbox:
+        prev_recorder = flightrec.install(flightrec.FlightRecorder(dump_path=args.blackbox))
+        flightrec.arm_fatal_signals()
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, lambda *_: stop.set())
+        except ValueError:  # not the main thread (embedded use)
+            break
+    try:
+        while not stop.is_set():
+            time.sleep(0.2)
+    finally:
+        server.stop()
+        if args.stats_jsonl:
+            try:
+                _append_serve_stats(args.stats_jsonl, scheduler)
+                print(f"serve stats -> {args.stats_jsonl}", flush=True)
+            except OSError:
+                pass  # a full disk must not mask the shutdown
+        if tracer is not None:
+            try:
+                tracer.export_chrome(args.trace_out)
+                print(f"serve span trace -> {args.trace_out}", flush=True)
+            except OSError:
+                pass
+        if args.blackbox:
+            flightrec.disarm_fatal_signals()
+            flightrec.install(prev_recorder)
+
+
+def _append_serve_stats(path: str, scheduler) -> None:
+    """One flat ``serve_stats`` JSONL record from the scheduler's final
+    snapshot (histograms dropped: the JSONL carries scalars, /metrics
+    carries distributions)."""
+    s = scheduler.stats()
+    rec = {
+        "serve_stats": True,
+        "t_unix": round(time.time(), 3),
+        **{k: v for k, v in s.items() if not k.startswith("hist_")},
+    }
+    for nested in ("kv_pool", "spec", "kvship"):
+        if isinstance(rec.get(nested), dict):
+            rec[nested] = {k: v for k, v in rec[nested].items() if not k.startswith("hist_")}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+
+
 def main(argv=None) -> dict | None:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["report"]:
         report_main(argv[1:])
+        return None
+    if argv[:1] == ["generate"]:
+        generate_main(argv[1:])
+        return None
+    if argv[:1] == ["serve"]:
+        serve_main(argv[1:])
         return None
     a = parse_args(argv)
     summary = train(config_from_args(a), device=a.device)

@@ -1,7 +1,8 @@
 """Tokenizer: the byte-level tokenizer of
 ``nanodiloco_tpu/data/tokenizer.py``, copied (the JAX package's
 ``__init__`` imports JAX, so the port keeps its own copy). The HF
-tokenizer wrapper is not ported yet."""
+tokenizer wrapper is not ported yet, so ``get_tokenizer`` knows the
+byte-level tokenizer alone."""
 
 from __future__ import annotations
 
@@ -36,3 +37,20 @@ class ByteTokenizer:
 
     def decode(self, ids) -> str:
         return bytes(i for i in ids if 0 <= i < 256).decode("utf-8", errors="replace")
+
+
+BYTE_TOKENIZER_NAMES = (None, "byte-level")  # as train() records it, and its manifest name
+
+
+def get_tokenizer(name: str | None = None) -> ByteTokenizer:
+    """The tokenizer a checkpoint's sidecar names (None: the byte-level
+    one). Any other name raises a readable SystemExit: the HF tokenizer
+    wrapper is not ported yet (ROADMAP.md, Queue A), and serving a model
+    through the wrong vocabulary would decode garbage."""
+    if name in BYTE_TOKENIZER_NAMES:
+        return ByteTokenizer()
+    raise SystemExit(
+        f"tokenizer {name!r} is not available in nanodiloco_tpu_torch: only the "
+        "byte-level tokenizer is ported (the HF tokenizer wrapper is not, "
+        "ROADMAP.md Queue A)"
+    )

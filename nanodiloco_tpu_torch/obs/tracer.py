@@ -2,9 +2,13 @@
 
 The training subset of ``nanodiloco_tpu/obs/tracer.py`` (jax-free; the
 JAX package's ``__init__`` imports jax, so the port keeps its own):
-``SpanTracer``, ``set_tracer``, ``current_tracer`` and ``trace_span``.
-The causal request tracing of the serving stack (``TraceContext``,
-sampling, ``stitch_trace``) and the multi-host trace merge are not
+``SpanTracer``, ``set_tracer``, ``current_tracer`` and ``trace_span``,
+and the request-span surface the serve scheduler and server call:
+``TraceContext`` (the W3C-traceparent-style wire context),
+``record_span`` for already-timed request phases, and the head-based
+sampling that ``serve --trace-sample-rate`` / ``--trace-reservoir`` set
+for contexts minted at this edge (``new_trace`` / ``accept``).
+``activate``, ``stitch_trace`` and the multi-host trace merge are not
 ported.
 
 The tracer answers "where does each ROUND's wall-clock go, host-side,
@@ -32,9 +36,60 @@ import os
 import threading
 import time
 from contextlib import contextmanager
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 from nanodiloco_tpu_torch.obs import flightrec
+
+
+class TraceContext(NamedTuple):
+    """One hop's position in a causal trace.
+
+    ``trace_id`` names the whole request tree (32 hex chars),
+    ``span_id`` is THIS hop's own span (16 hex), ``parent_span_id`` the
+    hop that caused it (None at the root), and ``sampled`` carries the
+    head-based decision every downstream process must honour.
+    """
+
+    trace_id: str
+    span_id: str
+    parent_span_id: str | None
+    sampled: bool
+
+    def child(self) -> "TraceContext":
+        """A fresh span id parented under this one; trace id and the
+        sampling decision ride along unchanged."""
+        return TraceContext(self.trace_id, _new_span_id(), self.span_id, self.sampled)
+
+    def to_wire(self) -> str:
+        """Wire form ``00-<trace_id>-<span_id>-<flags>``: the receiver
+        parents its spans under OUR span id. Flags: ``01`` sampled."""
+        return f"00-{self.trace_id}-{self.span_id}-{'01' if self.sampled else '00'}"
+
+    @classmethod
+    def from_wire(cls, wire: Any) -> "TraceContext | None":
+        """Parse an incoming ``trace_context`` string; None on anything
+        malformed (a garbage header degrades to untraced, never a 4xx)."""
+        if not isinstance(wire, str):
+            return None
+        parts = wire.strip().split("-")
+        if len(parts) != 4:
+            return None
+        _ver, tid, sid, flags = parts
+        if len(tid) != 32 or len(sid) != 16:
+            return None
+        try:
+            int(tid, 16), int(sid, 16)
+        except ValueError:
+            return None
+        return cls(tid.lower(), sid.lower(), None, flags == "01")
+
+
+def _new_span_id() -> str:
+    return os.urandom(8).hex()
+
+
+def _new_trace_id() -> str:
+    return os.urandom(16).hex()
 
 
 class SpanTracer:
@@ -50,10 +105,21 @@ class SpanTracer:
         clock: Callable[[], float] = time.perf_counter,
         max_events: int = 500_000,
         process_name: str = "nanodiloco rank0",
+        sample_rate: float = 1.0,
+        reservoir_per_window: int = 2,
+        reservoir_window_s: float = 60.0,
     ) -> None:
         self._clock = clock
         self._max_events = max_events
         self.process_name = process_name
+        # head-based sampling: the edge process decides once per trace
+        # (a pure function of the trace id), topped up by a bounded
+        # reservoir of reservoir_per_window traces per window
+        self.sample_rate = float(sample_rate)
+        self._reservoir_per_window = int(reservoir_per_window)
+        self._reservoir_window_s = float(reservoir_window_s)
+        self._reservoir_left = self._reservoir_per_window
+        self._reservoir_window_t0: float | None = None
         self._lock = threading.Lock()
         self._events: list[dict[str, Any]] = []
         self._dropped = 0
@@ -72,6 +138,38 @@ class SpanTracer:
         if st is None:
             st = self._local.stack = []
         return st
+
+    # -- causal context -------------------------------------------------
+
+    def head_sample(self, trace_id: str) -> bool:
+        """The once-per-trace sampling decision: deterministic in the
+        trace id, topped up by the bounded reservoir."""
+        if self.sample_rate >= 1.0:
+            return True
+        if (self.sample_rate > 0.0
+                and int(trace_id[:13] or "0", 16) / float(16 ** 13) < self.sample_rate):
+            return True
+        now = self._clock()
+        with self._lock:
+            if (self._reservoir_window_t0 is None
+                    or now - self._reservoir_window_t0 >= self._reservoir_window_s):
+                self._reservoir_window_t0 = now
+                self._reservoir_left = self._reservoir_per_window
+            if self._reservoir_left > 0:
+                self._reservoir_left -= 1
+                return True
+        return False
+
+    def new_trace(self) -> TraceContext:
+        """Mint a root context at the edge."""
+        tid = _new_trace_id()
+        return TraceContext(tid, _new_span_id(), None, self.head_sample(tid))
+
+    def accept(self, wire: Any) -> TraceContext:
+        """Adopt an incoming wire context, or mint a fresh trace when
+        there is none; a propagated sampling decision wins."""
+        ctx = TraceContext.from_wire(wire)
+        return ctx if ctx is not None else self.new_trace()
 
     @contextmanager
     def span(self, name: str, **args: Any):
@@ -106,6 +204,35 @@ class SpanTracer:
                 # black-box feed: the crash dump's timeline shows which
                 # phases ran up to the fatal moment
                 flightrec.record_event("span", name=name, s=round(t1 - t0, 6))
+
+    def record_span(self, name: str, t0: float, t1: float,
+                    ctx: TraceContext | None = None, **args: Any) -> None:
+        """Record an ALREADY-TIMED span: ``t0``/``t1`` are values of THIS
+        tracer's clock, captured by the caller (the serve scheduler times
+        queued/prefill/decode with its own clock and reports them after
+        the fact). Recorded at depth 0, so serve phases aggregate into
+        ``phase_totals``. ``ctx`` names the span's place in a causal
+        trace; an unsampled or absent context adds nothing."""
+        if self._max_events <= 0:
+            return
+        tid = threading.get_ident()
+        ev = {"name": name, "t0": float(t0), "dur": max(0.0, float(t1) - float(t0)),
+              "depth": 0, "tid": tid}
+        if ctx is not None and ctx.sampled:
+            args = {**args, "trace_id": ctx.trace_id, "span_id": ctx.span_id}
+            if ctx.parent_span_id:
+                args["parent_span_id"] = ctx.parent_span_id
+        if args:
+            ev["args"] = args
+        with self._lock:
+            if tid not in self._thread_names:
+                self._thread_names[tid] = threading.current_thread().name
+            self._events.append(ev)
+            if len(self._events) > self._max_events:
+                drop = len(self._events) - self._max_events
+                del self._events[:drop]
+                self._dropped += drop
+            self._totals[name] = self._totals.get(name, 0.0) + ev["dur"]
 
     def phase_totals(self, reset: bool = True) -> dict[str, float]:
         """Seconds per DEPTH-0 span name since the last reset — the

@@ -141,6 +141,21 @@ class CheckpointManager:
                                weights_only=True),
         )
 
+    def restore_raw(self, step: int | None = None, only: set[str] | None = None) -> dict:
+        """The saved tree without a live state to restore into: nested
+        dicts of CPU tensors memory-mapped from the file (a leaf's bytes
+        are read only when it is used). ``only`` names the top-level
+        fields to return (e.g. {"snapshot"} for serving: the merged
+        weights alone, no per-worker params and no moments)."""
+        saved = self._load(step)
+        if only is None:
+            return saved
+        missing = set(only) - set(saved)
+        if missing:
+            raise KeyError(f"checkpoint has no field(s) {sorted(missing)}; "
+                           f"available: {sorted(saved)}")
+        return {k: saved[k] for k in only}
+
     def saved_worker_count(self, step: int | None = None) -> int:
         """Leading (worker) dimension of the saved params (the file is
         memory-mapped; no array data is read)."""

@@ -175,3 +175,41 @@ def test_evaluator_on_the_card_matches_the_cpu():
     want = Evaluator(SMALL, "cpu")(params, batches)
     assert got["eval_tokens"] == want["eval_tokens"]
     assert abs(got["eval_loss"] - want["eval_loss"]) <= 1e-3 * want["eval_loss"]
+
+
+@pytest.mark.cuda
+def test_generate_and_engine_on_the_card_match_the_cpu():
+    """Greedy generate() on the card against the CPU from one parameter
+    tree, float32 with TF32 off: identical tokens. The weights are drawn
+    at std 0.2 so that the logits' top-2 gaps (~1e-1) dwarf the summation
+    order's ~1e-6: a near-tie cannot flip a token here. The engine on the
+    card (2 slots, chunk 8) serves a greedy and a sampled request, each
+    token-identical to the card's solo generate() with its seed."""
+    from nanodiloco_tpu_torch.models.generate import generate, noise_uniforms
+    from nanodiloco_tpu_torch.serve import GenRequest, InferenceEngine, Scheduler
+
+    card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = LlamaConfig(vocab_size=384, hidden_size=128, intermediate_size=256,
+                      num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                      initializer_range=0.2)
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    prompt = torch.randint(0, 384, (2, 11), generator=torch.Generator().manual_seed(1))
+    cpu = generate(params, prompt, cfg, 16, device="cpu")
+    gpu = generate(params, prompt, cfg, 16, device="cuda")
+    assert torch.equal(gpu.cpu(), cpu)
+    assert torch.equal(noise_uniforms([3, 4], [0, 0], [0, 5], 384, "cuda").cpu(),
+                       noise_uniforms([3, 4], [0, 0], [0, 5], 384, "cpu"))
+    eng = InferenceEngine(params, cfg, num_slots=2, max_len=64, chunk_size=8)
+    sched = Scheduler(eng)
+    reqs = [GenRequest(prompt=tuple(prompt[0].tolist()), max_new_tokens=12, seed=0),
+            GenRequest(prompt=tuple(prompt[1].tolist()), max_new_tokens=12, temperature=0.9,
+                       top_k=50, seed=5)]
+    tickets = [sched.submit(r) for r in reqs]
+    for _ in range(200):
+        if sched.tick() == 0 and all(t.done() for t in tickets):
+            break
+    for ticket, req in zip(tickets, reqs):
+        want = generate(params, [list(req.prompt)], cfg, 12, temperature=req.temperature,
+                        top_k=req.top_k, seed=req.seed, device="cuda")[0].tolist()
+        assert ticket.result["tokens"] == want
