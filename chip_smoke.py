@@ -77,6 +77,30 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  (the teacher-forcing forward alone: generation and the
                  engine run no kernel of their own) go to the kernels line
                  as "launches_serve".
+9. serve_modes_small - the engine's modes at serve_small's size in
+                 float32, on the card and on the CPU: dense, paged (block 4),
+                 paged + int8 and paged + speculation (spec_k 4) serve
+                 serve_small's requests and two on a repeated prompt; each
+                 mode's streams are the same on both devices and equal solo
+                 generate() (int8: its greedy streams, and its first-token
+                 logits within 5% of the fp logits' span); a swap_weights in
+                 mid-stream leaves the live stream on the old weights and
+                 runs the next admission on the new ones, and frees the old
+                 serving copy (memory_allocated) when its last slot retires;
+                 export -> wire doc -> import round trips dense -> paged
+                 and paged -> int8 finish as solo generate().
+10. serve_paged - Llama-3-8B at full depth (32 layers, bf16, serve's
+                 weights): a paged arena of 16 slots x max_len 4096, block
+                 16, chunk 512, serves 16 requests (prompts of 512-3000
+                 tokens, 64 new, greedy and sampled) with bf16 KV and with
+                 int8 KV. Prints the arena's bytes and bytes per token, peak
+                 memory, TTFT p50/p95, decode tokens/s, the decode tick at 16
+                 live slots against its byte bound with the device's idle
+                 share and the gather/scatter kernels' share, and int8's
+                 agreement with bf16. Checks: paged bf16 against the dense
+                 engine (16 x 1024, greedy) and spec_k=4 on repeated prompts
+                 against the same engine without speculation; streams may
+                 part only at a near-tie (NEAR_TIE).
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
@@ -121,6 +145,7 @@ from nanodiloco_tpu_torch.models.generate import (
     _cached_block,
     generate,
     init_kv_cache,
+    kv_bytes_per_token,
     noise_uniforms,
     serving_params,
 )
@@ -133,6 +158,7 @@ from nanodiloco_tpu_torch.serve import (
     Scheduler,
     http_get,
     http_post_json,
+    kvship,
 )
 from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager, named_leaves, state_tree
 from nanodiloco_tpu_torch.training.metrics import read_jsonl_records, summarize_run
@@ -869,7 +895,9 @@ def teacher_forcing(sp, cfg, req: GenRequest, stream: list[int]) -> dict:
             "ok": bool((gap <= tol).all()), "h": h, "logits": logits}
 
 
-def phase_serve(smi: str) -> dict:
+def phase_serve(smi: str) -> tuple[dict, dict]:
+    """Returns B1's launches in this phase and the serving weights, which
+    serve_paged reuses."""
     cfg = LLAMA3_8B  # 32 layers, bf16 compute over float32 masters, flash attention
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -940,9 +968,9 @@ def phase_serve(smi: str) -> dict:
          prefill_chunks=stats["prefill_chunks_total"], greedy_checks=checks,
          teacher_forcing_exact_share=tf_exact / tf_n, near_tie_rule=NEAR_TIE,
          b1_launches=launches["flash_fwd"], devtime=eng.devtime_stats(), **timing)
-    del eng, sp
+    del eng
     torch.cuda.empty_cache()
-    return launches
+    return launches, sp
 
 
 def serve_timing(eng: InferenceEngine, cfg: LlamaConfig, matmul_bytes: int) -> dict:
@@ -1022,6 +1050,409 @@ def decode_idle_share(eng: InferenceEngine, tick_ms: float) -> dict:
             "decode_idle_share": max(0.0, 1.0 - busy_ms / tick_ms)}
 
 
+# -- the serve engine's modes ---------------------------------------------------
+
+MODES = {
+    "dense": {},
+    "paged": {"kv_block_size": 4},
+    "paged_int8": {"kv_block_size": 4, "kv_dtype": "int8"},
+    "paged_spec": {"kv_block_size": 4, "spec_k": 4},
+}
+# the int8 arena's bound on first-token logits: 5% of the fp logits' span,
+# the JAX package's own bound (tests/test_kv_paging.py)
+INT8_SPAN_TOL = 0.05
+
+
+def modes_requests(prompt: torch.Tensor) -> list[GenRequest]:
+    """serve_small's three requests plus two on a repeated prompt, where
+    prompt lookup finds drafts."""
+    rep = tuple(prompt[0, :6].tolist()) * 4
+    return serve_small_requests(prompt) + [
+        GenRequest(prompt=rep, max_new_tokens=12, seed=2),
+        GenRequest(prompt=rep, max_new_tokens=10, temperature=0.8, seed=4),
+    ]
+
+
+def run_direct(eng: InferenceEngine, staged: dict[int, GenRequest], admit=None) -> dict:
+    """Drive the engine without the scheduler: ``staged`` {slot: request}
+    prefill at once; ``admit`` is (after_ticks, callback) run once. Each
+    slot is released when its stream is complete. Returns {slot: tokens}."""
+    out = {s: [eng.prefill(s, r)] for s, r in staged.items()}
+    reqs = dict(staged)
+    ticks = 0
+    while any(len(out[s]) < reqs[s].max_new_tokens for s in reqs):
+        if admit is not None and ticks == admit[0]:
+            for s, r in admit[1]().items():
+                reqs[s], out[s] = r, [eng.prefill(s, r)]
+        emitted = eng.step()
+        ticks += 1
+        for s in reqs:
+            if len(out[s]) < reqs[s].max_new_tokens:
+                out[s] += emitted[s]
+                if len(out[s]) >= reqs[s].max_new_tokens:
+                    eng.release(s)
+    return out
+
+
+def ship_roundtrip(params, cfg, req: GenRequest, src: dict, dst: dict, device) -> list[int]:
+    """Prefill ``req`` on an engine of layout ``src`` and park it, export it
+    through the wire doc (JSON text and back), import it into an engine of
+    layout ``dst`` and finish the stream there."""
+    kw = dict(num_slots=2, max_len=64, chunk_size=8, device=device)
+    sa = Scheduler(InferenceEngine(params, cfg, **kw, **src))
+    ticket = sa.submit(dataclasses.replace(req, prefill_only=True, request_id="ship"))
+    while not ticket.done():
+        sa.tick()
+    raw, parked = sa.export_parked("ship")
+    doc = kvship.pack(kvship.ShippedKV(
+        config=raw["config"], generation=raw["generation"], wire_dtype=raw["wire_dtype"],
+        prompt_len=len(req.prompt), pos=raw["pos"], step_idx=len(parked.tokens) - 1,
+        emitted=list(parked.tokens), k=raw["k"], v=raw["v"], ks=raw.get("ks"),
+        vs=raw.get("vs"), request={}))
+    shipped = kvship.unpack(json.loads(json.dumps(doc)))
+    eng = InferenceEngine(params, cfg, **kw, **dst)
+    sb = Scheduler(eng)
+    ticket = sb.admit_import(req, shipped)
+    while not ticket.done():
+        sb.tick()
+    if eng.kv_stats() and eng.kv_stats()["blocks_free"] != eng.kv_stats()["num_blocks"]:
+        fail("serve_modes_small", f"KV import {src} -> {dst} leaked blocks: {eng.kv_stats()}")
+    return ticket.result["tokens"]
+
+
+def phase_serve_modes_small(smi: str) -> None:
+    """The engine's modes at serve_small's size in float32, TF32 off, on
+    the card and on the CPU: each mode's streams equal on both, and equal
+    solo generate() (int8: its greedy streams, and first-token logits
+    within INT8_SPAN_TOL of the fp span); a swap mid-stream; KV round
+    trips dense -> paged and paged -> int8."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SERVE_SMALL
+    params = init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params2 = init_params(torch.Generator().manual_seed(3), cfg, device="cpu")
+    prompt = torch.randint(0, cfg.vocab_size, (2, 21), generator=torch.Generator().manual_seed(1))
+    reqs = modes_requests(prompt)
+    streams, spec, logits_err, swap, ships = {}, {}, {}, {}, {}
+    for d in ("cuda", "cpu"):
+        want = [solo(params, cfg, r, d) for r in reqs]
+        for mode, kw in MODES.items():
+            eng = InferenceEngine(params, cfg, num_slots=2, max_len=64, chunk_size=8,
+                                  prefix_cache_tokens=64, device=d, **kw)
+            got = [t.result["tokens"] for t in drive(Scheduler(eng), reqs)]
+            streams[mode, d] = got
+            check = [(g, w) for g, w, r in zip(got, want, reqs)
+                     if mode != "paged_int8" or not r.temperature]
+            if any(g != w for g, w in check):
+                fail("serve_modes_small", f"{mode} on {d}: {got} vs solo generate() {want}")
+            if eng.paged:
+                eng.prefix_cache.clear()
+                if eng.block_pool.free_blocks != eng.block_pool.num_blocks:
+                    fail("serve_modes_small", f"{mode} on {d} leaked blocks: {eng.kv_stats()}")
+            if eng.spec_k:
+                spec[d] = eng.spec_stats()
+        # int8's first-token logits against the paged fp arena's
+        first = {}
+        for kv in ("model", "int8"):
+            eng = InferenceEngine(params, cfg, num_slots=1, max_len=64, chunk_size=8,
+                                  kv_block_size=4, kv_dtype=kv, device=d)
+            eng.capture_prefill_logits = True
+            first[kv] = []
+            for r in reqs:
+                eng.prefill(0, r)
+                first[kv].append(eng.last_prefill_logits.copy())
+                eng.release(0)
+        logits_err[d] = max(float(np.abs(a - b).max() / max(a.max() - a.min(), 1e-6))
+                            for a, b in zip(first["model"], first["int8"]))
+        if logits_err[d] > INT8_SPAN_TOL:
+            fail("serve_modes_small", f"int8 first-token logits on {d}: {logits_err[d]:.4f} "
+                                      f"of the span > {INT8_SPAN_TOL}")
+        # a swap mid-stream: request 0 keeps the old weights, request 1,
+        # admitted after the swap, runs on the new ones
+        eng = InferenceEngine(params, cfg, num_slots=2, max_len=64, chunk_size=8,
+                              kv_block_size=4, device=d)
+        mem = {}
+
+        def do_swap():
+            mem["before"] = torch.cuda.memory_allocated() if d == "cuda" else 0
+            eng.swap_weights(params2)
+            mem["both"] = torch.cuda.memory_allocated() if d == "cuda" else 0
+            return {1: reqs[1]}
+
+        old_bytes = tree_bytes(eng.params)
+        got = run_direct(eng, {0: reqs[0]}, admit=(2, do_swap))
+        mem["after"] = torch.cuda.memory_allocated() if d == "cuda" else 0
+        if got[0] != want[0] or got[1] != solo(params2, cfg, reqs[1], d):
+            fail("serve_modes_small", f"swap on {d}: the old stream {got[0]} (want {want[0]}) "
+                                      f"or the new one {got[1]} left its weights")
+        if d == "cuda" and mem["both"] - mem["after"] < old_bytes:
+            fail("serve_modes_small", f"the old serving copy ({old_bytes} bytes) was not freed "
+                                      f"when its last slot retired: {mem}")
+        if set(eng._params_by_gen) != {1}:
+            fail("serve_modes_small", f"generations left: {sorted(eng._params_by_gen)}")
+        swap[d] = {"old_stream": got[0], "new_stream": got[1], "old_copy_bytes": old_bytes,
+                   "memory_allocated": mem}
+        # KV round trips: a sampled stream dense -> paged (bits kept), a
+        # greedy one paged -> int8 (requantized on import)
+        ships[d] = {
+            "dense_to_paged": ship_roundtrip(params, cfg, reqs[1], {}, {"kv_block_size": 4}, d),
+            "paged_to_int8": ship_roundtrip(params, cfg, reqs[0], {"kv_block_size": 4},
+                                            {"kv_block_size": 4, "kv_dtype": "int8"}, d),
+        }
+        if ships[d]["dense_to_paged"] != want[1] or ships[d]["paged_to_int8"] != want[0]:
+            fail("serve_modes_small", f"KV round trips on {d}: {ships[d]}, want {want[1]} and "
+                                      f"{want[0]}")
+    for mode in MODES:
+        if streams[mode, "cuda"] != streams[mode, "cpu"]:
+            fail("serve_modes_small", f"{mode}: card {streams[mode, 'cuda']} vs CPU "
+                                      f"{streams[mode, 'cpu']}")
+    if ships["cuda"] != ships["cpu"] or swap["cuda"]["new_stream"] != swap["cpu"]["new_stream"]:
+        fail("serve_modes_small", f"card and CPU differ: ships {ships}, swap {swap}")
+    if not spec["cuda"]["draft_tokens"]:
+        fail("serve_modes_small", f"prompt lookup proposed nothing: {spec['cuda']}")
+    emit(phase="serve_modes_small", ok=True, nvidia_smi=smi, modes=list(MODES),
+         streams={m: streams[m, "cuda"] for m in MODES}, spec=spec["cuda"],
+         int8_first_logits_err_of_span=logits_err, int8_tolerance=INT8_SPAN_TOL,
+         swap=swap["cuda"], kv_ship=ships["cuda"])
+
+
+# the 8B paged workload: 16 slots of max_len 4096, block 16, chunk 512;
+# prompts over 512-3000 tokens, 64 new tokens each, greedy and sampled
+PAGED = dict(num_slots=16, max_len=4096, kv_block_size=16, chunk_size=512)
+PAGED_PROMPTS = tuple(int(n) for n in np.linspace(512, 3000, 16))
+PAGED_NEW = 64
+# paged against dense at a size that holds both: 16 slots of 1024
+PAGED_VS_DENSE = dict(num_slots=16, max_len=1024, kv_block_size=16, chunk_size=512)
+VS_DENSE_PROMPTS = tuple(int(n) for n in np.linspace(100, 900, 16))
+VS_DENSE_NEW = 32
+
+
+def random_prompts(cfg: LlamaConfig, lens, seed: int) -> list[tuple]:
+    gen = torch.Generator().manual_seed(seed)
+    return [tuple(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()) for n in lens]
+
+
+def near_tie(sp, cfg, req: GenRequest, a: list[int], b: list[int], phase: str, what: str) -> dict:
+    """Where greedy streams ``a`` and ``b`` of ``req`` first part, the two
+    tokens' logit gap in the training forward (through B1) over the prompt
+    and the common prefix must be within NEAR_TIE; fails the phase if not."""
+    first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if first is None:
+        return {"first_divergence": None}
+    toks = torch.tensor([list(req.prompt) + a[:first]], device="cuda")
+    with torch.no_grad():
+        h = forward(sp, toks, dataclasses.replace(cfg, remat=False), return_hidden=True)[0, -1:]
+        row = torch.matmul(h, sp["lm_head"]).float()
+    ta, tb = torch.tensor([a[first]], device="cuda"), torch.tensor([b[first]], device="cuda")
+    gap = (row[0, ta] - row[0, tb]).abs().item()
+    tol = tie_tolerance(h, sp["lm_head"], row, ta, tb).item()
+    if gap > tol:
+        fail(phase, f"{what}: streams part at {first} off a near-tie: gap {gap:.4g} > {tol:.4g}")
+    return {"first_divergence": first, "gap": gap, "tol": tol}
+
+
+def tick_profile(eng: InferenceEngine, cfg: LlamaConfig, reqs, matmul_bytes: int) -> dict:
+    """The decode tick with every slot live at the end of its prompt (the
+    cursors held there): median host ms of 20 ticks (each ends in the host
+    read of its tokens), the least time it could take (the matmul weights
+    and each slot's K/V rows read once, over the HBM rate), and from 10
+    profiled ticks the device's busy time, idle share and its heaviest
+    kernels by name (the arena's gathers are among them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for s, r in enumerate(reqs):
+        eng.prefill(s, r)
+    pos, steps = eng._pos.copy(), eng._step_idx.copy()
+
+    def tick():
+        eng.step()
+        eng._pos[:], eng._step_idx[:] = pos, steps
+
+    for _ in range(3):
+        tick()
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        tick()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    n = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            tick()
+    busy_us, kernels = device_busy_us(prof)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name[:100]
+            by_name[name] = by_name.get(name, 0.0) + e.time_range.end - e.time_range.start
+    kv_read = int(sum(pos + 1)) * kv_bytes_per_token(cfg, eng.kv_dtype)
+    bound = (matmul_bytes + kv_read) / PEAK_BYTES * 1e3
+    for s in range(eng.num_slots):
+        eng.release(s)
+    out = {"live_slots": len(reqs), "ms": ms, "ms_min": min(times), "ms_max": max(times),
+           "bound_ms": bound, "bound_by": "bytes", "bound_share": bound / ms,
+           "kv_read_bytes": kv_read, "rows_attended_per_slot": (
+               eng.table_blocks * eng.kv_block_size if eng.paged else eng.max_len)}
+    if busy_us <= 0:
+        out["idle_share"] = "not measured: the profiler showed no device time"
+    else:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+        out.update(device_busy_ms=busy_us / 1e3 / n, kernels_per_tick=kernels / n,
+                   idle_share=max(0.0, 1.0 - busy_us / 1e3 / n / ms),
+                   top_kernels_ms={k: v / 1e3 / n for k, v in top})
+    return out
+
+
+def spec_tick_ms(sp, cfg: LlamaConfig, reqs) -> dict:
+    """What a speculative tick costs against a plain one: every slot of a
+    spec_k=4 engine live with its cursor held, the median host ms of 20
+    ticks in which a scripted proposer offers each slot 4 drafts (one
+    verify forward over 5 positions) and of 20 in which it offers none
+    (the plain decode program)."""
+
+    class Scripted:
+        k = 4
+
+        def propose(self, slot, cap):
+            return [1] * min(self.k, cap)
+
+        def begin(self, *a):
+            pass
+
+        observe = feedback = release = begin
+
+    eng = InferenceEngine(sp, cfg, device="cuda", spec_k=4, **{**PAGED, "num_slots": len(reqs)})
+    for s, r in enumerate(reqs):
+        eng.prefill(s, r)
+    eng.speculator = Scripted()
+    pos, steps = eng._pos.copy(), eng._step_idx.copy()
+    out = {}
+    for k in (4, 0):
+        eng.speculator.k = k
+        times = []
+        for i in range(23):
+            t0 = time.perf_counter()
+            eng.step()
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+            eng._pos[:], eng._step_idx[:] = pos, steps
+        out[f"drafts_{k}"] = statistics.median(times)
+    del eng
+    torch.cuda.empty_cache()
+    return {"live_slots": len(reqs), **out}
+
+
+def phase_serve_paged(sp, smi: str) -> None:
+    """Llama-3-8B at full depth (32 layers, bf16), phase_serve's weights:
+    one paged arena of 16 slots x 4096 serves 16 requests (prompts of
+    512-3000 tokens, 64 new, greedy and sampled) with bf16 KV and with int8
+    KV; the arena's bytes, peak memory, TTFT, decode tokens/s, the decode
+    tick at 16 live slots against its bound, int8's agreement with bf16.
+    Checks: paged bf16 against the dense engine (16 x 1024, greedy: streams
+    part only at a near-tie), and spec_k=4 on repeated prompts against the
+    same engine without speculation (likewise)."""
+    cfg = LLAMA3_8B
+    matmul_bytes = sum(tree_bytes(sp["layers"][k]) for k in MATMUL_KEYS) + tree_bytes(
+        sp["lm_head"])
+    prompts = random_prompts(cfg, PAGED_PROMPTS, seed=3)
+    reqs = [GenRequest(prompt=p, max_new_tokens=PAGED_NEW, seed=20 + i,
+                       temperature=0.0 if i % 2 == 0 else 0.8, top_k=0 if i % 4 != 1 else 50)
+            for i, p in enumerate(prompts)]
+    runs = {}
+    for kv in ("model", "int8"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = InferenceEngine(sp, cfg, kv_dtype=kv, device="cuda", **PAGED)
+        sched = Scheduler(eng)
+        t0 = time.perf_counter()
+        tickets = drive(sched, reqs, per_tick=len(reqs))
+        seconds = time.perf_counter() - t0
+        stats = sched.stats()
+        runs[kv] = {"streams": [t.result["tokens"] for t in tickets],
+                    "arena_bytes": eng.kv_bytes(),
+                    "kv_bytes_per_token": kv_bytes_per_token(cfg, eng.kv_dtype),
+                    "workload_seconds": seconds, "ttft_p50_s": stats["ttft_p50_s"],
+                    "ttft_p95_s": stats["ttft_p95_s"],
+                    "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
+                    "prefill_chunks": stats["prefill_chunks_total"],
+                    "tick_16_slots": tick_profile(eng, cfg, reqs, matmul_bytes),
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if any(len(s) != PAGED_NEW for s in runs[kv]["streams"]):
+            fail("serve_paged", f"{kv}: stream lengths {[len(s) for s in runs[kv]['streams']]}")
+        if eng.block_pool.free_blocks != eng.block_pool.num_blocks:
+            fail("serve_paged", f"{kv}: blocks leaked: {eng.kv_stats()}")
+        del eng, sched
+    bf, i8 = runs["model"]["streams"], runs["int8"]["streams"]
+    firsts = [next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+              for a, b in zip(bf, i8)]
+    agreement = {"streams_identical": sum(a == b for a, b in zip(bf, i8)),
+                 "streams": len(bf),
+                 "tokens_before_first_divergence_share": sum(firsts) / sum(map(len, bf)),
+                 "greedy_streams_identical": sum(a == b for a, b, r in zip(bf, i8, reqs)
+                                                 if not r.temperature)}
+
+    # paged bf16 against the dense engine, 16 x 1024, greedy
+    vs_reqs = [GenRequest(prompt=p, max_new_tokens=VS_DENSE_NEW, seed=i)
+               for i, p in enumerate(random_prompts(cfg, VS_DENSE_PROMPTS, seed=4))]
+    vs, vs_tick = {}, {}
+    for layout, kw in (("dense", {"kv_block_size": 0}), ("paged", {})):
+        eng = InferenceEngine(sp, cfg, device="cuda", **{**PAGED_VS_DENSE, **kw})
+        vs[layout] = [t.result["tokens"] for t in drive(Scheduler(eng), vs_reqs,
+                                                         per_tick=len(vs_reqs))]
+        vs_tick[layout] = tick_profile(eng, cfg, vs_reqs, matmul_bytes)
+        del eng
+        torch.cuda.empty_cache()
+    vs_checks = [near_tie(sp, cfg, r, a, b, "serve_paged", f"paged vs dense, prompt {len(r.prompt)}")
+                 for r, a, b in zip(vs_reqs, vs["dense"], vs["paged"])]
+
+    # spec_k = 4 against the same engine without it, on repetitive prompts
+    # P + S + P, S the model's own greedy stream after P: prompt lookup
+    # then proposes the rest of S, and the model may follow it
+    heads = random_prompts(cfg, (224,) * 4, seed=5)
+    eng = InferenceEngine(sp, cfg, device="cuda", **{**PAGED, "num_slots": len(heads)})
+    firsts = [t.result["tokens"] for t in drive(Scheduler(eng), [
+        GenRequest(prompt=h, max_new_tokens=64) for h in heads], per_tick=len(heads))]
+    del eng
+    spec_reqs = [GenRequest(prompt=h + tuple(f) + h, max_new_tokens=64, seed=i)
+                 for i, (h, f) in enumerate(zip(heads, firsts))]
+    spec = {}
+    for k in (0, 4):
+        eng = InferenceEngine(sp, cfg, device="cuda", spec_k=k,
+                              **{**PAGED, "num_slots": len(spec_reqs)})
+        eng.warm_spec()
+        sched = Scheduler(eng)
+        t0 = time.perf_counter()
+        tickets = drive(sched, spec_reqs, per_tick=len(spec_reqs))
+        spec[k] = {"streams": [t.result["tokens"] for t in tickets],
+                   "seconds": time.perf_counter() - t0, "decode_ticks": eng.decode_ticks,
+                   "stats": eng.spec_stats(),
+                   "decode_tokens_per_sec": sched.stats()["decode_tokens_per_sec"]}
+        del eng, sched
+        torch.cuda.empty_cache()
+    verify_tick = spec_tick_ms(sp, cfg, spec_reqs)
+    if any(len(x) != 64 for x in firsts + spec[0]["streams"] + spec[4]["streams"]):
+        fail("serve_paged", f"spec workload stream lengths: {spec}")
+    spec_checks = [near_tie(sp, cfg, r, a, b, "serve_paged", f"spec vs plain, request {i}")
+                   for i, (r, a, b) in enumerate(zip(spec_reqs, spec[0]["streams"],
+                                                     spec[4]["streams"]))]
+    for kv in runs:
+        del runs[kv]["streams"]
+    emit(phase="serve_paged", ok=True, nvidia_smi=smi, layers=cfg.num_hidden_layers,
+         engine=PAGED, prompt_lens=list(PAGED_PROMPTS), new_tokens=PAGED_NEW,
+         matmul_weight_bytes=matmul_bytes, runs=runs, int8_vs_bf16=agreement,
+         paged_vs_dense={"engine": PAGED_VS_DENSE, "checks": vs_checks,
+                         "identical": sum(a == b for a, b in zip(vs["dense"], vs["paged"])),
+                         "tick_16_slots": vs_tick},
+         spec={"spec_k": 4, "requests": len(spec_reqs), "prompt_len": len(spec_reqs[0].prompt),
+               "stats": spec[4]["stats"], "decode_ticks": spec[4]["decode_ticks"],
+               "decode_ticks_without": spec[0]["decode_ticks"], "seconds": spec[4]["seconds"],
+               "seconds_without": spec[0]["seconds"],
+               "decode_tokens_per_sec": spec[4]["decode_tokens_per_sec"],
+               "decode_tokens_per_sec_without": spec[0]["decode_tokens_per_sec"],
+               "tick_ms_drafts_4_vs_none": verify_tick, "checks": spec_checks,
+               "near_tie_rule": NEAR_TIE})
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -1049,7 +1480,10 @@ def main() -> None:
     del summary
     torch.cuda.empty_cache()
     phase_serve_small(smi)
-    serve_launches = phase_serve(smi)
+    phase_serve_modes_small(smi)
+    serve_launches, sp = phase_serve(smi)
+    phase_serve_paged(sp, smi)
+    del sp
     shutil.rmtree(WORK, ignore_errors=True)
 
     emit(kernels=[

@@ -16,10 +16,14 @@ either package.
 ``python -m nanodiloco_tpu_torch generate --checkpoint-dir DIR`` samples
 text from a checkpoint's merged snapshot; ``serve --checkpoint-dir DIR``
 runs the continuous-batching HTTP server over it (``POST /v1/generate``,
-``GET /healthz``, ``GET /metrics``). Both take the JAX CLI's flags, plus
-``--device`` (the card unless ``--device cpu``); the serve options whose
-engine half is not ported yet (``--kv-block-size``, ``--kv-dtype int8``,
-``--spec-k``, ``--tp``) raise NotImplementedError.
+``GET /healthz``, ``GET /metrics``, ``POST /admin/swap`` to hot-swap
+another checkpoint's weights in, ``/admin/kv/export`` and
+``/admin/kv/import`` to ship a stream's KV rows). Both take the JAX
+CLI's flags, plus ``--device`` (the card unless ``--device cpu``):
+``--kv-block-size`` serves from a paged block arena, ``--kv-dtype int8``
+stores it quantized, ``--spec-k`` turns on prompt-lookup speculative
+decoding. ``--tp`` above 1 raises NotImplementedError (tensor-parallel
+serving is not ported yet).
 """
 
 from __future__ import annotations
@@ -297,16 +301,22 @@ def build_serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--prefix-cache-tokens", type=int, default=4096,
                    help="shared-prefix KV cache capacity in tokens; 0 disables")
     p.add_argument("--kv-block-size", type=int, default=0, metavar="TOKENS",
-                   help="paged KV cache block size; not ported yet (0 = the "
-                        "dense per-slot cache)")
+                   help="paged KV cache: one block arena shared by all slots, "
+                        "a request holding only the blocks its prompt + "
+                        "max_new_tokens need (clamped to a power of two <= "
+                        "--chunk-size); 0 (default) = the dense per-slot cache")
     p.add_argument("--kv-dtype", choices=("model", "int8"), default="model",
-                   help="KV cache storage dtype; 'int8' is not ported yet")
+                   help="KV cache storage dtype: 'model' (the compute dtype) or "
+                        "'int8' (per-row scales; needs --kv-block-size)")
     p.add_argument("--kv-pool-blocks", type=int, default=None, metavar="N",
-                   help="paged KV pool size in blocks (paged mode only)")
+                   help="paged KV pool size in blocks (default: slots x "
+                        "ceil(max_len / block)); paged mode only")
     p.add_argument("--tp", type=int, default=1, metavar="N",
-                   help="tensor-parallel degree; not ported yet (1)")
+                   help="tensor-parallel degree; only 1 is ported (ROADMAP.md, "
+                        "Queue A item 7)")
     p.add_argument("--spec-k", type=int, default=0, metavar="K",
-                   help="speculative decoding draft length; not ported yet (0)")
+                   help="speculative decoding: verify up to K prompt-lookup "
+                        "drafts per slot per tick (0 = off)")
     p.add_argument("--spec-ngram", type=int, default=3,
                    help="longest n-gram the prompt-lookup proposer matches")
     p.add_argument("--starvation-s", type=float, default=30.0,
@@ -371,6 +381,9 @@ def serve_main(argv: list[str]) -> None:
         spec_ngram=args.spec_ngram, tp=args.tp, device=args.device,
     )
     del params  # the engine holds its own serving copy
+    if args.spec_k:
+        # run every verify width before traffic arrives
+        engine.warm_spec()
     tracer = None
     if args.trace_out:
         # SAME clock as the scheduler (time.monotonic) so the recorded
@@ -383,13 +396,25 @@ def serve_main(argv: list[str]) -> None:
         starvation_s=args.starvation_s if args.starvation_s > 0 else None,
         park_ttl_s=args.park_ttl_s,
     )
+    def swap_loader(ckpt_dir: str, step: int | None):
+        """POST /admin/swap's loader: the restore boot used, plus an
+        architecture check, so another config's checkpoint is a readable
+        400, never a shape error out of the next tick."""
+        new_cfg, _, new_params = _load_checkpoint_snapshot(ckpt_dir, step)
+        if new_cfg != model_cfg:
+            raise ValueError(
+                f"checkpoint {ckpt_dir} was trained with a different model config than "
+                "this replica serves; boot a new replica for architecture changes, hot "
+                "swap is for same-shape weight updates")
+        return new_params
+
     server = ServeServer(
         scheduler, tokenizer, port=args.port, host=args.host,
         default_max_new_tokens=args.max_new_tokens,
         max_new_tokens_cap=args.max_new_tokens_cap,
         request_timeout_s=args.request_timeout_s,
         default_deadline_s=args.deadline_s, profile_dir=args.profile_dir,
-        tick_delay_s=args.inject_tick_delay_s, role=args.role,
+        swap_loader=swap_loader, tick_delay_s=args.inject_tick_delay_s, role=args.role,
     ).start()
     print(f"serving {args.checkpoint_dir} on {args.host}:{server.port} "
           f"(slots={args.slots}, max_len={max_len}, device={engine.device}); "

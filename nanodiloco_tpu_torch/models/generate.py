@@ -16,10 +16,12 @@ dense half of ``nanodiloco_tpu/models/generate.py``.
   prefix (``decode_block``). Neither form is a Pallas kernel in the JAX
   package, so plain PyTorch is the port of both.
 - The slot programs of the serving engine (``prefill_chunk_fn``,
-  ``decode_slots_fn``, ``extract_chunk_fn``, ``insert_chunk_fn``) are
-  plain functions that close over the config; they share
-  ``_cached_block`` and ``_verify_slots_block`` with ``generate`` so the
-  two paths cannot drift.
+  ``decode_slots_fn``, ``verify_slots_fn``, ``extract_chunk_fn``,
+  ``insert_chunk_fn`` and the paged twins over a block arena,
+  ``prefill_chunk_paged_fn``, ``decode_slots_paged_fn`` and
+  ``verify_slots_paged_fn``) are plain functions that close over the
+  config; they share ``_cached_block`` and the verify blocks with
+  ``generate`` so the paths cannot drift.
 
 Weights are cast to the compute dtype once, when ``generate`` or the
 engine takes them (``serving_params``), never per call: eager PyTorch
@@ -93,6 +95,50 @@ def init_kv_cache(cfg: LlamaConfig, batch: int, max_length: int,
     cdt = dtype_of(cfg.dtype)
     return {"k": torch.zeros(shape, dtype=cdt, device=device),
             "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+
+def init_kv_pool(cfg: LlamaConfig, num_blocks: int, block_size: int,
+                 kv_dtype: str | None = None,
+                 device: str | torch.device = "cuda") -> dict:
+    """Preallocated block arena: k/v ``[L, num_blocks, block_size, Hkv,
+    hd]``. ``kv_dtype="int8"`` stores int8 values plus per-(layer, block,
+    row) float32 scales ``ks``/``vs`` ``[L, num_blocks, block_size]``;
+    otherwise the compute dtype (paged-fp)."""
+    shape = (cfg.num_hidden_layers, num_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    if kv_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "ks": torch.zeros(shape[:3], dtype=torch.float32, device=device),
+                "vs": torch.zeros(shape[:3], dtype=torch.float32, device=device)}
+    cdt = dtype_of(kv_dtype or cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=cdt, device=device),
+            "v": torch.zeros(shape, dtype=cdt, device=device)}
+
+
+def kv_bytes_per_token(cfg: LlamaConfig, kv_dtype: str | None = None) -> int:
+    """Device bytes one cached token position costs: K+V rows across all
+    layers, plus the per-row scales in int8 mode."""
+    row = cfg.num_hidden_layers * cfg.kv_heads * cfg.head_dim
+    if kv_dtype == "int8":
+        return 2 * row + 2 * cfg.num_hidden_layers * 4  # int8 + f32 scales
+    return 2 * row * dtype_of(kv_dtype or cfg.dtype).itemsize
+
+
+def _quantize_rows(rows: torch.Tensor):
+    """``[..., Hkv, hd]`` float rows -> (int8 rows, float32 scale
+    ``[...]``): symmetric per-row quantization at amax/127, in float32.
+    The amax floor keeps all-zero rows (never-written cache) at scale ~0
+    without a divide-by-zero. ``torch.round`` rounds half to even, as
+    ``jnp.round`` does, so the bits are the JAX package's."""
+    f = rows.float()
+    amax = f.abs().amax(dim=(-2, -1))
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.clamp(torch.round(f / scale[..., None, None]), -127.0, 127.0).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_rows(q: torch.Tensor, scale: torch.Tensor, cdt) -> torch.Tensor:
+    return (q.float() * scale[..., None, None]).to(cdt)
 
 
 def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -459,10 +505,27 @@ def pad_prompts(prompts: list[list[int]], pad_id: int = 0):
 #   - decode_slots_fn: every slot one token at PER-SLOT positions and
 #     sampling settings (``_verify_slots_block`` at T = 1);
 #   - extract_chunk_fn / insert_chunk_fn: copy one chunk of a slot's K/V
-#     rows out of / into the cache (the prefix cache's two halves).
-# The paged arena, int8 KV and the speculative verify programs are not
-# ported yet (ROADMAP.md, Queue A).
+#     rows out of / into the cache (the prefix cache's two halves);
+#   - verify_slots_fn: the speculative tick, T = k + 1 positions per slot.
+# The paged twins over a block arena follow below.
 # ---------------------------------------------------------------------------
+
+
+def _slot_rope(cfg: LlamaConfig, qpos: torch.Tensor, cdt):
+    """cos/sin [B, T, 1, hd] in the compute dtype for per-(slot, position)
+    query positions ``qpos`` [B, T]."""
+    hd = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, hd, 2, dtype=torch.float32, device=qpos.device) / hd))
+    freqs = qpos.float()[..., None] * inv_freq            # [B, T, hd/2]
+    emb = torch.cat([freqs, freqs], dim=-1)               # [B, T, hd]
+    return torch.cos(emb)[:, :, None, :].to(cdt), torch.sin(emb)[:, :, None, :].to(cdt)
+
+
+def _rope_rows(a, cos, sin):
+    """Rotate-half RoPE of ``a`` [B, T, H, hd] with per-row phases."""
+    half = a.shape[-1] // 2
+    return a * cos + torch.cat([-a[..., half:], a[..., :half]], dim=-1) * sin
 
 
 def _verify_slots_block(params: Params, cfg: LlamaConfig, tokens, cache, pos, key_valid,
@@ -471,8 +534,11 @@ def _verify_slots_block(params: Params, cfg: LlamaConfig, tokens, cache, pos, ke
     ``pos..pos+T-1``: per-row RoPE phases, the causal + ``key_valid``
     mask, and K/V written only for live slots (``active``), by index, so
     a dead slot's rows (a neighbour mid-prefill) stay as they are and no
-    pass over the whole cache is made. ``pos`` and ``active`` are host
-    int arrays [B]. Returns (logits [B, T, V] float32, the cache)."""
+    pass over the whole cache is made. Each query's attention is the
+    reduction a T = 1 tick performs (later rows are causally masked), so
+    a T-wide call verifies T positions at once. Positions at or past the
+    row's end are not written. ``pos`` and ``active`` are host int
+    arrays [B]. Returns (logits [B, T, V] float32, the cache)."""
     cdt = dtype_of(cfg.dtype)
     b, t = tokens.shape
     s_max = cache["k"].shape[2]
@@ -481,40 +547,33 @@ def _verify_slots_block(params: Params, cfg: LlamaConfig, tokens, cache, pos, ke
     dev = tokens.device
     pos = np.asarray(pos, np.int64).reshape(-1)
     live = np.flatnonzero(np.asarray(active).reshape(-1) > 0)
-    if live.size and (pos[live].min() < 0 or pos[live].max() + t > s_max):
-        raise ValueError(f"slot positions {pos[live].tolist()} + {t} overrun the cache ({s_max})")
+    if live.size and (pos[live].min() < 0 or pos[live].max() >= s_max):
+        raise ValueError(f"slot positions {pos[live].tolist()} lie outside the cache ({s_max})")
 
     x = params["embed"][tokens].to(cdt)  # [B, T, d]
     qpos_np = pos[:, None] + np.arange(t)[None, :]
     qpos = torch.as_tensor(qpos_np, device=dev)
-    inv_freq = 1.0 / (cfg.rope_theta ** (
-        torch.arange(0, hd, 2, dtype=torch.float32, device=dev) / hd))
-    freqs = qpos.float()[..., None] * inv_freq            # [B, T, hd/2]
-    emb = torch.cat([freqs, freqs], dim=-1)               # [B, T, hd]
-    cos = torch.cos(emb)[:, :, None, :].to(cdt)           # [B, T, 1, hd]
-    sin = torch.sin(emb)[:, :, None, :].to(cdt)
-
-    def rope(a):  # [B, T, H, hd] rotate-half with per-(slot, position) phases
-        half = a.shape[-1] // 2
-        return a * cos + torch.cat([-a[..., half:], a[..., :half]], dim=-1) * sin
-
+    cos, sin = _slot_rope(cfg, qpos, cdt)
     ki = torch.arange(s_max, device=dev)
     ok = (ki[None, None, :] <= qpos[:, :, None]) & (key_valid[:, None, :] > 0)
     mask = torch.where(ok, 0.0, MASK_VALUE)[:, None]      # [B, 1, T, S]
-    # the live slots' rows, one index pair per (slot, position)
-    wb = torch.as_tensor(np.repeat(live, t), device=dev)
-    wp = torch.as_tensor(qpos_np[live].reshape(-1), device=dev)
-    wsrc = torch.as_tensor(live, device=dev)
+    # the live slots' rows, one index pair per (slot, position); a verify
+    # window's tail past the row is dropped, as the JAX program's masked
+    # write drops it (those positions can never be emitted)
+    wb_np, wj_np = np.nonzero((qpos_np < s_max) & (np.asarray(active).reshape(-1, 1) > 0))
+    wb = torch.as_tensor(wb_np, device=dev)
+    wj = torch.as_tensor(wj_np, device=dev)
+    wp = torch.as_tensor(qpos_np[wb_np, wj_np], device=dev)
 
     for i in range(cfg.num_hidden_layers):
         layer = _layer(params, i)
         ck, cv = cache["k"][i], cache["v"][i]
         h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-        q = rope(_linear(h, layer["wq"]).reshape(b, t, nh, hd))
-        k = rope(_linear(h, layer["wk"]).reshape(b, t, nkv, hd))
+        q = _rope_rows(_linear(h, layer["wq"]).reshape(b, t, nh, hd), cos, sin)
+        k = _rope_rows(_linear(h, layer["wk"]).reshape(b, t, nkv, hd), cos, sin)
         v = _linear(h, layer["wv"]).reshape(b, t, nkv, hd)
-        ck[wb, wp] = k[wsrc].reshape(-1, nkv, hd)
-        cv[wb, wp] = v[wsrc].reshape(-1, nkv, hd)
+        ck[wb, wp] = k[wb, wj]
+        cv[wb, wp] = v[wb, wj]
         attn = _attend_dense(q.reshape(b, t, nkv, g, hd), ck, cv, mask, cdt)
         x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer)
     return _logits(params, cfg, x), cache
@@ -595,5 +654,258 @@ def decode_slots_fn(cfg: LlamaConfig):
     def run(params, cache, tokens, pos, key_valid, noise, temperature, top_k, top_p, active):
         logits, cache = _decode_slots_block(params, cfg, tokens, cache, pos, key_valid, active)
         return _sample_slots(logits, noise, temperature, top_k, top_p), cache
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Speculative verification (serve/speculation.py proposes the drafts)
+#
+# One forward verifies up to k host-proposed drafts per slot: the inputs
+# are [current token, d_0..d_{k-1}] at per-slot positions pos..pos+k, the
+# logits come back for all k+1 positions, each position samples with the
+# noise the plain tick would have drawn at that step, and the longest
+# draft prefix equal to the sampled targets is accepted. For a
+# deterministic proposal (prompt lookup is a point mass) this exact-match
+# rule is rejection sampling, so a speculative stream is the plain stream
+# token for token, greedy or sampled. A tick emits m + 1 tokens per slot
+# (m accepted drafts and the verified target): never zero.
+#
+# Rollback is cursor arithmetic: K/V rows written for rejected or pad
+# positions lie past the advanced cursor, inside the slot's own rows (or
+# dropped), and every later tick rewrites its window before any query
+# can reach them.
+# ---------------------------------------------------------------------------
+
+
+def _sample_slots_multi(logits, noise, temperature, top_k, top_p):
+    """``_sample_slots`` over [B, T, V] logits: rows flatten to B*T
+    (b-major) and run the same per-row op sequence, so position j of slot
+    b samples what the plain tick would at that step given the same
+    noise (``noise`` [B*T, V], or None when every slot is greedy).
+    Returns [B, T] int32."""
+    b, t, v = logits.shape
+    rep = lambda a: np.repeat(np.asarray(a).reshape(-1), t)  # [B] -> [B*T]
+    flat = _sample_slots(logits.reshape(b * t, v), noise, rep(temperature), rep(top_k),
+                         rep(top_p))
+    return flat.reshape(b, t)
+
+
+def _accept_prefix(tokens, sampled, draft_len):
+    """Emission counts [B]: drafts are ``tokens[:, 1:]``, targets
+    ``sampled[:, :-1]``; ``m`` = leading positions where they agree
+    (positions past ``draft_len`` never match), and the tick emits
+    ``m + 1`` tokens: ``sampled[:, :m]`` (the accepted drafts) plus
+    ``sampled[:, m]``."""
+    k = tokens.shape[1] - 1
+    draft_len = torch.as_tensor(np.asarray(draft_len), device=tokens.device)
+    match = (tokens[:, 1:] == sampled[:, :-1]) & (
+        torch.arange(k, device=tokens.device)[None, :] < draft_len[:, None])
+    return torch.cumprod(match.int(), dim=1).sum(dim=1) + 1
+
+
+def verify_slots_fn(cfg: LlamaConfig):
+    """``(params, cache, tokens [B, T], pos [B], draft_len [B], key_valid
+    [B, S], noise [B*T, V] | None, temperature [B], top_k [B], top_p [B],
+    active [B]) -> (sampled [B, T] int32, counts [B], cache)``: one
+    speculative tick. ``tokens`` = [current token, drafts...] per slot;
+    ``counts[b]`` leading tokens of ``sampled[b]`` are the slot's
+    emission. ``pos``, ``draft_len``, ``active`` and the settings are
+    host arrays."""
+
+    @torch.no_grad()
+    def run(params, cache, tokens, pos, draft_len, key_valid, noise, temperature, top_k,
+            top_p, active):
+        logits, cache = _verify_slots_block(params, cfg, tokens, cache, pos, key_valid, active)
+        sampled = _sample_slots_multi(logits, noise, temperature, top_k, top_p)
+        return sampled, _accept_prefix(tokens, sampled, draft_len), cache
+
+    return run
+
+
+# ---------------------------------------------------------------------------
+# The paged arena (serve/engine.py, kv_block_size > 0)
+#
+# K/V live in one arena [L, num_blocks, block_size, Hkv, hd]; a slot's
+# rows are the blocks its table names, in order. Unused table entries
+# hold the sentinel ``num_blocks``. The JAX programs lean on XLA's index
+# rules: a gather clamps the sentinel (the rows read are causally dead),
+# a scatter with mode="drop" discards writes to it. PyTorch raises on an
+# out-of-range index on the CPU and trips a device-side assert on the
+# card, so here the read index is clamped on purpose and the write set
+# is filtered to real blocks on the host before it becomes an index.
+#
+# int8 (paged only): int8 K/V plus one float32 scale per (layer, block,
+# row), quantized on write and dequantized in the attention read. Per-row
+# scales mean an appended token never requantizes earlier rows.
+# ---------------------------------------------------------------------------
+
+
+def _read_index(tables, num_blocks: int, device) -> torch.Tensor:
+    """Block tables (host ints, sentinel ``num_blocks``) -> the gather
+    index on ``device``, sentinels clamped to the last block as XLA's
+    gather clamps them: those rows are never causally reachable."""
+    return torch.as_tensor(np.minimum(np.asarray(tables, np.int64), num_blocks - 1),
+                           device=device)
+
+
+def _gather_rows(rows: torch.Tensor, scales: torch.Tensor | None, idx: torch.Tensor,
+                 cdt) -> torch.Tensor:
+    """Arena rows ``[..., nb, bs, Hkv, hd]`` gathered on the block axis
+    through ``idx``, in the compute dtype; int8 rows are dequantized with
+    their ``scales`` ``[..., nb, bs]``."""
+    lead = (slice(None),) * (rows.ndim - 4)
+    if scales is None:
+        return rows[lead + (idx,)].to(cdt)
+    return _dequantize_rows(rows[lead + (idx,)], scales[lead + (idx,)], cdt)
+
+
+def prefill_chunk_paged_fn(cfg: LlamaConfig, kv_dtype: str | None = None):
+    """Paged twin of ``prefill_chunk_fn``: ``(params, pool, table
+    [max_blocks] host ints, chunk [1, C], pos, last_idx, noise,
+    temperature, top_k, top_p) -> (token, logits [1, V], pool)``. Gathers
+    the slot's dense view through its table, runs ``_cached_block``
+    unchanged (paged-fp logits are the dense path's bits) and scatters
+    back only the touched blocks: ``C // block + 1`` blocks from the one
+    holding ``pos``, which covers an unaligned start (the bucket-overflow
+    re-feed) and costs one identity rewrite of gathered rows when ``pos``
+    is aligned. Touched table entries that are sentinels (pad rows past
+    the slot's allocation) are dropped. int8 mode dequantizes the gather
+    and quantizes the scattered rows per row."""
+    quant = kv_dtype == "int8"
+    cdt = dtype_of(cfg.dtype)
+
+    @torch.no_grad()
+    def run(params, pool, table, chunk, pos, last_idx, noise, temperature, top_k, top_p):
+        l, nb, bs, nkv, hd = pool["k"].shape
+        table = np.asarray(table, np.int64).reshape(-1)
+        mb = table.shape[0]
+        dev = chunk.device
+        idx = _read_index(table, nb, dev)
+        sub = {n: _gather_rows(pool[n], pool.get(sn) if quant else None, idx, cdt).reshape(
+                   l, 1, mb * bs, nkv, hd) for n, sn in (("k", "ks"), ("v", "vs"))}
+        key_valid = torch.ones((1, mb * bs), dtype=torch.int32, device=dev)
+        logits, sub = _cached_block(params, cfg, chunk, sub, pos, key_valid, block=0,
+                                    last_index=last_idx)
+        c = chunk.shape[1]
+        n_touch = min(c // bs + 1, mb) if c >= bs else 1
+        b0 = min(pos // bs, mb - n_touch)
+        phys = table[b0:b0 + n_touch]
+        keep = np.flatnonzero(phys < nb)
+        if keep.size:
+            wphys = torch.as_tensor(phys[keep], device=dev)
+            wkeep = torch.as_tensor(keep, device=dev)
+            for name, sname in (("k", "ks"), ("v", "vs")):
+                w = sub[name][:, 0, b0 * bs:(b0 + n_touch) * bs].reshape(
+                    l, n_touch, bs, nkv, hd)[:, wkeep]
+                if quant:
+                    q, sc = _quantize_rows(w)
+                    pool[name][:, wphys] = q
+                    pool[sname][:, wphys] = sc
+                else:
+                    pool[name][:, wphys] = w.to(pool[name].dtype)
+        tok = _sample_one(logits, noise, temperature, top_k, top_p)
+        return tok, logits, pool
+
+    return run
+
+
+def _verify_slots_paged_block(params: Params, cfg: LlamaConfig, tokens, pool, tables, pos,
+                              active, quant: bool):
+    """``_verify_slots_block`` over the block arena: each of the T new
+    rows of a slot is written at its own physical (block, row) address,
+    resolved per position (a verify window may cross a block boundary),
+    before the gather, inside the layer loop. Inactive slots and
+    positions past a slot's allocation (sentinel entries) are not
+    written. ``tables`` [B, max_blocks], ``pos`` and ``active`` are host
+    int arrays. Returns (logits [B, T, V] float32, pool)."""
+    cdt = dtype_of(cfg.dtype)
+    b, t = tokens.shape
+    _l, nb, bs, nkv, hd = pool["k"].shape
+    tables = np.asarray(tables, np.int64)
+    mb = tables.shape[1]
+    s_view = mb * bs
+    nh = cfg.num_attention_heads
+    g = nh // nkv
+    dev = tokens.device
+    read = _read_index(tables, nb, dev)
+    pos = np.asarray(pos, np.int64).reshape(-1)
+
+    x = params["embed"][tokens].to(cdt)  # [B, T, d]
+    qpos_np = pos[:, None] + np.arange(t)[None, :]
+    qpos = torch.as_tensor(qpos_np, device=dev)
+    cos, sin = _slot_rope(cfg, qpos, cdt)
+    ki = torch.arange(s_view, device=dev)
+    mask = torch.where(ki[None, None, :] <= qpos[:, :, None], 0.0, MASK_VALUE)[:, None]
+    # per-(slot, position) physical addresses, resolved on the host; the
+    # write set keeps live slots' rows that land on a real block
+    bi = np.clip(qpos_np // bs, 0, mb - 1)
+    phys = np.take_along_axis(tables, bi, axis=1)
+    phys = np.where(np.asarray(active).reshape(-1, 1) > 0, phys, nb)
+    wb_np, wj_np = np.nonzero(phys < nb)
+    wb = torch.as_tensor(wb_np, device=dev)
+    wj = torch.as_tensor(wj_np, device=dev)
+    wphys = torch.as_tensor(phys[wb_np, wj_np], device=dev)
+    woff = torch.as_tensor(qpos_np[wb_np, wj_np] % bs, device=dev)
+
+    for i in range(cfg.num_hidden_layers):
+        layer = _layer(params, i)
+        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        q = _rope_rows(_linear(h, layer["wq"]).reshape(b, t, nh, hd), cos, sin)
+        k = _rope_rows(_linear(h, layer["wk"]).reshape(b, t, nkv, hd), cos, sin)
+        v = _linear(h, layer["wv"]).reshape(b, t, nkv, hd)
+        arena = {n: a[i] for n, a in pool.items()}  # views: writes land in the pool
+        for name, sname, rows in (("k", "ks", k), ("v", "vs", v)):
+            rows = rows[wb, wj]
+            if quant:
+                qr, sc = _quantize_rows(rows)
+                arena[name][wphys, woff] = qr
+                arena[sname][wphys, woff] = sc
+            else:
+                arena[name][wphys, woff] = rows.to(arena[name].dtype)
+        ck, cv = (_gather_rows(arena[n], arena.get(sn) if quant else None, read, cdt).reshape(
+            b, s_view, nkv, hd) for n, sn in (("k", "ks"), ("v", "vs")))
+        attn = _attend_dense(q.reshape(b, t, nkv, g, hd), ck, cv, mask, cdt)
+        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer)
+    return _logits(params, cfg, x), pool
+
+
+def _decode_slots_paged_block(params, cfg: LlamaConfig, tokens, pool, tables, pos, active,
+                              quant: bool):
+    """One decode step through the block arena: the T = 1 case of
+    ``_verify_slots_paged_block``. Returns (logits [B, V] float32, pool)."""
+    logits, pool = _verify_slots_paged_block(params, cfg, tokens[:, None], pool, tables, pos,
+                                             active, quant)
+    return logits[:, 0], pool
+
+
+def decode_slots_paged_fn(cfg: LlamaConfig, kv_dtype: str | None = None):
+    """Paged twin of ``decode_slots_fn``: ``(params, pool, tables [B,
+    max_blocks] host ints, tokens [B], pos [B], noise, temperature [B],
+    top_k [B], top_p [B], active [B]) -> (next tokens [B] int32, pool)``."""
+    quant = kv_dtype == "int8"
+
+    @torch.no_grad()
+    def run(params, pool, tables, tokens, pos, noise, temperature, top_k, top_p, active):
+        logits, pool = _decode_slots_paged_block(params, cfg, tokens, pool, tables, pos, active,
+                                                 quant)
+        return _sample_slots(logits, noise, temperature, top_k, top_p), pool
+
+    return run
+
+
+def verify_slots_paged_fn(cfg: LlamaConfig, kv_dtype: str | None = None):
+    """Paged twin of ``verify_slots_fn``: ``(params, pool, tables, tokens
+    [B, T], pos [B], draft_len [B], noise [B*T, V] | None, temperature,
+    top_k, top_p, active) -> (sampled [B, T], counts [B], pool)``."""
+    quant = kv_dtype == "int8"
+
+    @torch.no_grad()
+    def run(params, pool, tables, tokens, pos, draft_len, noise, temperature, top_k, top_p,
+            active):
+        logits, pool = _verify_slots_paged_block(params, cfg, tokens, pool, tables, pos, active,
+                                                 quant)
+        sampled = _sample_slots_multi(logits, noise, temperature, top_k, top_p)
+        return sampled, _accept_prefix(tokens, sampled, draft_len), pool
 
     return run

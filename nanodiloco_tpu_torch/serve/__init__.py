@@ -1,18 +1,18 @@
-"""Continuous-batching inference serving: port of the dense half of
-``nanodiloco_tpu/serve``.
+"""Continuous-batching inference serving: port of ``nanodiloco_tpu/serve``.
 
-- ``InferenceEngine`` (engine.py): the slot engine over one dense KV
-  cache — chunked prefill bucketed to powers of two, one decode tick for
-  every live slot, the shared-prefix cache.
+- ``InferenceEngine`` (engine.py): the slot engine over a dense KV cache
+  or a paged block arena (float or int8) — chunked prefill bucketed to
+  powers of two, one decode tick for every live slot, prompt-lookup
+  speculative decoding, the shared-prefix cache, hot weight swap and KV
+  shipping.
 - ``Scheduler`` (scheduler.py): admission queue, priorities and
   deadlines, the tick loop's bookkeeping; jax-free, copied.
 - ``ServeServer`` (server.py): the stdlib HTTP front end —
   ``POST /v1/generate``, ``GET /healthz``, ``GET /metrics``.
-- ``PrefixCache``, ``BlockPool``, ``kvship`` and the client helpers,
-  copied.
+- ``PrefixCache``, ``BlockPool``, ``PromptLookupProposer``
+  (speculation.py), ``kvship`` and the client helpers, copied.
 
-The paged arena, int8 KV, speculative decoding, tensor parallelism,
-weight swaps and KV shipping are not ported yet (ROADMAP.md, Queue A).
+Tensor-parallel serving is not ported yet (ROADMAP.md, Queue A item 7).
 """
 
 from nanodiloco_tpu_torch.serve.block_pool import BlockPool, BlocksExhausted

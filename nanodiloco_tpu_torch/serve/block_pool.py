@@ -1,9 +1,8 @@
 """Host-side KV block allocator: the policy half of the paged cache.
 
 A copy of ``nanodiloco_tpu/serve/block_pool.py`` (jax-free): the
-port's dense engine raises ``BlocksExhausted`` nowhere yet, but the
-scheduler imports it, and the paged arena that allocates from this
-pool is the next serving slice (ROADMAP.md, Queue A).
+engine's paged arena allocates from it, and the scheduler keeps a
+request queued on ``BlocksExhausted``.
 
 The arena on device is ``[L, num_blocks, block_size, Hkv, hd]``; this
 class owns WHICH physical blocks belong to WHOM. Blocks are fully

@@ -1,9 +1,12 @@
 """KV block shipping: the wire format for moving a live request's
 paged (or dense) KV cache between serving replicas.
 
-A copy of ``nanodiloco_tpu/serve/kvship.py`` (jax-free). The server
-imports it; the engine's ``export_kv`` / ``import_kv`` are not ported
-yet (ROADMAP.md, Queue A), so the KV endpoints answer 501.
+A copy of ``nanodiloco_tpu/serve/kvship.py`` (jax-free), with one
+change: numpy has no bfloat16, and this package does not lean on
+``ml_dtypes`` to name it, so a ``"bfloat16"`` wire array is held as its
+16-bit pattern (``int16``) on the host. The bytes on the wire are the
+same, so a doc either package writes imports into the other
+(``to_tensor`` turns the pattern back into a ``torch.bfloat16`` tensor).
 
 This is the mechanism behind disaggregated prefill/decode serving
 (DistServe, arXiv:2401.09670; Splitwise, arXiv:2311.18677): a prefill
@@ -40,8 +43,8 @@ import path (``ShipMismatchError`` -> 409), a truncated or malformed
 payload a ``ShipFormatError`` (-> 400), never silent garbage in the
 decode replica's cache.
 
-Stdlib + numpy only; the engine owns the device work
-(``InferenceEngine.export_kv`` / ``import_kv``).
+Stdlib, numpy and torch's host tensors only; the engine owns the
+device work (``InferenceEngine.export_kv`` / ``import_kv``).
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import hashlib
 import json
 
 import numpy as np
+import torch
 
 __all__ = [
     "SHIP_VERSION",
@@ -64,6 +68,9 @@ __all__ = [
     "unpack",
     "quantize_rows",
     "dequantize_rows",
+    "to_host",
+    "to_tensor",
+    "wire_tag",
 ]
 
 SHIP_VERSION = 1
@@ -152,19 +159,40 @@ class ShippedKV:
         return int(n)
 
 
+# wire tags numpy cannot name, held on the host as their bit pattern
+_BIT_PATTERNS = {"bfloat16": np.dtype(np.int16)}
+
+
 def _np_dtype(name: str) -> np.dtype:
-    """Wire dtype tag -> numpy dtype; covers jax's ml_dtypes extras
-    (bfloat16) that plain ``np.dtype`` cannot name."""
+    """Wire dtype tag -> the numpy dtype its host array has (bfloat16:
+    its 16-bit pattern)."""
+    if name in _BIT_PATTERNS:
+        return _BIT_PATTERNS[name]
     try:
         return np.dtype(name)
     except TypeError:
-        pass
-    try:
-        import ml_dtypes
-
-        return np.dtype(getattr(ml_dtypes, name))
-    except (ImportError, AttributeError, TypeError):
         raise ShipFormatError(f"unknown wire dtype {name!r}") from None
+
+
+def wire_tag(dtype: torch.dtype) -> str:
+    """The wire dtype tag of a torch dtype ("float32", "bfloat16", ...)."""
+    return str(dtype).removeprefix("torch.")
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """Arena rows -> the host array the wire carries: a bfloat16 tensor as
+    its 16-bit pattern."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def to_tensor(arr: np.ndarray, wire_dtype: str) -> torch.Tensor:
+    """A host wire array -> a CPU torch tensor of the dtype the tag
+    names (the inverse of ``to_host``; float32 scales pass through)."""
+    arr = np.ascontiguousarray(arr)
+    if wire_dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
 
 
 def _b64(arr: np.ndarray) -> str:

@@ -2,7 +2,8 @@
 
 A copy of ``nanodiloco_tpu/serve/prefix_cache.py`` (jax-free); the
 port's dense engine fills it through ``extract_chunk_fn`` and reads
-it through ``insert_chunk_fn``.
+it through ``insert_chunk_fn``, and its paged engine stores block ids
+(copy-on-write, dereferenced through ``on_evict``).
 
 The system-prompt pattern (every request opens with the same instruction
 block) makes whole-prompt prefill O(requests x prefix) for work that is

@@ -1,9 +1,7 @@
 """Stdlib HTTP serving daemon over the scheduler + engine.
 
 A copy of ``nanodiloco_tpu/serve/server.py``, its imports pointed at the
-port. An endpoint that reaches an engine call the port lacks
-(``/admin/swap``, ``/admin/kv/export``, ``/admin/kv/import``) answers
-501 with the engine's message, which names the missing piece.
+port.
 
 Same pattern and lifecycle as the training telemetry endpoint
 (``obs/telemetry.py``): ``http.server`` on daemon threads, no new
@@ -559,13 +557,6 @@ class ServeServer:
                 }
             except (ValueError, AttributeError) as e:
                 return 400, {"error": str(e)}
-        missing = self._not_ported({
-            "/admin/kv/export": "export_kv",
-            "/admin/kv/import": "import_kv",
-            "/admin/swap": "swap_weights",
-        }.get(path))
-        if missing is not None:
-            return 501, {"error": missing}
         if path == "/admin/kv/export":
             return self._handle_kv_export(doc)
         if path == "/admin/kv/import":
@@ -611,13 +602,6 @@ class ServeServer:
             "checkpoint_dir": ckpt,
             **({"step": step} if step is not None else {}),
         }
-
-    def _not_ported(self, call: str | None) -> str | None:
-        """The engine's message for an engine call the port lacks, or
-        None (the backend offers it, or names no unported calls)."""
-        if call is None:
-            return None
-        return getattr(self._scheduler.backend, "not_ported", {}).get(call)
 
     # -- KV shipping (disaggregated serving; fleet/disagg.py) ----------------
 

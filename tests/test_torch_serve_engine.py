@@ -279,13 +279,10 @@ def test_engine_validates_impossible_requests(models):
         eng.validate([1], 0)
 
 
-# -- what is not ported ------------------------------------------------------
+# -- what is not ported, and the calls that now answer ------------------------
 
 
 @pytest.mark.parametrize("kwargs, match", [
-    ({"kv_block_size": 4}, "paged KV arena"),
-    ({"kv_dtype": "int8"}, "int8"),
-    ({"spec_k": 2}, "speculative"),
     ({"tp": 2}, "tensor-parallel"),
 ])
 def test_unported_engine_options_raise(models, kwargs, match):
@@ -293,15 +290,40 @@ def test_unported_engine_options_raise(models, kwargs, match):
         engine(models, **kwargs)
 
 
-@pytest.mark.parametrize("call, args", [
-    ("swap_weights", ({},)),
-    ("export_kv", (0,)),
-    ("import_kv", (0, None, None)),
+@pytest.mark.parametrize("kwargs, layout", [
+    ({"kv_block_size": 4}, "paged"),
+    ({"kv_block_size": 4, "kv_dtype": "int8"}, "paged-int8"),
+    ({"spec_k": 2}, "dense"),
+    ({"kv_block_size": 4, "kv_dtype": "int8", "spec_k": 2}, "paged-int8"),
 ])
-def test_unported_engine_calls_raise(models, call, args):
+def test_ported_engine_options_serve(models, kwargs, layout):
+    """The paged arena, int8 KV and speculation construct and serve a
+    greedy request as solo generate() does."""
+    eng = engine(models, **kwargs)
+    assert eng.kv_layout == layout
+    req = GenRequest(prompt=(5, 9, 2, 11, 3), max_new_tokens=6, seed=0)
+    sched = Scheduler(eng)
+    ticket = sched.submit(req)
+    drain(sched, [ticket])
+    assert ticket.result["tokens"] == reference(models, req)
+
+
+def test_engine_calls_answer(models):
+    """swap_weights, export_kv and import_kv are engine calls now: each
+    refuses a bad argument with its own error, not NotImplementedError."""
+    from nanodiloco_tpu_torch.serve import kvship
+
     eng = engine(models)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(eng, call)(*args)
+    with pytest.raises(ValueError, match="swap_weights"):
+        eng.swap_weights({})
+    with pytest.raises(ValueError, match="no live stream"):
+        eng.export_kv(0)
+    shipped = kvship.ShippedKV(config="0" * 16, generation=0, wire_dtype="float32", prompt_len=1,
+                               pos=1, step_idx=0, emitted=[1], k=np.zeros((2, 1, 2, 16)),
+                               v=np.zeros((2, 1, 2, 16)), ks=None, vs=None, request={})
+    with pytest.raises(kvship.ShipMismatchError, match="fingerprint"):
+        eng.import_kv(0, GenRequest(prompt=(1,), max_new_tokens=2), shipped)
+    assert not hasattr(eng, "not_ported")
 
 
 def test_moe_config_and_bad_options_are_refused(models):
@@ -310,7 +332,7 @@ def test_moe_config_and_bad_options_are_refused(models):
     with pytest.raises(NotImplementedError, match="MoE"):
         InferenceEngine(params, moe, device="cpu")
     for bad in ({"num_slots": 0}, {"max_len": 1}, {"chunk_size": 0}, {"spec_k": -1},
-                {"tp": 0}, {"kv_dtype": "fp8"}):
+                {"tp": 0}, {"kv_dtype": "fp8"}, {"kv_dtype": "int8"}):
         with pytest.raises(ValueError):
             engine(models, **bad)
 

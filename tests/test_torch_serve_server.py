@@ -3,7 +3,9 @@ REAL socket on the CPU, and the ``generate`` / ``serve`` subcommands of
 ``python -m nanodiloco_tpu_torch`` on a checkpoint the port's train()
 wrote: the served tokens are the tokens ``generate()`` gives (both run
 float32 on the CPU: identity, not a tolerance). The 400 / 429 / 503
-cases are the JAX package's tests/test_serve.py ones."""
+cases are the JAX package's tests/test_serve.py ones. The CLI also serves
+from a paged int8 arena with speculation and hot-swaps a checkpoint
+through POST /admin/swap; ``--tp 2`` raises."""
 
 import json
 import os
@@ -142,19 +144,21 @@ def test_server_rejects_bad_requests_with_400(params):
         srv.stop()
 
 
-@pytest.mark.parametrize("path, doc, match", [
-    ("/admin/swap", {"checkpoint_dir": "x"}, "swap_weights"),
-    ("/admin/kv/export", {"request_id": "r"}, "export_kv"),
-    ("/admin/kv/import", {}, "import_kv"),
+@pytest.mark.parametrize("path, doc, code, match", [
+    ("/admin/swap", {"checkpoint_dir": "x"}, 404, "no swap loader"),
+    ("/admin/kv/export", {"request_id": "r"}, 404, "no parked stream"),
+    ("/admin/kv/import", {}, 400, "version"),
 ])
-def test_unported_engine_calls_answer_501(params, path, doc, match):
-    """An endpoint that reaches an engine call the port lacks answers 501
-    naming it, never 200."""
+def test_admin_engine_calls_answer(params, path, doc, code, match):
+    """The endpoints that reach swap_weights, export_kv and import_kv
+    answer as the JAX package's server does: a server built without a
+    swap loader 404s a swap, an unknown request id 404s an export, a
+    malformed ship payload 400s."""
     srv = _server(params)
     try:
-        code, out = _post(srv.port, doc, path=path)
-        assert code == 501, out
-        assert match in out["error"] and "ROADMAP" in out["error"]
+        got, out = _post(srv.port, doc, path=path)
+        assert got == code, out
+        assert match in out["error"]
     finally:
         srv.stop()
 
@@ -325,3 +329,47 @@ def test_cli_generate_and_serve_agree(checkpoint, capsys):
     (bad / "model_config.json").write_text(json.dumps({**side, "tokenizer": "gpt2"}))
     with pytest.raises(SystemExit, match="tokenizer 'gpt2' is not available"):
         cli.main(["generate", "--checkpoint-dir", str(bad), "--device", "cpu"])
+
+
+def test_cli_serve_paged_int8_spec_and_admin_swap(checkpoint):
+    """``serve --kv-block-size 4 --kv-dtype int8 --spec-k 2`` answers with
+    the tokens an engine of those settings gives; POST /admin/swap of a
+    checkpoint (the serve CLI wires the loader) swaps it in and the next
+    request still answers; ``--tp 2`` raises NotImplementedError naming
+    ROADMAP."""
+    from nanodiloco_tpu_torch.serve import GenRequest
+
+    model_cfg, _, snap = cli._load_checkpoint_snapshot(str(checkpoint), None)
+    eng = InferenceEngine(snap, model_cfg, num_slots=2, max_len=64, chunk_size=8,
+                          kv_block_size=4, kv_dtype="int8", spec_k=2, device="cpu")
+    eng.warm_spec()
+    sched = Scheduler(eng)
+    ticket = sched.submit(GenRequest(prompt=tuple(b"Hello Hello"), max_new_tokens=8))
+    while not ticket.done():
+        sched.tick()
+    want = ticket.result["tokens"]
+    env = {**os.environ, "PYTHONPATH": str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "nanodiloco_tpu_torch", "serve", "--checkpoint-dir",
+         str(checkpoint), "--device", "cpu", "--host", "127.0.0.1", "--slots", "2",
+         "--max-len", "64", "--chunk-size", "8", "--kv-block-size", "4", "--kv-dtype", "int8",
+         "--spec-k", "2"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving"), line + proc.stdout.read()
+        port = int(line.split(" on ")[1].split()[0].rsplit(":", 1)[1])
+        doc = {"prompt": "Hello Hello", "max_new_tokens": 8, "stop": False}
+        code, out = _post(port, doc)
+        assert code == 200 and out["token_ids"] == want, out
+        code, out = _post(port, {"checkpoint_dir": str(checkpoint)}, path="/admin/swap")
+        assert code == 200 and out["deploy_generation"] == 1, out
+        code, out = _post(port, doc)
+        assert code == 200 and out["token_ids"] == want, out
+        metrics = parse_metrics_text(_get(port, "/metrics")[1])
+        assert metrics["nanodiloco_kv_blocks_free"] > 0
+    finally:
+        proc.terminate()
+        assert proc.wait(timeout=60) == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(["serve", "--checkpoint-dir", str(checkpoint), "--device", "cpu", "--tp", "2"])
