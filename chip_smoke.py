@@ -47,7 +47,36 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  with a line that says so, if the disk lacks 1.5x the
                  state's bytes).
 
-7. serve_small - serving at a small float32 size (2 layers, hidden 128,
+7. diloco_options_small - every DiLoCo option (quarantine, the bf16,
+                 int8 and int4-integer wires, dynamics, heterogeneous H
+                 (1, 2), async at delay 1, streaming at P=2 / delay 1 /
+                 alpha 0.5, the snapshot offload, remat "dots") at
+                 train_small's size, on the card and on the CPU from one
+                 parameter tree: losses and snapshot within 1e-3 (one
+                 quantization bin granted under a quantized wire, whose
+                 inputs differ at float32 roundoff). One sync's deltas,
+                 copied from the card to the CPU, must quantize to the
+                 same integers and scales on both (the bf16 cast, int8
+                 and int4 per worker, the integer wire's shared-scale
+                 payload with and without a mask, and its merged leaf:
+                 torch.equal). On the card also: a NaN written into worker 1's replica
+                 mid-round is quarantined (worker 1 finite after the sync,
+                 the snapshot the survivor's step); dynamics on/off, async
+                 at delay 0 and streaming at P=1 / delay 0 / alpha 1 equal
+                 classic bit for bit; remat "dots" gives no-remat's
+                 gradients, and in the backward runs fewer GEMM kernels
+                 than "nothing" (torch.profiler) with B1 recomputed once
+                 a layer under both (the launch counter). Every kernel
+                 must launch in the card runs.
+8. diloco_options_8b - train() at the train phase's 8B width, 3 rounds
+                 each: (a) classic with the dynamics readout, (b)
+                 quarantine + int8 integer wire + snapshot offload, (c)
+                 async delay 1 + budgets (2, 1) + int4 wire, (d) streaming
+                 P=1 / delay 1 / alpha 0.5, (e) remat "dots". Prints each
+                 run's tokens/s, t_sync per round beside the outer step's
+                 byte bound, peak memory, the kernels' launches (each must
+                 rise in every run) and the last sync record's keys.
+9. serve_small - serving at a small float32 size (2 layers, hidden 128,
                  4/2 heads, vocab 384) from one parameter tree, TF32 off:
                  greedy generate() gives the same tokens on the card and
                  on the CPU, and its prefill logits agree; the sampling
@@ -60,7 +89,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  and `... serve`, in a subprocess, answers POST
                  /v1/generate over a socket with the tokens generate()
                  gives, and /healthz and /metrics.
-8. serve       - Llama-3-8B at full width and full depth (32 layers, bf16,
+10. serve      - Llama-3-8B at full width and full depth (32 layers, bf16,
                  weights from seed 0 on the card): an engine of 4 slots,
                  max_len 1024, chunk 512 serves 8 requests (prompts of
                  64-600 tokens, 64 new tokens each, greedy and sampled
@@ -77,7 +106,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  (the teacher-forcing forward alone: generation and the
                  engine run no kernel of their own) go to the kernels line
                  as "launches_serve".
-9. serve_modes_small - the engine's modes at serve_small's size in
+11. serve_modes_small - the engine's modes at serve_small's size in
                  float32, on the card and on the CPU: dense, paged (block 4),
                  paged + int8 and paged + speculation (spec_k 4) serve
                  serve_small's requests and two on a repeated prompt; each
@@ -89,7 +118,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  serving copy (memory_allocated) when its last slot retires;
                  export -> wire doc -> import round trips dense -> paged
                  and paged -> int8 finish as solo generate().
-10. serve_paged - Llama-3-8B at full depth (32 layers, bf16, serve's
+12. serve_paged - Llama-3-8B at full depth (32 layers, bf16, serve's
                  weights): a paged arena of 16 slots x max_len 4096, block
                  16, chunk 512, serves 16 requests (prompts of 512-3000
                  tokens, 64 new, greedy and sampled) with bf16 KV and with
@@ -117,6 +146,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import signal
 import statistics
@@ -149,9 +179,16 @@ from nanodiloco_tpu_torch.models.generate import (
     noise_uniforms,
     serving_params,
 )
-from nanodiloco_tpu_torch.models.llama import forward, init_params, tree_leaves
+from nanodiloco_tpu_torch.models.llama import (
+    causal_lm_loss,
+    forward,
+    init_params,
+    tree_leaves,
+    tree_map,
+)
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
 from nanodiloco_tpu_torch.serve import (
     GenRequest,
     InferenceEngine,
@@ -396,6 +433,34 @@ def time_train_shape(q, k, v, do, lse, delta, causal, b, h, hkv, s, hd) -> dict:
     }
 
 
+# train_small's size: float32, hd 64, so the FMA kernels run
+SMALL_MODEL = LlamaConfig(vocab_size=384, hidden_size=256, intermediate_size=512,
+                          num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                          attention_impl="flash", remat=True, loss_chunk=128)
+SMALL_DILOCO = dict(num_workers=2, inner_steps=2, warmup_steps=1, total_steps=4, lr=1e-3,
+                    grad_accum=2)
+# card against CPU at float32, TF32 off (train_small's reason)
+SMALL_TOL = 1e-3
+
+
+def small_rounds(n: int = 2) -> list[tuple[np.ndarray, np.ndarray]]:
+    """n rounds of [H, W, accum, B, S] tokens and masks; S = 200 is no
+    multiple of the kernels' 64-row tiles: the ragged edge."""
+    rows = pack_corpus(synthetic_corpus(seed=0), ByteTokenizer(), 200)
+    batches = iter(DilocoBatcher(rows, num_workers=2, grad_accum=2, per_device_batch=1))
+    rounds = []
+    for _ in range(n):
+        steps = [next(batches) for _ in range(SMALL_DILOCO["inner_steps"])]
+        rounds.append((np.stack([t for t, _ in steps]), np.stack([m for _, m in steps])))
+    return rounds
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max().clamp_min(1e-30))
+
+
 def phase_train_small() -> None:
     """Two DiLoCo rounds at a small float32 size from one parameter tree,
     on the card (through the kernels) and on the CPU (through their plain
@@ -404,19 +469,7 @@ def phase_train_small() -> None:
     only in summation order, which four AdamW steps amplify to ~1e-5
     relative; 1e-3 bounds it."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    model = LlamaConfig(vocab_size=384, hidden_size=256, intermediate_size=512,
-                        num_hidden_layers=2, num_attention_heads=4,
-                        num_key_value_heads=2, attention_impl="flash", remat=True,
-                        loss_chunk=128)
-    dcfg = DilocoConfig(num_workers=2, inner_steps=2, warmup_steps=1, total_steps=4,
-                        lr=1e-3, grad_accum=2)
-    # S = 200 is no multiple of the kernels' 64-row tiles: the ragged edge
-    rows = pack_corpus(synthetic_corpus(seed=0), ByteTokenizer(), 200)
-    batches = iter(DilocoBatcher(rows, num_workers=2, grad_accum=2, per_device_batch=1))
-    rounds = []
-    for _ in range(2):
-        steps = [next(batches) for _ in range(dcfg.inner_steps)]
-        rounds.append((np.stack([t for t, _ in steps]), np.stack([m for _, m in steps])))
+    model, dcfg, rounds = SMALL_MODEL, DilocoConfig(**SMALL_DILOCO), small_rounds()
     params = init_params(torch.Generator().manual_seed(0), model, device="cpu")
     out = {}
     fa.reset_launch_counts()
@@ -702,6 +755,346 @@ def phase_checkpoint_full(summary: dict, smi: str) -> None:
          restore_s=restore_s, save_gb_per_s=file_bytes / save_s / 1e9,
          restore_gb_per_s=file_bytes / restore_s / 1e9, bytes_in_use_before_restore=in_use,
          restore_peak_bytes=peak)
+
+
+# -- the DiLoCo options ----------------------------------------------------------
+
+# each option at train_small's size: DilocoConfig fields, a streaming
+# config, or model fields
+SMALL_OPTIONS = {
+    "quarantine": {"dcfg": {"quarantine_nonfinite": True}},
+    "bf16_wire": {"dcfg": {"outer_comm_dtype": "bfloat16"}},
+    "int8_wire": {"dcfg": {"outer_comm_dtype": "int8"}},
+    "int4_integer_wire": {"dcfg": {"outer_comm_dtype": "int4", "outer_wire_collective": True}},
+    "dynamics": {"dcfg": {"dynamics_metrics": True}},
+    "hetero_1_2": {"dcfg": {"inner_steps_per_worker": (1, 2)}},
+    "async_delay1": {"dcfg": {"async_outer": True, "outer_delay": 1}},
+    "streaming_p2_delay1": {"streaming": {"num_fragments": 2, "delay": 1, "merge_alpha": 0.5}},
+    "offload": {"dcfg": {"offload_snapshot": True}},
+    "remat_dots": {"model": {"remat_policy": "dots"}},
+}
+
+
+def drive_option(device: str, params, rounds, dcfg=None, streaming=None, model=None):
+    """The option's rounds from ``params``: (losses [R*H, W], snapshot
+    leaves, dynamics per sync, the largest |snapshot - worker| entering a
+    classic sync), on the CPU for the comparison."""
+    cfg = DilocoConfig(**{**SMALL_DILOCO, **(dcfg or {})})
+    mcfg = dataclasses.replace(SMALL_MODEL, **(model or {}))
+    if streaming is not None:
+        dl = StreamingDiloco(mcfg, cfg, StreamingConfig(**streaming), device=device)
+    else:
+        dl = Diloco(mcfg, cfg, device=device)
+    state = dl.init_state(params=params)
+    losses, dyn, amax = [], [], 0.0
+    for r, (t, m) in enumerate(rounds):
+        if streaming is not None:
+            loss = dl.round_step(state, t, m)[1]
+        elif cfg.async_outer:
+            _, loss, aux = (dl.inner_round_step if r == 0 else dl.async_round_step)(state, t, m)
+            if r and "dynamics" in aux:
+                dyn.append(aux["dynamics"])
+        else:
+            _, loss = dl.inner_round(state, t, m)
+            amax = max([amax] + [float((s.unsqueeze(0) - p.detach()).abs().max())
+                                 for s, p in zip(tree_leaves(dl.device_snapshot(state)),
+                                                 tree_leaves(state.params))])
+            mask = torch.isfinite(loss).all(dim=0) if cfg.quarantine_nonfinite else None
+            _, _, d = dl.outer_step(state) if mask is None else dl.outer_step(state, mask)
+            if d is not None:
+                dyn.append(d)
+        losses.append(loss.cpu())
+    if cfg.async_outer:
+        dl.async_flush(state)
+    snapshot = [t.detach().cpu() for t in tree_leaves(state.snapshot)]
+    return (torch.cat(losses), snapshot, [{k: v.cpu() for k, v in d.items()} for d in dyn],
+            amax)
+
+
+def wire_bin(dcfg: dict, amax: float) -> float:
+    """How far one quantization bin moves the snapshot: the card's and the
+    CPU's deltas differ at float32 roundoff, so an element near a bin edge
+    lands one bin off, moving the snapshot by outer_lr * (1 + momentum) *
+    scale (a bf16 cast: one bf16 ulp, 2**-8 of the largest delta)."""
+    wire = dcfg.get("outer_comm_dtype")
+    if wire is None:
+        return 0.0
+    q_max = {"int4": 7, "int8": 127, "int16": 32767}.get(wire)
+    scale = amax / q_max if q_max else amax * 2.0 ** -8
+    cfg = DilocoConfig(**SMALL_DILOCO)
+    return cfg.outer_lr * (1 + cfg.outer_momentum) * scale
+
+
+def phase_diloco_options_small(smi: str) -> dict:
+    """Every DiLoCo option at train_small's size (float32, TF32 off), on
+    the card and on the CPU from one parameter tree: losses and snapshot
+    within SMALL_TOL (under a quantized wire after one bin, ``wire_bin``),
+    and one sync's deltas quantize bit for bit alike on both devices
+    (``wire_bits_check``). On the card also: a NaN written into worker 1's
+    replica mid-round is quarantined (worker 1 finite after the sync, the
+    snapshot the survivor's Nesterov step); dynamics on and off, async at
+    delay 0, and streaming at P=1, delay 0, alpha 1 are classic bit for
+    bit (within twice the run-to-run spread of two classic runs, should
+    those differ); remat "dots" gives the gradients of no remat and
+    recomputes no GEMM (``dots_check``). Returns the kernels' launches in
+    this phase's card runs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rounds = small_rounds()
+    params = init_params(torch.Generator().manual_seed(0), SMALL_MODEL, device="cpu")
+    fa.reset_launch_counts()
+    card = {name: drive_option("cuda", params, rounds, **opt)
+            for name, opt in {"classic": {}, **SMALL_OPTIONS}.items()}
+    same = {
+        "dynamics_on_off": card["dynamics"],
+        "async_delay0": drive_option("cuda", params, rounds,
+                                     dcfg={"async_outer": True, "outer_delay": 0}),
+        "streaming_p1_delay0_alpha1": drive_option(
+            "cuda", params, rounds, streaming={"num_fragments": 1, "delay": 0}),
+    }
+    quarantine = quarantine_check(params, rounds[0])
+    wire_bits = wire_bits_check(params, rounds[0])
+    dots = dots_check(params, rounds[0])
+    launches = fa.launch_counts()
+    if min(launches.values()) == 0:
+        fail("diloco_options_small", f"a kernel was not launched: {launches}")
+    # the identities are bit for bit where two classic runs are; else
+    # within twice their run-to-run spread (as the resume phase holds them)
+    classic, again = card["classic"], drive_option("cuda", params, rounds)
+
+    def spread(run) -> float:
+        return max([rel_err(run[0], classic[0])]
+                   + [rel_err(a, b) for a, b in zip(run[1], classic[1])])
+
+    def snapshot_err(got, want, bin_tol: float) -> float:
+        """The snapshot's error against SMALL_TOL, leaf by leaf, after
+        one quantization bin (``wire_bin``) is granted."""
+        return max(float(((a.double() - b.double()).abs() - bin_tol).clamp_min(0).max()
+                         / b.double().abs().max()) for a, b in zip(got, want))
+
+    run_to_run = spread(again)
+    identities = {name: spread(run) for name, run in same.items()}
+    for name, err in identities.items():
+        if err > 2 * run_to_run:
+            fail("diloco_options_small", f"{name} is off classic DiLoCo by {err:.3e} "
+                                         f"(run to run {run_to_run:.3e})")
+    errs = {}
+    for name, opt in SMALL_OPTIONS.items():
+        losses, snap, dyn, amax = drive_option("cpu", params, rounds, **opt)
+        got = card[name]
+        if not torch.isfinite(got[0]).all():
+            fail("diloco_options_small", f"{name}: non-finite loss on the card {got[0]}")
+        bin_tol = wire_bin(opt.get("dcfg", {}), max(amax, got[3]))
+        errs[name] = {"losses": rel_err(got[0], losses),
+                      "snapshot": snapshot_err(got[1], snap, bin_tol)}
+        if bin_tol:
+            errs[name]["snapshot_raw"] = max(rel_err(a, b) for a, b in zip(got[1], snap))
+            errs[name]["bin_tolerance_abs"] = bin_tol
+        if dyn:
+            errs[name]["dynamics"] = max(rel_err(a[k], b[k]) for a, b in zip(got[2], dyn)
+                                         for k in b)
+        if max(errs[name][k] for k in ("losses", "snapshot", "dynamics")
+               if k in errs[name]) > SMALL_TOL:
+            fail("diloco_options_small", f"{name}: card vs CPU {errs[name]} over {SMALL_TOL}")
+    emit(phase="diloco_options_small", ok=True, nvidia_smi=smi, options=list(SMALL_OPTIONS),
+         card_vs_cpu_max_rel_err=errs, tolerance=SMALL_TOL,
+         classic_run_to_run_max_rel_err=run_to_run, identities_max_rel_err=identities,
+         quarantine=quarantine, wire_bits=wire_bits, remat=dots,
+         launches=launches)
+    return launches
+
+
+def quarantine_check(params, round0) -> dict:
+    """A NaN written into worker 1's replica after the round's first inner
+    step: the sync quarantines it, every worker ends finite, and the new
+    snapshot is the Nesterov step on worker 0's pseudo-gradient alone
+    (the first sync: momentum = delta, update = -lr (1 + mu) delta)."""
+    cfg = DilocoConfig(**SMALL_DILOCO, quarantine_nonfinite=True)
+    dl = Diloco(SMALL_MODEL, cfg, device="cuda")
+    state = dl.init_state(params=params)
+    tokens, mask = round0
+    dl.inner_step(state, tokens[0], mask[0])
+    with torch.no_grad():
+        for p in tree_leaves(state.params):
+            p[1] = float("nan")
+    for h in range(1, cfg.inner_steps):
+        dl.inner_step(state, tokens[h], mask[h])
+    old = [t.clone() for t in tree_leaves(state.snapshot)]
+    survivor = [t.detach()[0].clone() for t in tree_leaves(state.params)]
+    _, eff, _ = dl.outer_step(state)
+    want = [s - cfg.outer_lr * (1 + cfg.outer_momentum) * (s - w) for s, w in zip(old, survivor)]
+    err = max(rel_err(a, b) for a, b in zip(tree_leaves(state.snapshot), want))
+    finite = all(bool(torch.isfinite(t).all()) for t in tree_leaves(state.params))
+    if eff.tolist() != [True, False] or not finite or err > 1e-5:
+        fail("diloco_options_small", f"quarantine: mask {eff.tolist()}, workers finite "
+                                     f"{finite}, snapshot vs survivor step {err:.3e}")
+    return {"effective_mask": eff.tolist(), "workers_finite": finite,
+            "snapshot_vs_survivor_step_max_rel_err": err, "tolerance": 1e-5}
+
+
+def wire_bits_check(params, round0) -> dict:
+    """One classic round on the card, then its sync's deltas ``s - p``
+    through every quantizer on the card and, copied to the CPU, there:
+    the bf16 cast, int8 and int4 per worker (``quantize_wire``: integers
+    and scales), the integer wire's shared-scale payload with no mask and
+    with worker 1 masked (``integer_wire_payload``) and its merged leaf.
+    Each must be identical on both devices (torch.equal): the one-bin
+    allowance of the whole-run comparison is for inputs that differ, not
+    for the quantizer."""
+    dl = Diloco(SMALL_MODEL, DilocoConfig(**SMALL_DILOCO), device="cuda")
+    state = dl.init_state(params=params)
+    dl.inner_round(state, *round0)
+    leaves = [(s.detach(), p.detach()) for s, p in zip(tree_leaves(state.snapshot),
+                                                      tree_leaves(state.params))]
+    compared = 0
+    for wire in ("bfloat16", "int8", "int4"):
+        integer = wire != "bfloat16"
+        quant = {dev: Diloco(SMALL_MODEL, DilocoConfig(**SMALL_DILOCO, outer_comm_dtype=wire,
+                                                       outer_wire_collective=integer),
+                             device=dev) for dev in ("cuda", "cpu")}
+        for i, (s, p) in enumerate(leaves):
+            d = s.unsqueeze(0) - p
+            host = (s.cpu(), p.cpu(), d.cpu())
+            outs = {}
+            for dev, (sd, pd, dd) in (("cuda", (s, p, d)), ("cpu", host)):
+                q = quant[dev]
+                if not integer:
+                    outs[dev] = [q._wire_quantize(dd)]
+                    continue
+                outs[dev] = [*q.quantize_wire(dd), *q.integer_wire_payload(sd, pd, None),
+                             *q.integer_wire_payload(sd, pd, [1.0, 0.0]),
+                             q._integer_wire_leaf(sd, pd, None)]
+            for k, (a, b) in enumerate(zip(outs["cuda"], outs["cpu"])):
+                if not torch.equal(a.cpu(), b):
+                    fail("diloco_options_small",
+                         f"wire {wire}: output {k} of leaf {i} differs card vs CPU "
+                         f"({int((a.cpu() != b).sum())} of {b.numel()} elements)")
+                compared += 1
+    return {"wires": ["bfloat16", "int8", "int4"], "leaves": len(leaves),
+            "tensors_equal": compared}
+
+
+# cuBLAS's GEMM kernels by name (sm90 xmma / nvjet / cutlass families)
+GEMM_KERNEL = re.compile(r"gemm|xmma|nvjet|cutlass", re.IGNORECASE)
+
+
+def dots_check(params, round0) -> dict:
+    """One microbatch's forward and backward on the card with no remat,
+    remat "nothing" and remat "dots". The gradients agree (1e-5 relative:
+    the same kernels on the same inputs, launched in another order); in
+    each backward, torch.profiler counts the GEMM kernels the card ran
+    ("dots" recomputes no projection, so it runs fewer than "nothing") and
+    the launch counter B1's launches (its recompute: one a layer under
+    both policies, none without remat)."""
+    tokens, mask = (torch.as_tensor(x[0, :, 0]).long().cuda() for x in round0)  # [W, B, S]
+    grads, backward = {}, {}
+    for policy in ("none", "nothing", "dots"):
+        model = dataclasses.replace(SMALL_MODEL, remat=policy != "none",
+                                    remat_policy="dots" if policy == "dots" else "nothing")
+        p = tree_map(lambda v: v.cuda().unsqueeze(0).repeat(2, *[1] * v.ndim)
+                     .requires_grad_(True), params)
+        _, aux = causal_lm_loss(p, tokens, model, mask)
+        loss = aux["sum_loss"].sum()
+        torch.cuda.synchronize()
+        b1 = fa.launch_counts()["flash_fwd"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            loss.backward()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        backward[policy] = {"kernels": len(kernels),
+                            "gemm_kernels": sum(bool(GEMM_KERNEL.search(k)) for k in kernels),
+                            "flash_fwd_launches": fa.launch_counts()["flash_fwd"] - b1}
+        grads[policy] = [t.grad for t in tree_leaves(p)]
+    err = max(rel_err(a, b) for policy in ("nothing", "dots")
+              for a, b in zip(grads[policy], grads["none"]))
+    layers = SMALL_MODEL.num_hidden_layers
+    fewer = ("gemm_kernels" if backward["none"]["gemm_kernels"] else "kernels")
+    if (err > 1e-5 or backward["dots"][fewer] >= backward["nothing"][fewer]
+            or [backward[k]["flash_fwd_launches"] for k in backward] != [0, layers, layers]):
+        fail("diloco_options_small", f"remat: gradients off no-remat by {err:.3e}, "
+                                     f"backward {backward}")
+    return {"grad_max_rel_err_vs_no_remat": err, "backward": backward, "compared": fewer}
+
+
+# the five runs at the train phase's 8B width
+OPTIONS_8B = {
+    "a_classic_dynamics": {},
+    "b_quarantine_int8_integer_wire_offload": dict(
+        quarantine_nonfinite=True, outer_comm_dtype="int8", outer_wire_collective=True,
+        offload_snapshot=True),
+    "c_async_delay1_hetero_2_1_int4": dict(
+        async_outer=True, outer_delay=1, inner_steps_per_worker=(2, 1),
+        outer_comm_dtype="int4"),
+    "d_streaming_p1_delay1_alpha05": dict(streaming_fragments=1, streaming_delay=1,
+                                          merge_alpha=0.5),
+    "e_remat_dots": {},
+}
+
+
+def outer_bytes_per_param(name: str, workers: int) -> int:
+    """Bytes per parameter the outer step must move, each input read once
+    and each output written once: the workers (read, then reset),
+    snapshot (read, written) and momentum (read, written) in float32;
+    async also reads its pending head and writes its slot."""
+    classic = 4 * workers * 2 + 4 * 2 + 4 * 2
+    return classic + (8 if name.startswith("c_") else 0)
+
+
+def phase_diloco_options_8b(smi: str) -> dict:
+    """The five option runs at the train phase's Llama-3-8B width (1 layer,
+    W=2, H=2, grad_accum 2, S=2048, bf16 over f32 masters, flash), 3
+    rounds each: tokens/s after the first round, t_sync per round beside
+    the outer step's byte bound, peak memory, the kernels' launches (each
+    must rise in every run) and the keys of the last sync record."""
+    log_dir = WORK / "options_runs"
+    shutil.rmtree(log_dir, ignore_errors=True)
+    n = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1).num_params()
+    runs, total = {}, dict.fromkeys(fa.KERNEL_NAMES, 0)
+    for name, opts in OPTIONS_8B.items():
+        model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1,
+                                    remat_policy="dots" if name == "e_remat_dots" else "nothing")
+        cfg = TrainConfig(seed=0, batch_size=2, per_device_batch_size=1, seq_length=2048,
+                          warmup_steps=1, total_steps=6, inner_steps=2, num_workers=2,
+                          model=model, fit_vocab=False, quiet=True, log_dir=str(log_dir),
+                          run_name=name, **opts)
+        fa.reset_launch_counts()
+        summary = train(cfg, device="cuda")
+        launches = fa.launch_counts()
+        if min(launches.values()) == 0:
+            fail("diloco_options_8b", f"{name}: a kernel was not launched: {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        losses = summary["losses"]
+        if len(losses) != 6 or not all(math.isfinite(x) for step in losses for x in step):
+            fail("diloco_options_8b", f"{name}: losses {losses}")
+        recs = [r for r in read_jsonl_records(str(log_dir / f"{name}.jsonl"))[0]]
+        syncs = [r for r in recs if r.get("outer_synced")]
+        bound_ms = outer_bytes_per_param(name, 2) * n / PEAK_BYTES * 1e3
+        runs[name] = {
+            "tokens_per_sec_after_first_round": summary["tokens_per_sec_after_first_round"],
+            "round_seconds": summary["round_seconds"],
+            "t_sync_s": [r.get("t_sync") for r in syncs],
+            "outer_step_bound_ms": bound_ms,
+            "outer_step_bytes_per_param": outer_bytes_per_param(name, 2),
+            "peak_memory_bytes": summary["peak_memory_bytes"],
+            "launches": launches,
+            "sync_record_keys": sorted(syncs[-1]),
+            "extra_records": [r for r in recs if "loss" not in r and "resume" not in r][:6],
+            "final_loss": summary["final_loss"],
+        }
+        emit(phase="diloco_options_8b", run=name, ok=True, nvidia_smi=smi, **runs[name])
+        del summary
+        torch.cuda.empty_cache()
+    a = runs["a_classic_dynamics"]
+    if not all(k in a["sync_record_keys"] for k in ("drift_max", "pg_norm",
+                                                    "wire_bytes_per_sync")):
+        fail("diloco_options_8b", f"classic run lacks the dynamics/wire keys: {a}")
+    emit(phase="diloco_options_8b", ok=True, nvidia_smi=smi, num_params=n,
+         peak_memory_gb={k: v["peak_memory_bytes"] / 1e9 for k, v in runs.items()},
+         tokens_per_sec={k: v["tokens_per_sec_after_first_round"] for k, v in runs.items()},
+         launches=total)
+    return total
 
 
 # -- serving -------------------------------------------------------------------
@@ -1479,6 +1872,8 @@ def main() -> None:
     phase_checkpoint_full(summary, smi)
     del summary
     torch.cuda.empty_cache()
+    options_small = phase_diloco_options_small(smi)
+    options_8b = phase_diloco_options_8b(smi)
     phase_serve_small(smi)
     phase_serve_modes_small(smi)
     serve_launches, sp = phase_serve(smi)
@@ -1489,6 +1884,8 @@ def main() -> None:
     emit(kernels=[
         {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
+         "launches_diloco_options_small": options_small[name],
+         "launches_diloco_options_8b": options_8b[name],
          "launches_serve": serve_launches[name], **kernels[name]}
         for name in REPLACES
     ])

@@ -5,7 +5,12 @@ JAX CLI's flag names for every ``TrainConfig`` field the port has: data
 (``--checkpoint-dir``, ``--checkpoint-every``, ``--no-resume``), the
 metrics JSONL (``--log-dir``, ``--run-name``), ``--measure-comm``,
 ``--trace-out`` and ``--preempt-signals`` (SIGTERM/SIGINT checkpoint at
-the next round boundary and exit 75). Prints the metrics records and the
+the next round boundary and exit 75), and the DiLoCo options
+(``--streaming-fragments``, ``--streaming-delay``, ``--merge-alpha``,
+``--async-outer``, ``--outer-delay``, ``--inner-steps-per-worker``,
+``--straggler-factor``, ``--straggler-min-steps``, ``--outer-comm-dtype``,
+``--outer-wire-collective``, ``--quarantine-nonfinite``,
+``--offload-snapshot``, ``--dynamics-metrics/--no-dynamics-metrics``). Prints the metrics records and the
 run summary last. Runs on the CUDA card unless ``--device cpu``.
 
 ``python -m nanodiloco_tpu_torch report RUN.jsonl`` summarizes a run's
@@ -65,6 +70,61 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--measure-comm", action=argparse.BooleanOptionalAction, default=True,
                    help="fence the card around the outer step so avg_sync_time_s "
                         "and comm_share time the sync alone (default on)")
+    p.add_argument("--streaming-fragments", type=int, default=0,
+                   help="streaming DiLoCo: split params into N layer fragments with "
+                        "staggered outer syncs (0 = classic all-at-once sync)")
+    p.add_argument("--streaming-delay", type=int, default=1,
+                   help="inner steps between a fragment's launch and its merge into "
+                        "worker params")
+    p.add_argument("--merge-alpha", type=float, default=1.0,
+                   help="fragment merge blend: 1 = hard reset to global, 0.5 = half "
+                        "local/global mix")
+    p.add_argument("--async-outer", action="store_true",
+                   help="async delayed-apply outer step (classic rounds): launch each "
+                        "round boundary's outer update, start the next round from the "
+                        "previous merge, apply the pending merge --outer-delay rounds "
+                        "late (outer_staleness in the JSONL); --outer-delay 0 is "
+                        "bit-identical to the synchronous outer step")
+    p.add_argument("--outer-delay", type=int, default=1,
+                   help="rounds between an async outer launch and its apply")
+    p.add_argument("--inner-steps-per-worker", type=str, default=None,
+                   metavar="H0,H1,...",
+                   help="per-worker inner-step budgets (one per worker, each in "
+                        "[1, --inner-steps]): a worker freezes past its budget each "
+                        "round and enters the outer merge weighted by its realized "
+                        "steps (classic rounds only)")
+    p.add_argument("--straggler-factor", type=float, default=0.0,
+                   help="straggler policy (must be > 1; 0 disables): turns on "
+                        "heterogeneous H, the `elastic` records and the schedule "
+                        "sidecar. Its rule demotes a worker whose per-step round "
+                        "seconds exceed this factor x the median of the others, but "
+                        "this package models every worker's per-step seconds as the "
+                        "round's wall time / H, so it never demotes until fault "
+                        "injection, whose straggle seconds drive it, is ported "
+                        "(ROADMAP.md, Queue A item 5)")
+    p.add_argument("--straggler-min-steps", type=int, default=1,
+                   help="floor for straggler demotions")
+    p.add_argument("--outer-comm-dtype", type=str, default=None,
+                   help="the outer pseudo-gradient's wire: a float dtype casts "
+                        "(bfloat16), a signed-int dtype uses per-tensor absmax "
+                        "quantization (int8, or int4)")
+    p.add_argument("--outer-wire-collective", action="store_true",
+                   help="quantize against one shared scale and sum the integers, so "
+                        "the payload is the narrow integers (requires a signed-int "
+                        "--outer-comm-dtype)")
+    p.add_argument("--quarantine-nonfinite", action="store_true",
+                   help="mask any worker with a non-finite replica or inner loss out "
+                        "of the outer sync's mean; the sync's reset heals it (classic "
+                        "rounds only)")
+    p.add_argument("--offload-snapshot", action="store_true",
+                   help="keep the DiLoCo sync snapshot in pinned host memory between "
+                        "syncs")
+    p.add_argument("--dynamics-metrics", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="the DiLoCo dynamics at every sync (per-worker pseudo-gradient "
+                        "norms, cross-worker drift, outer-momentum norm, pseudo-"
+                        "gradient/update cosine) in the sync JSONL records; no effect "
+                        "on training numerics (classic rounds only)")
     p.add_argument("--eval-every", type=int, default=0,
                    help="evaluate the global snapshot on held-out data every N "
                         "outer syncs (0 = off)")
@@ -102,6 +162,16 @@ def config_from_args(a: argparse.Namespace) -> TrainConfig:
         preempt_signals=a.preempt_signals, checkpoint_dir=a.checkpoint_dir,
         checkpoint_every=a.checkpoint_every, resume=not a.no_resume,
         log_dir=a.log_dir, quiet=a.quiet, run_name=a.run_name,
+        streaming_fragments=a.streaming_fragments, streaming_delay=a.streaming_delay,
+        merge_alpha=a.merge_alpha, async_outer=a.async_outer, outer_delay=a.outer_delay,
+        inner_steps_per_worker=(
+            tuple(int(h) for h in a.inner_steps_per_worker.split(","))
+            if a.inner_steps_per_worker else None
+        ),
+        straggler_factor=a.straggler_factor, straggler_min_steps=a.straggler_min_steps,
+        outer_comm_dtype=a.outer_comm_dtype, outer_wire_collective=a.outer_wire_collective,
+        quarantine_nonfinite=a.quarantine_nonfinite, offload_snapshot=a.offload_snapshot,
+        dynamics_metrics=a.dynamics_metrics,
     )
 
 

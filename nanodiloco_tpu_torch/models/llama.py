@@ -20,13 +20,18 @@ residuals, softmax in float32, compute dtype ``cfg.dtype`` over
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.ops.flash_attention import flash_attention
@@ -59,8 +64,6 @@ def _check_supported(cfg: LlamaConfig) -> None:
         if cfg.attention_impl == "ring":
             raise NotImplementedError(f"ring attention (sequence parallelism) is {_NOT_PORTED}")
         raise ValueError(f"unknown attention_impl: {cfg.attention_impl!r}")
-    if cfg.remat and cfg.remat_policy != "nothing":
-        raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} is {_NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -212,6 +215,26 @@ def _attention(cfg: LlamaConfig, q, k, v, mask):
     return dense_attention(q, k, v, mask)
 
 
+# the matmuls a "dots" recompute saves: JAX's dots_saveable keeps every
+# dot_general's output; the flash forward is no dot there either
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+               torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(cfg: LlamaConfig):
+    """``checkpoint``'s context_fn for ``cfg.remat_policy`` (JAX
+    ``checkpoint_policy``): "dots" saves the matmul outputs and recomputes
+    the rest of the layer; "nothing" recomputes the whole layer."""
+    if cfg.remat_policy == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, _save_dots)
+    return None
+
+
 # ---------------------------------------------------------------------------
 # Decoder (worker-stacked layout: x [W, B, S, d], weights [W, ...])
 # ---------------------------------------------------------------------------
@@ -274,8 +297,10 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, attn_mask):
     for i in range(cfg.num_hidden_layers):
         layer = {key: params["layers"][key][:, i] for key in LAYER_KEYS}
         if cfg.remat:
+            ctx = _remat_context(cfg)
             x = checkpoint(_decoder_layer, cfg, x, layer, cos, sin, mask,
-                           use_reentrant=False)
+                           use_reentrant=False,
+                           **({"context_fn": ctx} if ctx is not None else {}))
         else:
             x = _decoder_layer(cfg, x, layer, cos, sin, mask)
     return _norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -7,10 +7,17 @@ whose fields follow the JAX ``DilocoState``:
 
 - ``params``: every worker's weights, ``[W, ...]`` per leaf;
 - ``inner_opt_state``: AdamW's ``exp_avg``, ``exp_avg_sq`` and ``step``
-  by leaf name (``"layers/wq"``, ...);
+  (a ``[W]`` count per worker) by leaf name (``"layers/wq"``, ...); a
+  file with one scalar ``step`` per leaf restores with it broadcast;
 - ``snapshot``: the weights at the last outer sync;
 - ``outer_opt_state``: the Nesterov ``momentum_buffer`` by leaf name;
-- ``inner_step_count``: completed inner steps.
+- ``inner_step_count``: completed inner steps;
+
+and, for the async outer path (JAX ``AsyncDilocoState``), ``pending``
+(the FIFO of launched merges, oldest first), ``pending_round`` and
+``launched_round``; for streaming DiLoCo (JAX ``StreamingState``),
+``outer_opt_states`` (one momentum tree per fragment) and ``pending``
+(one merged fragment per fragment) in place of ``outer_opt_state``.
 
 A save writes ``step_<n>.tmp``, fsyncs it, renames it into place and
 fsyncs the directory, so a crash mid-save never becomes ``latest_step``.
@@ -28,8 +35,7 @@ from typing import Any, Callable
 
 import torch
 
-from nanodiloco_tpu_torch.models.llama import Params
-from nanodiloco_tpu_torch.parallel.diloco import DilocoState
+from nanodiloco_tpu_torch.models.llama import Params, tree_leaves
 from nanodiloco_tpu_torch.resilience.retry import RetryPolicy, retry_call
 
 _STEP_FILE = re.compile(r"step_(\d+)\.pt")
@@ -43,31 +49,61 @@ def named_leaves(tree: Params, prefix: str = "") -> list[tuple[str, torch.Tensor
     return [(prefix[:-1], tree)]
 
 
-def state_tree(state: DilocoState) -> dict[str, Any]:
+def _momentum_tree(momentum: Params) -> dict[str, dict[str, torch.Tensor]]:
+    return {name: {"momentum_buffer": b.detach()} for name, b in named_leaves(momentum)}
+
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
+def state_tree(state) -> dict[str, Any]:
     """The named tree a checkpoint holds. Its tensors are the live ones
     (detached views, no copies)."""
-    inner, outer = {}, {}
+    inner = {}
     for name, p in named_leaves(state.params):
-        st = state.inner_opt.state.get(p)
-        if st:
-            inner[name] = {k: st[k] for k in ("exp_avg", "exp_avg_sq", "step")}
-    for name, s in named_leaves(state.snapshot):
-        st = state.outer_opt.state.get(s)
-        if st and st.get("momentum_buffer") is not None:
-            outer[name] = {"momentum_buffer": st["momentum_buffer"]}
-
-    def detached(tree):
-        if isinstance(tree, dict):
-            return {k: detached(v) for k, v in tree.items()}
-        return tree.detach()
-
-    return {
-        "params": detached(state.params),
+        st = state.inner_opt.state[p]
+        inner[name] = {k: st[k] for k in ("exp_avg", "exp_avg_sq", "step")}
+    tree = {
+        "params": _detached(state.params),
         "inner_opt_state": inner,
-        "snapshot": detached(state.snapshot),
-        "outer_opt_state": outer,
+        "snapshot": _detached(state.snapshot),
         "inner_step_count": int(state.inner_step_count),
     }
+    if hasattr(state, "outer_opt_states"):  # streaming
+        tree["outer_opt_states"] = [_momentum_tree(m) for m in state.outer_opt_states]
+        tree["pending"] = [_detached(f) for f in state.pending]
+        return tree
+    tree["outer_opt_state"] = _momentum_tree(state.outer_opt_state)
+    if hasattr(state, "pending"):  # async outer
+        tree["pending"] = [_detached(f) for f in state.pending]
+        tree["pending_round"] = torch.tensor(state.pending_round, dtype=torch.int64)
+        tree["launched_round"] = int(state.launched_round)
+    return tree
+
+
+def _state_kind(state) -> str:
+    if hasattr(state, "outer_opt_states"):
+        return "streaming"
+    return "async" if hasattr(state, "pending") else "classic"
+
+
+def _check_kind(saved: dict, state) -> None:
+    """A checkpoint restores only into a state of its own kind."""
+    kind = _state_kind(state)
+    need = {"streaming": {"outer_opt_states", "pending"},
+            "async": {"outer_opt_state", "pending", "pending_round", "launched_round"},
+            "classic": {"outer_opt_state"}}[kind]
+    missing = need - set(saved)
+    extra = {"pending", "outer_opt_states"} & set(saved) - need
+    if missing or extra:
+        raise KeyError(
+            f"checkpoint has no field(s) {sorted(missing)} or extra field(s) "
+            f"{sorted(extra)}; available: {sorted(saved)} (target state is {kind}: "
+            "match streaming_fragments and async_outer to the checkpoint)"
+        )
 
 
 class CheckpointManager:
@@ -115,7 +151,7 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, step: int, state: DilocoState) -> None:
+    def save(self, step: int, state) -> None:
         """Write ``step_<step>.pt`` (replacing one of that step) and keep
         the newest ``max_to_keep``."""
         tree = state_tree(state)
@@ -162,49 +198,68 @@ class CheckpointManager:
         return int(named_leaves(self._load(step)["params"])[0][1].shape[0])
 
     @torch.no_grad()
-    def restore(self, state: DilocoState, step: int | None = None) -> DilocoState:
+    def restore(self, state, step: int | None = None):
         """Copy the checkpoint into ``state``, a live state of the same
-        worker count and model: every leaf bit for bit, AdamW's moments
-        and step counts and the outer momentum included."""
+        kind, worker count and model: every leaf bit for bit, AdamW's
+        moments and step counts, the outer momentum and the async or
+        streaming pending merges included."""
         saved = self._load(step)
+        _check_kind(saved, state)
         _copy_into(state.params, saved["params"], "params")
         _copy_into(state.snapshot, saved["snapshot"], "snapshot")
+        W = int(tree_leaves(state.params)[0].shape[0])
         for name, p in named_leaves(state.params):
             st = saved["inner_opt_state"].get(name)
             if st is not None:
                 live = state.inner_opt.state[p]
                 for k in ("exp_avg", "exp_avg_sq"):
-                    if k not in live:
-                        live[k] = torch.empty_like(p)
                     live[k].copy_(st[k])
-                live["step"] = st["step"].clone()
-        _restore_momentum(state, saved)
+                live["step"] = _worker_steps(st["step"], W)
+        _restore_outer(state, saved)
+        if _state_kind(state) == "async":
+            state.pending_round = [int(r) for r in saved["pending_round"].tolist()]
+            state.launched_round = int(saved["launched_round"])
         state.inner_step_count = int(saved["inner_step_count"])
         return state
 
     @torch.no_grad()
-    def restore_elastic(self, fresh_state: DilocoState, step: int | None = None) -> DilocoState:
+    def restore_elastic(self, fresh_state, step: int | None = None):
         """Restore into a DIFFERENT worker count. Checkpoints are written
         at outer-sync boundaries, where every worker equals the snapshot,
-        so: the snapshot, the outer momentum and the step count are
-        restored exactly; every worker of ``fresh_state`` is set to the
-        snapshot; AdamW's moments start at zero (they are per-worker state
-        of the old W) with its step count advanced to the restored step,
-        so neither the bias correction nor the LR schedule re-warms."""
+        so: the snapshot, the outer momentum (every fragment's, under
+        streaming), the pending merges and launch rounds (async and
+        streaming: global state, exact) and the step count are restored
+        exactly; every worker of ``fresh_state`` is set to the snapshot;
+        AdamW's moments start at zero (they are per-worker state of the
+        old W) with every worker's step count advanced to the restored
+        step, so neither the bias correction nor the LR schedule
+        re-warms."""
         saved = self._load(step)
+        _check_kind(saved, fresh_state)
         _copy_into(fresh_state.snapshot, saved["snapshot"], "snapshot")
-        _restore_momentum(fresh_state, saved)
+        _restore_outer(fresh_state, saved)
         count = int(saved["inner_step_count"])
+        W = int(tree_leaves(fresh_state.params)[0].shape[0])
         for (_, p), (_, s) in zip(named_leaves(fresh_state.params),
                                   named_leaves(fresh_state.snapshot)):
             p.copy_(s.unsqueeze(0).expand_as(p))
-            fresh_state.inner_opt.state[p] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": torch.zeros_like(p),
-                "exp_avg_sq": torch.zeros_like(p),
-            }
+            live = fresh_state.inner_opt.state[p]
+            live["exp_avg"].zero_()
+            live["exp_avg_sq"].zero_()
+            live["step"] = torch.full((W,), float(count))
+        if _state_kind(fresh_state) == "async":
+            fresh_state.pending_round = [int(r) for r in saved["pending_round"].tolist()]
+            fresh_state.launched_round = int(saved["launched_round"])
         fresh_state.inner_step_count = count
         return fresh_state
+
+
+def _worker_steps(saved_step: torch.Tensor, num_workers: int) -> torch.Tensor:
+    """The [W] step counts of a saved leaf: a file of PRs before the
+    per-worker counts holds one scalar, which every worker shares."""
+    if saved_step.ndim == 0:
+        return torch.full((num_workers,), float(saved_step))
+    return saved_step.to(torch.float32).clone()
 
 
 def _copy_into(live: Params, saved: Params, field: str) -> None:
@@ -221,14 +276,34 @@ def _copy_into(live: Params, saved: Params, field: str) -> None:
         t.copy_(s)
 
 
-def _restore_momentum(state: DilocoState, saved: dict[str, Any]) -> None:
-    for name, s in named_leaves(state.snapshot):
-        st = saved["outer_opt_state"].get(name)
+def _copy_momentum(live: Params, saved: dict) -> None:
+    for name, b in named_leaves(live):
+        st = saved.get(name)
         if st is not None:
-            live = state.outer_opt.state[s]
-            if live.get("momentum_buffer") is None:
-                live["momentum_buffer"] = torch.empty_like(s)
-            live["momentum_buffer"].copy_(st["momentum_buffer"])
+            b.copy_(st["momentum_buffer"])
+
+
+def _restore_outer(state, saved: dict[str, Any]) -> None:
+    """The outer momentum and, where the state has them, the pending
+    merges."""
+    if _state_kind(state) == "streaming":
+        if len(saved["outer_opt_states"]) != len(state.outer_opt_states):
+            raise ValueError(
+                f"checkpoint has {len(saved['outer_opt_states'])} fragments, the run "
+                f"{len(state.outer_opt_states)} (streaming_fragments differs?)"
+            )
+        for live, sv in zip(state.outer_opt_states, saved["outer_opt_states"]):
+            _copy_momentum(live, sv)
+    else:
+        _copy_momentum(state.outer_opt_state, saved["outer_opt_state"])
+    if hasattr(state, "pending"):
+        if len(saved["pending"]) != len(state.pending):
+            raise ValueError(
+                f"checkpoint has {len(saved['pending'])} pending merges, the run "
+                f"{len(state.pending)} (outer_delay or streaming_fragments differs?)"
+            )
+        for live, sv in zip(state.pending, saved["pending"]):
+            _copy_into(live, sv, "pending")
 
 
 def _fsync(path: str) -> None:

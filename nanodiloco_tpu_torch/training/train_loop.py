@@ -1,4 +1,4 @@
-"""The DiLoCo training job: port of the classic path of
+"""The DiLoCo training job: port of
 ``nanodiloco_tpu/training/train_loop.py::train``.
 
 Data (synthetic text, packed or padded, or a pre-tokenized ``.tshrd``
@@ -9,7 +9,20 @@ inner steps and one outer sync until ``total_steps``. Around the rounds:
   batches into (pinned, on the card) host tensors while this round runs;
 - the metrics JSONL (``training/metrics.py``) in the JAX fused path's
   layout: one record per inner step, with the phase budget ``t_*`` of
-  the round; the round's last record adds the evaluation and sync keys;
+  the round; the round's last record adds the evaluation and sync keys:
+  the wire bytes (``wire_bytes_per_sync``, ``wire_compression``,
+  ``wire_bytes_total``), the dynamics readout (``pg_norm``,
+  ``drift_max``, ``drift_mean``, ``outer_momentum_norm``,
+  ``outer_update_cos``; on by default, as in the JAX package),
+  ``quarantined_workers``, ``workers_active``, ``inner_steps_realized``
+  and the outer mode (``async_outer`` / ``outer_delay``, or streaming's
+  ``outer_staleness``);
+- the DiLoCo options of the JAX ``TrainConfig``: quarantine, the
+  quantized and integer outer wires, heterogeneous H with the straggler
+  policy (``training/elastic.py``; its schedule sidecar on save and
+  resume), the async outer step (boundary first in each round, one
+  record per boundary, a flush after the last round), streaming DiLoCo
+  (``parallel/streaming.py``) and the snapshot offload;
 - held-out evaluation of the snapshot every ``eval_every`` syncs, plus a
   final one;
 - a checkpoint every ``checkpoint_every`` syncs, plus a final one, and a
@@ -18,18 +31,29 @@ inner steps and one outer sync until ``total_steps``. Around the rounds:
 - preemption: SIGTERM/SIGINT checkpoint at the next round boundary and
   exit with code 75.
 
+The straggler policy reads per-worker round seconds as the JAX loop
+models them: the shared round wall time scaled by each worker's realized
+step share, plus injected straggle seconds. Fault injection is not
+ported (ROADMAP.md, Queue A item 5), so those extras are zero here. The
+policy divides each worker's seconds by its budget, so every worker's
+per-step seconds come out as the round's wall time / H and ``train()``
+never demotes: ``straggler_factor`` turns on heterogeneous H, the
+``elastic`` records and the sidecar, and the policy's decisions are
+exercised by its own tests.
+
 Returns a summary with the JAX keys this port has (``final_loss``,
-``steps``, ``avg_sync_time_s``, ``comm_share``, ``run_name``, ``state``,
-the final eval keys) and per-step [W] losses, throughput, peak device
-memory and the flash kernels' launch counts over the run. The watchdog,
-goodput ledger, device-time accounting, DiLoCo dynamics, wire-byte
-accounting, cost analysis, fault injection and telemetry are not ported
-(ROADMAP.md, Queue A items 2 and 5), and their JSONL keys are not
+``steps``, ``avg_sync_time_s``, ``comm_share``, the wire keys, the async
+and heterogeneous-H keys, ``run_name``, ``state``, the final eval keys)
+and per-step [W] losses, throughput, peak device memory and the flash
+kernels' launch counts over the run. The watchdog, goodput ledger,
+device-time accounting, cost analysis, fault injection and telemetry are
+not ported (ROADMAP.md, Queue A item 5), and their JSONL keys are not
 written.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -55,9 +79,15 @@ from nanodiloco_tpu_torch.models.llama import Params, resolve_device, tree_leave
 from nanodiloco_tpu_torch.obs import flightrec
 from nanodiloco_tpu_torch.obs.tracer import SpanTracer, set_tracer, trace_span
 from nanodiloco_tpu_torch.ops.cuda.flash_attention import launch_counts, variant_counts
-from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig, host_dynamics
+from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
 from nanodiloco_tpu_torch.resilience.retry import RetryPolicy
 from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager
+from nanodiloco_tpu_torch.training.elastic import (
+    StragglerPolicy,
+    resume_budgets,
+    save_schedule,
+)
 from nanodiloco_tpu_torch.training.evaluate import Evaluator, holdout_batches
 from nanodiloco_tpu_torch.training.metrics import MetricsLogger, SyncTimer
 from nanodiloco_tpu_torch.utils import create_run_name, device_memory_stats
@@ -98,9 +128,38 @@ class TrainConfig:
     # comm_share time the sync alone; off, the outer step runs behind the
     # inner steps unfenced and those keys are None
     measure_comm: bool = True
+    # streaming DiLoCo (arXiv:2501.18512); 0 = classic
+    streaming_fragments: int = 0
+    streaming_delay: int = 1
+    merge_alpha: float = 1.0
+    # the outer pseudo-gradient's wire: a float dtype (a cast, e.g.
+    # "bfloat16") or a signed int (absmax quantization, e.g. "int8",
+    # "int4"); see parallel/diloco.py
+    outer_comm_dtype: str | None = None
+    # one shared scale and an integer sum (needs a signed-int wire)
+    outer_wire_collective: bool = False
+    # mask a worker with a non-finite replica or loss out of the outer
+    # mean; the sync's reset heals it
+    quarantine_nonfinite: bool = False
+    # the DiLoCo dynamics readout in every sync record (classic rounds;
+    # ignored, with a notice, under streaming). A pure readout: losses
+    # and params are bit-identical on or off
+    dynamics_metrics: bool = True
+    # the async delayed-apply outer step (classic rounds only)
+    async_outer: bool = False
+    outer_delay: int = 1
+    # heterogeneous per-worker H: initial budgets, one per worker
+    inner_steps_per_worker: tuple[int, ...] | None = None
+    # straggler policy (training/elastic.py): > 1 turns it on (and
+    # heterogeneous H with it); 0 disables. It never demotes here until
+    # fault injection is ported (see the module docstring)
+    straggler_factor: float = 0.0
+    straggler_min_steps: int = 1
     model: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)
     # shrink vocab_size to the tokenizer's vocabulary (rounded up to 128)
     fit_vocab: bool = True
+    # park the snapshot in pinned host memory between syncs
+    offload_snapshot: bool = False
     eval_every: int = 0       # evaluate the snapshot every N outer syncs (0=off)
     eval_batches: int = 8     # held-out batches (never trained on)
     # Chrome trace-event JSON of the host-side round phases
@@ -157,6 +216,14 @@ def _stack_round(batches, inner_steps: int, pin: bool) -> tuple[torch.Tensor, to
     return toks, masks
 
 
+def _finite_worker_mean(losses: torch.Tensor) -> torch.Tensor:
+    """[H, W] -> [H]: the mean over the finite workers (the logged loss
+    under quarantine); a row with no finite worker stays NaN."""
+    fin = torch.isfinite(losses)
+    mean = torch.where(fin, losses, 0.0).sum(-1) / fin.sum(-1).clamp_min(1)
+    return torch.where(fin.any(-1), mean, torch.nan)
+
+
 def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, Any]:
     """Run the DiLoCo training job on one device; returns the summary."""
     device = resolve_device(device)
@@ -169,6 +236,33 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         raise ValueError("--eval-every requires --eval-batches >= 1")
     padded = cfg.data_layout == "padded"
     shard = bool(cfg.dataset_path) and cfg.dataset_path.endswith(".tshrd")
+    streaming = cfg.streaming_fragments > 0
+    # the dynamics are a classic-rounds readout (streaming has no single
+    # whole-model sync point)
+    dynamics_on = cfg.dynamics_metrics and not streaming
+    if cfg.dynamics_metrics and not dynamics_on and not quiet:
+        print("[nanodiloco] dynamics metrics disabled: streaming DiLoCo has no "
+              "single sync point to read whole-model drift at")
+    async_on = cfg.async_outer and not streaming
+    if cfg.async_outer and not async_on:
+        raise ValueError(
+            "--async-outer is classic-rounds-only: streaming DiLoCo is already the "
+            "fragment-granularity async outer step (its launch/apply split is "
+            "--streaming-delay inner steps); a second round-granularity delay would "
+            "double-defer the same merges"
+        )
+    # heterogeneous per-worker H: an explicit schedule, or the straggler
+    # policy's budget lever; classic rounds only
+    hetero_on = cfg.inner_steps_per_worker is not None or cfg.straggler_factor > 0
+    if hetero_on and streaming:
+        raise ValueError(
+            "--inner-steps-per-worker / --straggler-factor are classic-rounds-only: "
+            "streaming's fragment cadence assumes the uniform inner-step index"
+        )
+    hetero_budgets = (
+        list(cfg.inner_steps_per_worker) if cfg.inner_steps_per_worker is not None
+        else [cfg.inner_steps] * cfg.num_workers
+    ) if hetero_on else None
     if cfg.dataset_path and not shard:
         raise ValueError(
             f"--dataset-path {cfg.dataset_path!r}: the port reads pre-tokenized "
@@ -238,18 +332,36 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             per_device_batch=cfg.per_device_batch_size, seed=cfg.seed, mask=row_mask,
         )
 
-    dl = Diloco(model_cfg, DilocoConfig(
+    dcfg = DilocoConfig(
         num_workers=cfg.num_workers, inner_steps=cfg.inner_steps,
         warmup_steps=cfg.warmup_steps, total_steps=cfg.total_steps, lr=cfg.lr,
         outer_lr=cfg.outer_lr, grad_accum=cfg.grad_accum,
-    ), device)
+        offload_snapshot=cfg.offload_snapshot, outer_comm_dtype=cfg.outer_comm_dtype,
+        outer_wire_collective=cfg.outer_wire_collective,
+        quarantine_nonfinite=cfg.quarantine_nonfinite, dynamics_metrics=dynamics_on,
+        async_outer=cfg.async_outer, outer_delay=cfg.outer_delay,
+        inner_steps_per_worker=tuple(hetero_budgets) if hetero_on else None,
+    )
+    if streaming:
+        dl = StreamingDiloco(model_cfg, dcfg, StreamingConfig(
+            num_fragments=cfg.streaming_fragments, delay=cfg.streaming_delay,
+            merge_alpha=cfg.merge_alpha,
+        ), device)
+    else:
+        dl = Diloco(model_cfg, dcfg, device)
+    if cfg.num_workers > 1 and not quiet:
+        rep = dl.sync_payload_report()
+        print(f"[nanodiloco] outer-sync payload: {rep['bytes_per_sync'] / 1e6:.1f} "
+              f"MB/worker ({rep['wire']}; f32 would be {rep['f32_bytes'] / 1e6:.1f} MB)")
     state = dl.init_state(torch.Generator(device=device).manual_seed(cfg.seed))
     on_cuda = device.type == "cuda"
 
     ckpt = None
     logger: MetricsLogger | None = None
     resume_rec: dict | None = None
-    elastic_rec: dict | None = None
+    # elastic records decided before the logger exists (a width change
+    # at resume, an H-schedule reset), logged once it does
+    elastic_pending: list[dict] = []
     # retry records of the startup restore, logged once the logger exists
     pre_logger_events: list[dict] = []
 
@@ -283,16 +395,36 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                           f"workers, run has {cfg.num_workers}; snapshot/outer state "
                           "restored exactly, inner moments reset (LR schedule continues)")
                 ckpt.restore_elastic(state)
-                elastic_rec = {
+                elastic_pending.append({
                     "elastic": "resize_widen" if cfg.num_workers > saved_w else "resize_shrink",
                     "workers_from": saved_w, "workers_to": cfg.num_workers,
-                }
+                })
             _fence(device)
             resume_rec = {
                 "resume": ckpt.latest_step,
                 "elastic": saved_w != cfg.num_workers,
                 "t_restore": round(time.perf_counter() - t_restore0, 6),
             }
+    # the heterogeneous-H schedule: the sidecar's budgets at unchanged
+    # width (a bit-exact resume keeps its schedule too); a width change
+    # resets to the configured schedule
+    straggler_policy: StragglerPolicy | None = None
+    if hetero_on:
+        budgets, demotions0, sched_reset = resume_budgets(
+            cfg.checkpoint_dir, cfg.num_workers,
+            cfg.inner_steps, hetero_budgets,
+        )
+        if sched_reset:
+            elastic_pending.append({"elastic": "h_schedule_reset",
+                                    "workers_to": cfg.num_workers,
+                                    "inner_steps_per_worker": list(budgets)})
+        dl.set_inner_budget(budgets)
+        if cfg.straggler_factor > 0:
+            straggler_policy = StragglerPolicy(
+                cfg.inner_steps, cfg.num_workers, cfg.straggler_factor,
+                cfg.straggler_min_steps, initial=budgets,
+            )
+            straggler_policy.demotions_total = demotions0
     if on_cuda:
         _fence(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -303,9 +435,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         logger.log(rec)
     if resume_rec is not None:
         logger.log(resume_rec, step=resume_rec["resume"])
-        if elastic_rec is not None:
-            logger.log({**elastic_rec, "t_unix": round(time.time(), 3)},
-                       step=resume_rec["resume"])
+    for rec in elastic_pending:
+        logger.log({**rec, "t_unix": round(time.time(), 3)},
+                   step=resume_rec["resume"] if resume_rec else 0)
     sync_timer = SyncTimer()
     # the per-phase t_* totals flow into the JSONL either way; the event
     # list is kept only when --trace-out will export it
@@ -332,6 +464,16 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                   f"boundary, then exiting {PREEMPT_EXIT_CODE} (signal again to "
                   "abort immediately)", flush=True)
 
+    def _save_schedule(step: int) -> None:
+        """The live H schedule next to the checkpoints (a sidecar blip must
+        not fail a good save)."""
+        try:
+            save_schedule(cfg.checkpoint_dir, step, cfg.num_workers,
+                          list(dl.inner_budget),
+                          straggler_policy.demotions_total if straggler_policy else 0)
+        except OSError:
+            pass
+
     def _guarded_save(step: int) -> None:
         """A save that degrades instead of aborting: retries happen inside
         the manager; a persistently failing save logs an alarm record and
@@ -339,6 +481,8 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         try:
             with trace_span("ckpt"):
                 ckpt.save(step, state)
+            if hetero_on:
+                _save_schedule(step)
         except Exception as e:
             logger.log({"alarm": "ckpt_save_failed", "step": step,
                         "error": f"{type(e).__name__}: {e}"[:300]})
@@ -358,13 +502,79 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
 
     eval_launches = {name: dict.fromkeys(v, 0) for name, v in variant_counts().items()}
 
-    def _evaluate(snapshot: Params) -> dict[str, float]:
+    def _evaluate() -> dict[str, float]:
+        """The held-out loss of the snapshot (fetched to the card when it
+        is parked on the host)."""
         before = variant_counts()
-        out = evaluator(snapshot, eval_set)
+        out = evaluator(dl.device_snapshot(state), eval_set)
         for name, counts in variant_counts().items():
             for variant, n in counts.items():
                 eval_launches[name][variant] += n - before[name][variant]
         return out
+
+    @contextlib.contextmanager
+    def _sync_phase():
+        """An outer step's phase: with measure_comm its own span, timed by
+        the sync timer and fenced, so it is timed alone; without, part of
+        the inner phase."""
+        if cfg.measure_comm:
+            with trace_span("sync"), sync_timer:
+                yield
+                _fence(device)
+        else:
+            with trace_span("inner"):
+                yield
+                _fence(device)
+
+    # the wire ledger of one sync, from the synced tree's own sizes
+    wire_rec = dl.sync_wire_bytes(state.snapshot)
+    wire_metrics = {"wire_bytes_per_sync": wire_rec["wire_bytes_per_sync"],
+                    "wire_compression": wire_rec["wire_compression"]}
+    wire_bytes_total = 0
+    # the outer mode in every sync record: async and its delay, or the
+    # staleness streaming's applies run at (delay inner steps)
+    if async_on:
+        mode_extras: dict[str, Any] = {"async_outer": True, "outer_delay": cfg.outer_delay}
+    elif streaming:
+        mode_extras = {"outer_staleness": cfg.streaming_delay / cfg.inner_steps}
+    else:
+        mode_extras = {}
+
+    def _log_async_boundary(aux: dict) -> None:
+        """One record per async boundary at its own step: how many rounds
+        late the applied merge landed (omitted for the warm-up applies of
+        init copies) and the dynamics readout."""
+        b = int(aux["boundary_round"])
+        if b < 1:
+            return
+        rec: dict[str, Any] = {**mode_extras}
+        if int(aux["applied_launch_round"]) >= 1:
+            rec["outer_staleness"] = int(aux["outer_staleness"])
+        if "dynamics" in aux:
+            rec.update(host_dynamics(aux["dynamics"]))
+        logger.log(rec, step=b * cfg.inner_steps)
+
+    def _absorb_straggle(round_wall_s: float, real_step: int) -> list[int] | None:
+        """The straggler epilogue of a round: per-worker seconds as the JAX
+        loop models them (the round's wall time scaled by each worker's
+        realized step share; no injected straggle, fault injection not
+        being ported, so the per-step seconds are equal and no worker is
+        demoted), the policy's decisions logged and applied to later
+        rounds, the post-decision sidecar. Returns the budgets the round
+        realized (None without heterogeneous H)."""
+        realized = (list(straggler_policy.budgets) if straggler_policy
+                    else (list(dl.inner_budget) if hetero_on else None))
+        if straggler_policy is not None:
+            decisions = straggler_policy.observe(
+                [round_wall_s * realized[w] / cfg.inner_steps for w in range(cfg.num_workers)]
+            )
+            for d in decisions:
+                logger.log({**d, "t_unix": round(time.time(), 3)}, step=real_step)
+            if decisions:
+                dl.set_inner_budget(straggler_policy.budgets)
+                if ckpt is not None:
+                    _save_schedule(real_step)
+        return realized
 
     preempt_exit = False
     prefetcher = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefetch")
@@ -399,6 +609,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         tokens_per_step = cfg.num_workers * cfg.grad_accum * cfg.per_device_batch_size * row_len
         # deterministic O(1) resume positioning (no replayed gathers)
         batches = batcher.iter_from(start_step)
+        # an async checkpoint lands before its round's boundary (the last
+        # round's excepted: it is flushed): launched_round says whether
+        # the boundary is still owed
+        boundary_owed = (async_on and start_step > 0
+                         and state.launched_round < start_step // H)
         first_round, last_round = start_step // H + 1, cfg.total_steps // H
         if first_round <= last_round:
             pending = prefetcher.submit(_stack_round, batches, H, on_cuda)
@@ -408,39 +623,87 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             pending = (prefetcher.submit(_stack_round, batches, H, on_cuda)
                        if rnd < last_round else None)
             before = _fingerprint(state.snapshot)
+            boundary_auxes: list[dict] = []
+            round_dyn, eff_mask = None, None
             t0 = time.perf_counter()
+            if async_on and boundary_owed:
+                # the previous round's launch and apply, at the top of
+                # this round
+                with _sync_phase():
+                    state, baux = dl.async_deferred_boundary(state)
+                boundary_auxes.append(baux)
+            # no sync phase after: streaming's launches run inside the
+            # inner steps; an async round's boundary runs at the next
+            sync_follows = not streaming and (not async_on or rnd == last_round)
             with trace_span("inner", round=rnd):
-                state, losses = dl.inner_round(state, toks, masks)
-                if not cfg.measure_comm:
-                    dl.outer_step(state)
-                _fence(device)
-            if cfg.measure_comm:
-                with trace_span("sync"), sync_timer:
-                    dl.outer_step(state)
+                if streaming:
+                    state, losses, _ = dl.round_step(state, toks, masks)
+                else:
+                    state, losses = dl.inner_round(state, toks, masks)
+                if cfg.measure_comm or not sync_follows:
                     _fence(device)
+            if async_on:
+                boundary_owed = True
+                if rnd == last_round:
+                    # the final boundary and the drain before the last
+                    # checkpoint and eval, which must see every update
+                    with _sync_phase():
+                        state, baux = dl.async_flush(state)
+                    boundary_auxes.append(baux)
+            elif not streaming:
+                wmask = (torch.isfinite(losses).all(dim=0)
+                         if cfg.quarantine_nonfinite else None)
+                with _sync_phase():
+                    _, eff_mask, round_dyn = (dl.outer_step(state) if wmask is None
+                                              else dl.outer_step(state, wmask))
             round_s = time.perf_counter() - t0
             compute_time += round_s
             round_seconds.append(round_s)
             snapshot_changed.append(_fingerprint(state.snapshot) != before)
             losses = losses.cpu()
             losses_out.extend(losses.tolist())
-            losses_h = losses.mean(dim=1).tolist()  # [H]
+            quarantine_metrics = {}
+            if cfg.quarantine_nonfinite:
+                # a healed worker's NaN must not reach the logged loss
+                losses_h = _finite_worker_mean(losses).tolist()
+                quarantine_metrics = {
+                    "quarantined_workers": int(cfg.num_workers - int(eff_mask.sum()))
+                }
+            else:
+                losses_h = losses.mean(dim=1).tolist()  # [H]
             real_step = rnd * H
             if ckpt and rnd % cfg.checkpoint_every == 0:
                 _guarded_save(real_step)
             eval_metrics = {}
             if evaluator is not None and rnd % cfg.eval_every == 0:
                 with trace_span("eval"):
-                    eval_metrics = _evaluate(state.snapshot)
+                    eval_metrics = _evaluate()
                 last_eval_step, last_eval = real_step, eval_metrics
             eval_metrics = {**eval_metrics, **device_memory_stats(device)}
             # depth-0 span totals since the last round; the log span of
             # this round is still open, its seconds land in the next one
             round_budget = {f"t_{k}": round(v, 6) for k, v in tracer.phase_totals().items()}
+            timed_sync = cfg.measure_comm and sync_timer.calls > 0
             sync_metrics = {
-                "avg_sync_time_s": sync_timer.avg_sync_time if cfg.measure_comm else None,
-                "comm_share": sync_timer.total / compute_time if cfg.measure_comm else None,
+                "avg_sync_time_s": sync_timer.avg_sync_time if timed_sync else None,
+                "comm_share": sync_timer.total / compute_time if timed_sync else None,
             }
+            realized = _absorb_straggle(round_s, real_step)
+            wire_bytes_total += wire_rec["wire_bytes_per_sync"]
+            sync_extras: dict[str, Any] = {
+                **wire_metrics,
+                "wire_bytes_total": wire_bytes_total,
+                **quarantine_metrics,
+                **mode_extras,
+                "workers_active": cfg.num_workers
+                - quarantine_metrics.get("quarantined_workers", 0),
+            }
+            if realized is not None:
+                sync_extras["inner_steps_realized"] = realized
+            if round_dyn is not None:
+                sync_extras.update(host_dynamics(round_dyn))
+            for baux in boundary_auxes:
+                _log_async_boundary(baux)
             tps = (real_step - start_step) * tokens_per_step / compute_time
             with trace_span("log"):
                 for i in range(H):
@@ -458,7 +721,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                             "outer_synced": int(last),
                             **sync_metrics,
                             **round_budget,
-                            **({"workers_active": cfg.num_workers} if last else {}),
+                            **(sync_extras if last else {}),
                         },
                         step=step,
                     )
@@ -472,7 +735,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             # reuse the in-loop result when the last sync already evaluated
             # this exact snapshot
             final_eval = (last_eval if last_eval_step == cfg.total_steps
-                          else _evaluate(state.snapshot))
+                          else _evaluate())
     except _Preempted:
         preempt_exit = True
     except BaseException as e:
@@ -508,13 +771,21 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
 
     after_first = round_seconds[1:]
     n_tokens = tokens_per_step * H * len(round_seconds)
+    timed_sync = cfg.measure_comm and sync_timer.calls > 0
     return {
         **final_eval,
         "final_loss": last_loss,
         "steps": cfg.total_steps,
-        "avg_sync_time_s": sync_timer.avg_sync_time if cfg.measure_comm else None,
+        **({"async_outer": True, "outer_delay": cfg.outer_delay} if async_on else {}),
+        **({"inner_steps_per_worker": list(dl.inner_budget),
+            "straggler_demotions": (straggler_policy.demotions_total
+                                    if straggler_policy is not None else 0)}
+           if hetero_on else {}),
+        "avg_sync_time_s": sync_timer.avg_sync_time if timed_sync else None,
         "comm_share": (sync_timer.total / compute_time
-                       if cfg.measure_comm and compute_time else None),
+                       if timed_sync and compute_time else None),
+        **wire_metrics,
+        "wire_bytes_total": wire_bytes_total,
         "run_name": run_name,
         "state": state,
         "device": str(device),

@@ -7,12 +7,14 @@ with more rounds.
     python3 scripts/torch_train_ab.py --other build/parent [--rounds 4] [--turns 1]
 
 ``--other`` is the root of another checkout of this repo (for example the
-parent commit unpacked with ``git archive``). Three variants run in the
+parent commit unpacked with ``git archive``). Four variants run in the
 order this, this with ``measure_comm=False`` (no fences around the outer
-step), other, then the same backwards, ``--turns`` times; each run is a
-fresh process (one training state on the card at a time) that builds its
-checkout's kernels. Prints one JSON line per run (its round seconds and
-``tokens_per_sec_after_first_round``), then one line with the medians per
+step), this with ``dynamics_metrics=False`` (no dynamics readout in the
+outer step), other, then the same backwards, ``--turns`` times; each run
+is a fresh process (one training state on the card at a time) that
+builds its checkout's kernels. Prints one JSON line per run (its round
+seconds, ``tokens_per_sec_after_first_round`` and the mean seconds of
+its outer steps when they are fenced), then one line with the medians per
 variant and the card's name and power limit. Needs a CUDA card; fails
 without one.
 """
@@ -28,8 +30,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# run inside each turn's process: argv = root, rounds, measure_comm (-1 =
-# leave the checkout's default: its TrainConfig may not have the field)
+# run inside each turn's process: argv = root, rounds, then the TrainConfig
+# fields as name=0|1 (a checkout whose TrainConfig lacks one keeps its
+# default)
 TURN = r"""
 import dataclasses, json, sys
 import torch
@@ -37,21 +40,27 @@ sys.path.insert(0, sys.argv[1])
 from nanodiloco_tpu_torch.models.config import LLAMA3_8B
 from nanodiloco_tpu_torch.training import train_loop
 assert train_loop.__file__.startswith(sys.argv[1]), train_loop.__file__
-rounds, measure_comm = int(sys.argv[2]), int(sys.argv[3])
-extra = {} if measure_comm < 0 else {"measure_comm": bool(measure_comm), "log_dir": None}
+rounds = int(sys.argv[2])
+fields = {f.name for f in dataclasses.fields(train_loop.TrainConfig)}
+extra = {"log_dir": None}
+for arg in sys.argv[3:]:
+    name, value = arg.split("=")
+    if name in fields:
+        extra[name] = bool(int(value))
 cfg = train_loop.TrainConfig(
     seed=0, batch_size=2, per_device_batch_size=1, seq_length=2048, warmup_steps=1,
     total_steps=2 * rounds, inner_steps=2, num_workers=2,
     model=dataclasses.replace(LLAMA3_8B, num_hidden_layers=1), fit_vocab=False,
     quiet=True, **extra)
 s = train_loop.train(cfg, device="cuda")
-print(json.dumps({k: s[k] for k in ("round_seconds", "tokens_per_sec_after_first_round")}))
+print(json.dumps({k: s[k] for k in ("round_seconds", "tokens_per_sec_after_first_round",
+                                    "avg_sync_time_s")}))
 """
 
 
-def turn(tree: Path, rounds: int, measure_comm: int) -> dict:
+def turn(tree: Path, rounds: int, fields: list[str]) -> dict:
     res = subprocess.run(
-        [sys.executable, "-c", TURN, str(tree.resolve()), str(rounds), str(measure_comm)],
+        [sys.executable, "-c", TURN, str(tree.resolve()), str(rounds), *fields],
         capture_output=True, text=True, check=True, cwd=tree,
     )
     return json.loads(res.stdout.strip().splitlines()[-1])
@@ -67,11 +76,12 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip()
-    variants = [("this", ROOT, 1), ("this_no_fence", ROOT, 0), ("other", args.other, -1)]
+    variants = [("this", ROOT, []), ("this_no_fence", ROOT, ["measure_comm=0"]),
+                ("this_no_dynamics", ROOT, ["dynamics_metrics=0"]), ("other", args.other, [])]
     runs = []
     for _ in range(args.turns):
-        for label, tree, measure_comm in variants + variants[::-1]:
-            run = {"variant": label, **turn(tree, args.rounds, measure_comm)}
+        for label, tree, fields in variants + variants[::-1]:
+            run = {"variant": label, **turn(tree, args.rounds, fields)}
             print(json.dumps(run), flush=True)
             runs.append(run)
     median = {

@@ -87,7 +87,7 @@ def main() -> None:
     tokens, mask = next_round()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, losses = dl.round_step(state, tokens, mask)
+        _, losses, _ = dl.round_step(state, tokens, mask)
         losses = losses.cpu()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6

@@ -3,8 +3,8 @@ and train()'s resume) on the CPU at a tiny size; the elastic restore
 against the JAX package's ``restore_elastic`` on one numpy state.
 
 Tolerance: none. A checkpoint stores the live tensors and a restore
-copies them back, so every leaf, AdamW's moments and step counts and the
-outer momentum return bit for bit, and a resumed run repeats the same
+copies them back, so every leaf, AdamW's moments and per-worker step
+counts and the outer momentum return bit for bit, and a resumed run repeats the same
 float32 arithmetic on the same numbers as an uninterrupted one
 (``rtol=0, atol=0``). The elastic restore copies the same numbers on
 both sides, so the port and JAX agree exactly too.
@@ -77,9 +77,8 @@ def assert_states_equal(a, b):
         assert sa.keys() == sb.keys() == {"step", "exp_avg", "exp_avg_sq"}
         for k in sa:
             assert torch.equal(sa[k], sb[k]), k
-    for sa_, sb_ in zip(tree_leaves(a.snapshot), tree_leaves(b.snapshot)):
-        assert torch.equal(a.outer_opt.state[sa_]["momentum_buffer"],
-                           b.outer_opt.state[sb_]["momentum_buffer"])
+    for ma, mb in zip(tree_leaves(a.outer_opt_state), tree_leaves(b.outer_opt_state)):
+        assert torch.equal(ma, mb)
     assert a.inner_step_count == b.inner_step_count
 
 
@@ -214,12 +213,12 @@ def port_state_from_jax(jstate):
         for name, p in named_leaves(state.params):
             p.copy_(torch.from_numpy(params[name].copy()))
             state.inner_opt.state[p] = {
-                "step": torch.tensor(float(count)),
+                "step": torch.full((2,), float(count)),
                 "exp_avg": torch.from_numpy(mu[name].copy()),
                 "exp_avg_sq": torch.from_numpy(nu[name].copy()),
             }
-        for name, s in named_leaves(state.snapshot):
-            state.outer_opt.state[s]["momentum_buffer"] = torch.from_numpy(trace[name].copy())
+        for name, b in named_leaves(state.outer_opt_state):
+            b.copy_(torch.from_numpy(trace[name].copy()))
     state.inner_step_count = int(jstate.inner_step_count)
     return state
 
@@ -255,16 +254,16 @@ def test_elastic_restore_2_to_4_matches_jax(tmp_path):
     jmu, jnu = leaf_map(jadam.mu), leaf_map(jadam.nu)
     assert res.inner_step_count == int(jres.inner_step_count) == H
     assert (np.asarray(jadam.count) == H).all()
+    momentum = dict(named_leaves(res.outer_opt_state))
     for name, s in named_leaves(res.snapshot):
         np.testing.assert_array_equal(s.numpy(), jsnap[name])
-        np.testing.assert_array_equal(res.outer_opt.state[s]["momentum_buffer"].numpy(),
-                                      jtrace[name])
+        np.testing.assert_array_equal(momentum[name].numpy(), jtrace[name])
     for name, p in named_leaves(res.params):
         assert p.shape[0] == 4
         np.testing.assert_array_equal(p.detach().numpy(), jparams[name])
         np.testing.assert_array_equal(p.detach().numpy(),
                                       np.broadcast_to(jsnap[name], p.shape))
         st = res.inner_opt.state[p]
-        assert float(st["step"]) == H
+        assert st["step"].tolist() == [H] * 4
         assert not st["exp_avg"].any() and not st["exp_avg_sq"].any()
         assert not jmu[name].any() and not jnu[name].any()

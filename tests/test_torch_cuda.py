@@ -151,9 +151,8 @@ def test_checkpoint_round_trip_on_the_card(tmp_path):
     for pa, pb in zip(tree_leaves(fresh.params), tree_leaves(state.params)):
         for k in ("exp_avg", "exp_avg_sq", "step"):
             assert torch.equal(fresh.inner_opt.state[pa][k], state.inner_opt.state[pb][k])
-    for sa, sb in zip(tree_leaves(fresh.snapshot), tree_leaves(state.snapshot)):
-        assert torch.equal(fresh.outer_opt.state[sa]["momentum_buffer"],
-                           state.outer_opt.state[sb]["momentum_buffer"])
+    for ma, mb in zip(tree_leaves(fresh.outer_opt_state), tree_leaves(state.outer_opt_state)):
+        assert torch.equal(ma, mb)
     assert fresh.inner_step_count == 2
 
 
@@ -213,3 +212,29 @@ def test_generate_and_engine_on_the_card_match_the_cpu():
         want = generate(params, [list(req.prompt)], cfg, 12, temperature=req.temperature,
                         top_k=req.top_k, seed=req.seed, device="cuda")[0].tolist()
         assert ticket.result["tokens"] == want
+
+
+@pytest.mark.cuda
+def test_offload_snapshot_on_the_card_matches_device_resident():
+    """With offload_snapshot the snapshot waits in pinned host memory
+    between syncs and comes back to the card for each outer step: three
+    rounds equal the device-resident run bit for bit."""
+    card()
+    tiny = LlamaConfig(vocab_size=64, hidden_size=32, intermediate_size=64,
+                       num_attention_heads=4, num_hidden_layers=2, max_position_embeddings=32)
+    params = init_params(torch.Generator().manual_seed(0), tiny, device="cpu")
+    tok = torch.randint(0, tiny.vocab_size, (2, 2, 1, 2, 16),
+                        generator=torch.Generator().manual_seed(1))
+    runs = []
+    for offload in (False, True):
+        dl = Diloco(tiny, DilocoConfig(num_workers=2, inner_steps=2, warmup_steps=2,
+                                       total_steps=50, lr=1e-3, offload_snapshot=offload),
+                    device="cuda")
+        state = dl.init_state(params=params)
+        losses = [dl.round_step(state, tok, torch.ones_like(tok))[1] for _ in range(3)]
+        leaf = tree_leaves(state.snapshot)[0]
+        assert (leaf.device.type == "cpu" and leaf.is_pinned()) == offload
+        runs.append((torch.stack(losses).cpu(), [t.cpu() for t in tree_leaves(state.snapshot)]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+

@@ -26,14 +26,17 @@ from nanodiloco_tpu.models import init_params as jax_init
 from nanodiloco_tpu.parallel import Diloco as JaxDiloco
 from nanodiloco_tpu.parallel import DilocoConfig as JaxDilocoConfig
 from nanodiloco_tpu.parallel import MeshConfig, build_mesh
+from nanodiloco_tpu.parallel import StreamingConfig as JaxStreamingConfig
+from nanodiloco_tpu.parallel import StreamingDiloco as JaxStreamingDiloco
 from nanodiloco_tpu.training import optim as jax_optim
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.llama import params_from_numpy, params_to_numpy
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
+from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
 from nanodiloco_tpu_torch.training.optim import (
     clip_per_worker_,
     inner_optimizer,
-    outer_optimizer,
+    nesterov_direction,
     warmup_cosine_schedule,
 )
 
@@ -92,7 +95,7 @@ def test_two_rounds_match_jax(clip_norm):
     state = dl.init_state(params=params_from_numpy(tree, device="cpu"))
     tlosses = []
     for r in range(2):
-        state, losses = dl.round_step(state, tokens[r], mask[r])
+        state, losses, _ = dl.round_step(state, tokens[r], mask[r])
         tlosses.append(losses.numpy())
     assert state.inner_step_count == 4
 
@@ -160,11 +163,9 @@ def problem():
 
 def test_outer_nesterov_matches_jax(problem):
     x0, grads = problem
-    p = torch.tensor(x0)
-    opt = outer_optimizer([p], 0.7)
+    p, buf = torch.tensor(x0), torch.zeros(len(x0))
     for g in grads:
-        p.grad = torch.tensor(g)
-        opt.step()
+        p.add_(nesterov_direction(torch.tensor(g), buf), alpha=-0.7)
     want = _optax_run(jax_optim.outer_optimizer(0.7), x0, grads)
     np.testing.assert_allclose(p.numpy(), want, rtol=1e-5, atol=1e-6)
 
@@ -179,8 +180,7 @@ def test_inner_clip_adamw_schedule_matches_jax(problem):
     for step, g in enumerate(grads):
         p.grad = torch.tensor(g)[None].clone()
         clip_per_worker_([p.grad], 1.0)
-        opt.param_groups[0]["lr"] = schedule(step)
-        opt.step()
+        opt.step([schedule(step)])
     want = _optax_run(jax_optim.inner_optimizer(1e-2, 3, 12), x0, grads)
     np.testing.assert_allclose(p[0].numpy(), want, rtol=1e-5, atol=1e-6)
 
@@ -195,12 +195,62 @@ def test_inner_step_checks_batch_shape():
         dl.inner_step(state, tokens[0, 0, :, :1], mask[0, 0, :, :1])
 
 
-@pytest.mark.parametrize(
-    "option",
-    [{"quarantine_nonfinite": True}, {"outer_comm_dtype": "bfloat16"},
-     {"dynamics_metrics": True}, {"async_outer": True},
-     {"inner_steps_per_worker": (1, 2)}, {"offload_snapshot": True}],
-)
-def test_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        DilocoConfig(num_workers=2, **option)
+def jax_one_device():
+    return build_mesh(MeshConfig(diloco=1), devices=jax.devices()[:1])
+
+
+# the option combinations the JAX Diloco and StreamingDiloco refuse, each
+# with a fragment of the message both raise
+REJECTED = {
+    "wire-dtype-unsigned": (dict(outer_comm_dtype="uint8"), None, "signed-int"),
+    "collective-needs-int": (dict(outer_comm_dtype="bfloat16", outer_wire_collective=True),
+                             None, "requires a signed-int"),
+    "collective-no-dtype": (dict(outer_wire_collective=True), None, "requires a signed-int"),
+    "collective-int32": (dict(outer_comm_dtype="int32", outer_wire_collective=True), None,
+                         "not narrow"),
+    "collective-overflow": (dict(num_workers=65539, outer_comm_dtype="int16",
+                                 outer_wire_collective=True), None, "overflows the int32"),
+    "hetero-length": (dict(inner_steps_per_worker=(2,)), None, "entries but"),
+    "hetero-range": (dict(inner_steps_per_worker=(2, 3)), None, r"\[1, inner_steps"),
+    "hetero-collective": (dict(inner_steps_per_worker=(2, 2), outer_comm_dtype="int8",
+                               outer_wire_collective=True), None, "outer_wire_collective"),
+    "async-delay": (dict(async_outer=True, outer_delay=-1), None, "outer_delay"),
+    "async-quarantine": (dict(async_outer=True, quarantine_nonfinite=True), None,
+                         "synchronous-outer-only"),
+    "async-offload": (dict(async_outer=True, offload_snapshot=True), None,
+                      "synchronous-outer-only"),
+    "stream-quarantine": (dict(quarantine_nonfinite=True), dict(num_fragments=2),
+                          "classic-DiLoCo-only"),
+    "stream-dynamics": (dict(dynamics_metrics=True), dict(num_fragments=2),
+                        "classic-DiLoCo-only"),
+    "stream-async": (dict(async_outer=True), dict(num_fragments=2), "classic-DiLoCo-only"),
+    "stream-hetero": (dict(inner_steps_per_worker=(2, 1)), dict(num_fragments=2),
+                      "classic-DiLoCo-only"),
+    "stream-offload": (dict(offload_snapshot=True), dict(num_fragments=2),
+                       "classic-DiLoCo-only"),
+    "stream-delay": (dict(), dict(num_fragments=2, delay=2), "must be < inner_steps"),
+    "stream-fragments-steps": (dict(inner_steps=1), dict(num_fragments=2, delay=0),
+                               "exceeds inner_steps"),
+    "stream-fragments-layers": (dict(inner_steps=4), dict(num_fragments=3, delay=0),
+                                "exceeds num_layers"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REJECTED))
+def test_rejected_combinations(case):
+    """Every combination the JAX package refuses at construction raises
+    ValueError in the port too (module CFG has 2 layers; H = 2)."""
+    kw, streaming, match = REJECTED[case]
+    kw = {"num_workers": 2, "inner_steps": 2, **kw}
+    with pytest.raises(ValueError, match=match):
+        if streaming is None:
+            JaxDiloco(JaxConfig(**CFG.to_dict()), JaxDilocoConfig(**kw), jax_one_device())
+        else:
+            JaxStreamingDiloco(JaxConfig(**CFG.to_dict()), JaxDilocoConfig(**kw),
+                               jax_one_device(), JaxStreamingConfig(**streaming))
+    with pytest.raises(ValueError, match=match):
+        if streaming is None:
+            Diloco(CFG, DilocoConfig(**kw), device="cpu")
+        else:
+            StreamingDiloco(CFG, DilocoConfig(**kw), StreamingConfig(**streaming),
+                            device="cpu")

@@ -102,16 +102,62 @@ def test_logits_loss_grads_match_jax(impl, tie, loss_chunk):
         np.testing.assert_allclose(tg, jg, rtol=1e-4, atol=1e-6)
 
 
-def test_remat_gives_the_same_gradients():
-    """Per-layer recompute (torch.utils.checkpoint) changes memory, not math."""
+@pytest.mark.parametrize("policy", ["nothing", "dots"])
+def test_remat_gives_the_same_gradients(policy):
+    """Per-layer recompute (torch.utils.checkpoint; "dots" saves the
+    matmul outputs and recomputes the rest, JAX's dots_saveable) changes
+    memory, not math; the dots gradients also match JAX's under the same
+    policy (the tolerance of test_logits_loss_grads_match_jax)."""
     cfg = LlamaConfig(**BASE, attention_impl="flash")
     tree = numpy_params(cfg)
     tokens, mask = batch(cfg)
+    remat = dataclasses.replace(cfg, remat=True, remat_policy=policy)
     _, loss_a, _, grads_a = torch_side(cfg, tree, tokens, mask)
-    _, loss_b, _, grads_b = torch_side(dataclasses.replace(cfg, remat=True), tree, tokens, mask)
+    _, loss_b, _, grads_b = torch_side(remat, tree, tokens, mask)
     assert loss_a == loss_b
     for a, b in zip(jax.tree.leaves(grads_a), jax.tree.leaves(grads_b)):
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-9)
+    if policy == "dots":
+        _, _, _, j_grads = jax_side(remat, tree, tokens, mask)
+        for tg, jg in zip(jax.tree.leaves(grads_b), jax.tree.leaves(j_grads)):
+            np.testing.assert_allclose(tg, jg, rtol=1e-4, atol=1e-6)
+
+
+def test_dots_policy_recomputes_no_matmul():
+    """Under "dots" the backward recomputes the layer without its matmuls
+    (their outputs were saved); under "nothing" it runs the layer's
+    forward matmuls again."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMatmuls(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                        torch.ops.aten.addmm.default):
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cfg = LlamaConfig(**BASE, attention_impl="flash", loss_chunk=0)
+    tree = numpy_params(cfg)
+    tokens, mask = (torch.from_numpy(x).long() for x in batch(cfg))
+    backward = {}
+    for policy in ("none", "nothing", "dots"):
+        c = cfg if policy == "none" else dataclasses.replace(cfg, remat=True,
+                                                             remat_policy=policy)
+        params = params_from_numpy(tree, device="cpu")
+        for p in jax.tree.leaves(params):
+            p.requires_grad_(True)
+        loss, _ = causal_lm_loss(params, tokens, c, loss_mask=mask)
+        with CountMatmuls() as counter:
+            loss.backward()
+        backward[policy] = counter.n
+    # at least the seven projections of each layer again (on the CPU the
+    # attention's plain version adds its own products)
+    assert backward["nothing"] >= backward["none"] + 7 * cfg.num_hidden_layers
+    assert backward["dots"] == backward["none"]
 
 
 def test_worker_stacked_forward_equals_per_worker():
@@ -198,8 +244,7 @@ def test_entry_points_raise_without_a_card():
 @pytest.mark.parametrize(
     "change, error",
     [({"num_experts": 4}, NotImplementedError),
-     ({"attention_impl": "ring"}, NotImplementedError),
-     ({"remat": True, "remat_policy": "dots"}, NotImplementedError)],
+     ({"attention_impl": "ring"}, NotImplementedError)],
 )
 def test_paths_not_ported_raise(change, error):
     cfg = LlamaConfig(**{**BASE, **change})
