@@ -41,7 +41,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  must launch during the evals, the JSONL must hold one
                  record per inner step with the eval keys on each round's
                  last, and `report compare` of the run against itself must
-                 pass. Then the 8B-width state is saved, zeroed, restored
+                 pass, and the JSONL must hold the goodput snapshots, the
+                 devtime ledgers and the cost_analysis record (printed with
+                 the analytic MFU). Then the 8B-width state is saved, zeroed, restored
                  leaf by leaf and checked leaf by leaf against its float64
                  sums, with the restore's peak device memory (left out,
                  with a line that says so, if the disk lacks 1.5x the
@@ -130,11 +132,45 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  engine (16 x 1024, greedy) and spec_k=4 on repeated prompts
                  against the same engine without speculation; streams may
                  part only at a near-tie (NEAR_TIE).
+13. hf_8b      - serve's weights, cast to one bf16 tree (32 layers), written as
+                 an HF checkpoint in Meta's layout (4 safetensors shards of at
+                 most 5 GB, the index, config.json from the LLAMA3_8B preset)
+                 and imported back with from_hf_pretrained: the import's
+                 seconds, GB/s, device bytes and the host RSS it adds (which
+                 must stay under the one-leaf bound); every leaf must equal the
+                 written one (torch.equal, contiguous) and the engine's greedy
+                 streams (4 requests, 32 new tokens) on the import must equal
+                 those on the originals.
+14. faults_8b  - `python -m nanodiloco_tpu_torch --init-hf` from a 1-layer
+                 8B-width bf16 HF fixture at the train phase's configuration,
+                 5 rounds, quarantine, --straggler-factor 1.5, --metrics-port 0,
+                 a status file and a fault plan (nan_params, io_error x2 on the
+                 save, a 3 s stall, a 2 s straggle). Checks: its first step's
+                 loss equals an in-process train() on the same weights bit for
+                 bit; the NaN round's sync quarantines 1 worker and every loss
+                 is finite; the one final save succeeds after 2 retries; a
+                 stall alarm; a straggler demote then a restore; the final
+                 goodput snapshot's causes sum to its elapsed time within 1%
+                 with ~2 s of straggler_wait and the stall's wait; a /metrics
+                 scrape during the final save agrees with the JSONL; every
+                 kernel launched. Then `export-hf --max-shard-gb 2` of the
+                 checkpoint (3 shards and the index) re-imports equal to the
+                 checkpoint's snapshot, leaf by leaf. Prints the cost_analysis
+                 record, the run's analytic MFU and tokens/s.
+15. supervise_small - `supervise` at the resume phase's size over a crash
+                 fault at step 5 (exit 71, restart after a backoff) and a
+                 SIGTERM to the second child (exit 75, immediate restart):
+                 the final snapshot equals an uninterrupted run's bit for bit,
+                 the third lifetime's resume record has restart_count 2, and
+                 `report faults` / `report goodput` show the three lifetimes
+                 with restart_downtime > 0.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
-writes its runs and checkpoints under build/chip_smoke/, removed at the
-end.
+writes its runs and checkpoints under build/chip_smoke/, and the files
+of phases 13-15 under /dev/shm/nanodiloco_chip_smoke/ (a tmpfs: the
+card's machine allows a run 45 GiB of disk writes, and
+checkpoint_full takes 40.6 GB of them), each removed at the end.
 """
 
 from __future__ import annotations
@@ -152,6 +188,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -179,6 +216,11 @@ from nanodiloco_tpu_torch.models.generate import (
     noise_uniforms,
     serving_params,
 )
+from nanodiloco_tpu_torch.models.hf_interop import (
+    from_hf_pretrained,
+    hf_config,
+    save_hf_pretrained,
+)
 from nanodiloco_tpu_torch.models.llama import (
     causal_lm_loss,
     forward,
@@ -186,6 +228,9 @@ from nanodiloco_tpu_torch.models.llama import (
     tree_leaves,
     tree_map,
 )
+from nanodiloco_tpu_torch.obs.costs import analytic_mfu
+from nanodiloco_tpu_torch.obs.goodput import CAUSES as GOODPUT_CAUSES
+from nanodiloco_tpu_torch.obs.telemetry import parse_metrics_text
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
 from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
@@ -203,6 +248,10 @@ from nanodiloco_tpu_torch.training.train_loop import TrainConfig, train
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
+# the files of hf_8b, faults_8b and supervise_small: in RAM (/dev/shm, a
+# tmpfs), because a run on the card's machine may write 45 GiB to its
+# disk and checkpoint_full writes 40.6 GB there
+MEM_WORK = Path("/dev/shm") / "nanodiloco_chip_smoke"
 
 REPLACES = {
     "flash_fwd": "nanodiloco_tpu/ops/pallas/flash_attention.py:347",
@@ -693,6 +742,16 @@ def phase_train(smi: str) -> tuple[dict, dict]:
         fail("train", f"report compare of the run against itself exited {e.code}: "
                       f"{compare_out.getvalue()}")
     round_ends = [r for r in recs if r["outer_synced"]]
+    # the resilience and observability records of a plan-free run
+    all_recs = read_jsonl_records(jsonl)[0]
+    goodput = [r["goodput"] for r in all_recs if r.get("goodput")]
+    cost = next((r["cost_analysis"] for r in all_recs if r.get("cost_analysis")), None)
+    if (len(goodput) != 3 or not goodput[-1].get("final") or cost is None
+            or not all("devtime" in r for r in round_ends) or summary["alarms"] != 0):
+        fail("train", f"goodput {len(goodput)}, cost {cost}, devtime on "
+                      f"{[r['step'] for r in round_ends if 'devtime' in r]}, "
+                      f"alarms {summary['alarms']}")
+    tps_warm = summary["tokens_per_sec_after_first_round"]
     emit(phase="train", ok=True, nvidia_smi=smi, num_params=summary["num_params"],
          losses=losses, snapshot_changed=summary["snapshot_changed"],
          tokens=summary["tokens"], seconds=summary["seconds"],
@@ -706,6 +765,8 @@ def phase_train(smi: str) -> tuple[dict, dict]:
          t_data_s=[r["t_data"] for r in round_ends],
          t_sync_s=[r["t_sync"] for r in round_ends],
          avg_sync_time_s=summary["avg_sync_time_s"], comm_share=summary["comm_share"],
+         cost_analysis=cost, mfu_analytic_after_first_round=analytic_mfu(cost, tps_warm),
+         goodput=goodput[-1], devtime=round_ends[-1]["devtime"],
          report=report, report_compare="exit 0")
     return launches, summary
 
@@ -1846,6 +1907,435 @@ def phase_serve_paged(sp, smi: str) -> None:
                "near_tie_rule": NEAR_TIE})
 
 
+# -- HF weights in and out, the training job's faults and its supervisor -----
+
+HF_NEW = 32
+HF_PROMPTS = (64, 300, 150, 500)
+def rss_bytes() -> int:
+    """This process's resident bytes now (/proc/self/statm; the card's
+    machine has no VmHWM in /proc/self/status)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def rss_peak_sampler():
+    """Yields a dict that holds, on exit, the resident bytes before the
+    block and the peak during it, sampled every 2 ms."""
+    out = {"before": rss_bytes()}
+    out["peak"], done = out["before"], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            out["peak"] = max(out["peak"], rss_bytes())
+            time.sleep(0.002)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        thread.join()
+        out["peak"] = max(out["peak"], rss_bytes())
+
+
+def bf16_tree(sp) -> dict:
+    """phase_serve's weights as one bfloat16 tree (the serving copy keeps
+    the embedding and the norms in float32)."""
+    return tree_map(lambda t: t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16), sp)
+
+
+def greedy_streams(params, cfg, prompts) -> list[list[int]]:
+    eng = InferenceEngine(params, cfg, num_slots=len(prompts), max_len=1024,
+                          chunk_size=512, device="cuda")
+    reqs = [GenRequest(prompt=p, max_new_tokens=HF_NEW, seed=i) for i, p in enumerate(prompts)]
+    tickets = drive(Scheduler(eng), reqs, per_tick=len(reqs))
+    out = [t.result["tokens"] for t in tickets]
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_hf_8b(sp, smi: str) -> dict:
+    """Llama-3-8B at full depth (32 layers) in bf16, written as an HF
+    checkpoint in Meta's layout (4 safetensors shards, the index, a
+    config.json from the LLAMA3_8B preset) in MEM_WORK, and imported back
+    with from_hf_pretrained onto the card: its seconds, GB/s and device
+    bytes, and the host RSS it adds (sampled; it must stay under one
+    stacked leaf plus one layer tensor); every leaf must equal the written
+    one and the engine's greedy streams on the import must equal those on
+    the originals. Returns the first layer's bf16 weights (the faults_8b
+    fixture)."""
+    cfg = dataclasses.replace(LLAMA3_8B, param_dtype="bfloat16")
+    hf_dir = MEM_WORK / "hf_8b"
+    shutil.rmtree(hf_dir, ignore_errors=True)
+    ref = bf16_tree(sp)
+    nbytes = tree_bytes(ref)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    written = save_hf_pretrained(ref, cfg, str(hf_dir), max_shard_bytes=5 * 10**9,
+                                 dtype=torch.bfloat16)
+    (hf_dir / "config.json").write_text(json.dumps(hf_config(cfg, "bfloat16"), indent=1))
+    shards = sorted(hf_dir.glob("model-*.safetensors"))
+    write_s = time.perf_counter() - t0
+    want = [f"model-0000{i}-of-00004.safetensors" for i in range(1, 5)]
+    if [p.name for p in shards] != want or "model.safetensors.index.json" not in written:
+        fail("hf_8b", f"wrote {written}, want Meta's layout {want} and the index")
+    file_bytes = sum(p.stat().st_size for p in shards)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    device_before = torch.cuda.memory_allocated()
+    with rss_peak_sampler() as rss:
+        t0 = time.perf_counter()
+        imported = from_hf_pretrained(str(hf_dir), cfg, "cuda")
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+    import_device_peak = torch.cuda.max_memory_allocated() - device_before
+    named_ref, named_imp = named_leaves(ref), named_leaves(imported)
+    bad = [n for (n, a), (_, b) in zip(named_ref, named_imp)
+           if a.shape != b.shape or a.dtype != b.dtype or not b.is_contiguous()
+           or not torch.equal(a, b)]
+    if bad or [n for n, _ in named_ref] != [n for n, _ in named_imp]:
+        fail("hf_8b", f"imported leaves differ from the written ones: {bad[:5]}")
+    prompts = random_prompts(cfg, HF_PROMPTS, seed=5)
+    streams_ref = greedy_streams(ref, cfg, prompts)
+    streams_imp = greedy_streams(imported, cfg, prompts)
+    device_peak = torch.cuda.max_memory_allocated()
+    if streams_ref != streams_imp or any(len(s) != HF_NEW for s in streams_imp):
+        fail("hf_8b", "greedy streams on the imported weights differ from the originals")
+    # the host-memory bound: one stacked leaf in the param dtype plus one
+    # layer tensor (the leaves are built on the card, so the import's own
+    # rise is one tensor's map)
+    largest_leaf = max(t.numel() * t.element_size() for t in tree_leaves(imported))
+    layer_tensor = cfg.hidden_size * cfg.intermediate_size * 2
+    rss_rise = rss["peak"] - rss["before"]
+    if rss_rise >= largest_leaf + layer_tensor:
+        fail("hf_8b", f"the import raised host RSS by {rss_rise} bytes, over the bound "
+                      f"{largest_leaf + layer_tensor}")
+    fixture = {"embed": ref["embed"].clone(), "final_norm": ref["final_norm"].clone(),
+               "lm_head": ref["lm_head"].clone(),
+               "layers": {k: v[:1].clone() for k, v in ref["layers"].items()}}
+    del imported, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(hf_dir)
+    emit(phase="hf_8b", ok=True, nvidia_smi=smi, layers=cfg.num_hidden_layers,
+         param_bytes=nbytes, file_bytes=file_bytes, files=written, write_s=write_s,
+         write_gb_per_s=file_bytes / write_s / 1e9,
+         files_in=str(MEM_WORK), import_s=import_s,
+         import_gb_per_s=file_bytes / import_s / 1e9, host_rss_before_import_bytes=rss["before"],
+         host_peak_rss_bytes=rss["peak"], host_rss_rise_bytes=rss_rise,
+         rss_bound_bytes=largest_leaf + layer_tensor, largest_leaf_bytes=largest_leaf,
+         import_device_peak_bytes=import_device_peak,
+         leaves_equal=len(named_imp), greedy_requests=len(prompts), new_tokens=HF_NEW,
+         streams_identical=True, device_peak_two_copies_and_cache_bytes=device_peak)
+    return fixture
+
+
+FAULTS_ROUNDS = 5
+# nan_params fires at round 2's top; the stall in round 3's prefetch (the
+# round before has one heartbeat interval, so factor 2 trips on it);
+# the straggle inside round 4, after the stall's long interval has raised
+# the mean (no second stall alarm), and round 5 restores the worker
+FAULT_PLAN_8B = [
+    {"kind": "nan_params", "step": 3, "worker": 1},
+    {"kind": "io_error", "step": 1, "op": "save", "count": 2},
+    {"kind": "stall", "step": 3, "seconds": 3.0},
+    {"kind": "straggler", "step": 7, "worker": 0, "seconds": 2.0, "rounds": 1},
+]
+
+
+def faults_8b_args(hf_dir: Path, work: Path) -> list[str]:
+    return ["--init-hf", str(hf_dir), "--dtype", "bfloat16", "--attention", "flash",
+            "--seed", "0", "--batch-size", "2", "--per-device-batch-size", "1",
+            "--seq-length", "2048", "--warmup-steps", "1", "--inner-steps", "2",
+            "--total-steps", str(2 * FAULTS_ROUNDS), "--num-workers", "2",
+            "--quarantine-nonfinite", "--straggler-factor", "1.5",
+            "--watch-stall-factor", "2", "--metrics-port", "0",
+            "--status-file", str(work / "status.json"),
+            "--checkpoint-dir", str(work / "ck"), "--checkpoint-every", "1000",
+            "--log-dir", str(work / "runs"), "--run-name", "faults"]
+
+
+def wait_for(pred, proc: subprocess.Popen, what: str, log: Path, timeout: float = 600):
+    t0 = time.perf_counter()
+    while not pred():
+        if proc.poll() is not None or time.perf_counter() - t0 > timeout:
+            fail(what, f"the child ended (rc {proc.returncode}) or stalled: "
+                       f"{log.read_text()[-3000:]}")
+        time.sleep(0.02)
+
+
+def phase_faults_8b(fixture: dict, smi: str) -> dict:
+    """Train from an HF checkpoint under a fault plan, then export: one
+    CLI run at the train phase's 8B width (1 layer) from a bf16 HF
+    fixture, with quarantine, the straggler policy, a /metrics port, a
+    status file and FAULT_PLAN_8B; its first step against an in-process
+    train() on the same weights held in memory (bit for bit); its fault,
+    retry, alarm, elastic and goodput records; a /metrics scrape against
+    the JSONL; then `export-hf --max-shard-gb 2` of its checkpoint,
+    re-imported and held leaf by leaf against the checkpoint's snapshot.
+    Returns the run's kernel launches."""
+    work = MEM_WORK / "faults_8b"
+    shutil.rmtree(work, ignore_errors=True)
+    hf_dir = work / "hf"
+    model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1)
+    t0 = time.perf_counter()
+    save_hf_pretrained(fixture, model, str(hf_dir), dtype=torch.bfloat16)
+    (hf_dir / "config.json").write_text(json.dumps(hf_config(model, "bfloat16"), indent=1))
+    fixture_bytes = os.path.getsize(hf_dir / "model.safetensors")
+    fixture_s = time.perf_counter() - t0
+    plan = work / "plan.json"
+    plan.write_text(json.dumps({"faults": FAULT_PLAN_8B}))
+    args = faults_8b_args(hf_dir, work)
+    jsonl, log = work / "runs" / "faults.jsonl", work / "faults.log"
+
+    def records() -> list[dict]:
+        return read_jsonl_records(str(jsonl))[0] if jsonl.exists() else []
+
+    env = {**os.environ, "NANODILOCO_WATCH_MIN_STALL_S": "1"}
+    t0 = time.perf_counter()
+    with open(log, "w") as out:
+        proc = subprocess.Popen([sys.executable, "-m", "nanodiloco_tpu_torch", *args,
+                                 "--fault-plan", str(plan)],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, env=env)
+    try:
+        last = 2 * FAULTS_ROUNDS
+        wait_for(lambda: any(r.get("goodput") and r.get("step") == last for r in records()),
+                 proc, "faults_8b", log)
+        port = int(re.search(r"telemetry: port (\d+)", log.read_text()).group(1))
+        code, body = http_get(f"http://127.0.0.1:{port}/metrics")
+        scraped = parse_metrics_text(body)
+        recs = records()
+        rc = proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    run_s = time.perf_counter() - t0
+    text = log.read_text()
+    if rc != 0:
+        fail("faults_8b", f"the CLI run exited {rc}: {text[-3000:]}")
+    summary = json.loads(text.strip().splitlines()[-1])
+    final = read_jsonl_records(str(jsonl))[0]
+    steps = [r for r in final if "loss" in r]
+    # the scrape, taken once the last round's records were written
+    last_step = [r for r in recs if "loss" in r][-1]
+    last_gp = [r["goodput"] for r in recs if r.get("goodput")][-1]
+    scrape = {"loss": scraped.get("nanodiloco_loss"), "jsonl_loss": last_step["loss"],
+              "step": scraped.get("nanodiloco_step"), "jsonl_step": last_step["step"],
+              "goodput_fraction": scraped.get("nanodiloco_goodput_fraction"),
+              "jsonl_goodput_fraction": last_gp["goodput_fraction"],
+              "outer_syncs": scraped.get("nanodiloco_outer_syncs_total"),
+              "faults": scraped.get("nanodiloco_faults_total")}
+    if (code != 200 or scrape["loss"] != scrape["jsonl_loss"]
+            or scrape["step"] != scrape["jsonl_step"]
+            or scrape["goodput_fraction"] != scrape["jsonl_goodput_fraction"]
+            or scrape["outer_syncs"] != FAULTS_ROUNDS):
+        fail("faults_8b", f"/metrics disagrees with the JSONL: {scrape}")
+    fault_recs = {r["fault"]: r for r in final if r.get("fault")}
+    if set(fault_recs) != {"nan_params", "io_error", "stall", "straggler"}:
+        fail("faults_8b", f"fault records {sorted(fault_recs)}")
+    syncs = {r["step"]: r for r in steps if r["outer_synced"]}
+    nan_sync = syncs[4]
+    if nan_sync.get("quarantined_workers") != 1 or fault_recs["nan_params"]["worker"] != 1:
+        fail("faults_8b", f"the NaN round's sync quarantined {nan_sync.get('quarantined_workers')}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        fail("faults_8b", f"non-finite losses: {[r['loss'] for r in steps]}")
+    retries = [r for r in final if r.get("retry") == "ckpt_save"]
+    latest = CheckpointManager(str(work / "ck")).latest_step
+    if len(retries) != 2 or latest != last or any(r.get("alarm") == "ckpt_save_failed"
+                                                  for r in final):
+        fail("faults_8b", f"save: {len(retries)} retries, checkpoint at {latest}")
+    stall_alarms = [r for r in final if r.get("alarm") == "stall"]
+    if not any(r["step"] == 4 for r in stall_alarms):
+        fail("faults_8b", f"no stall alarm after the round-2 heartbeat: {stall_alarms}")
+    elastic = [(r["elastic"], r["step"], r.get("worker")) for r in final if r.get("elastic")]
+    if elastic != [("straggler_demote", 8, 0), ("straggler_restore", 10, 0)]:
+        fail("faults_8b", f"elastic records {elastic}")
+    gp = [r["goodput"] for r in final if r.get("goodput")][-1]
+    cause_sum = sum(gp[f"{c}_s"] for c in GOODPUT_CAUSES)
+    if (not gp.get("final") or abs(cause_sum - gp["elapsed_s"]) > 0.01 * gp["elapsed_s"]
+            or not 1.9 <= gp["straggler_wait_s"] <= 2.5 or not 1.0 <= gp["stall_s"] <= 3.5):
+        fail("faults_8b", f"goodput snapshot {gp} (causes sum to {cause_sum})")
+    launches = summary["kernel_launches"]
+    if min(launches.values()) == 0:
+        fail("faults_8b", f"a kernel was not launched in the fault run: {launches}")
+    cost = next(r["cost_analysis"] for r in final if r.get("cost_analysis"))
+    tps = summary["tokens_per_sec_after_first_round"]
+
+    # the first step against an in-process train() on the same weights
+    with contextlib.ExitStack() as stack:
+        import nanodiloco_tpu_torch.parallel.diloco as diloco_mod
+
+        held = tree_map(lambda t: t.to(torch.float32), fixture)
+        stack.callback(setattr, diloco_mod, "init_params", diloco_mod.init_params)
+        diloco_mod.init_params = lambda generator, cfg, device: held
+        tcfg = cli.config_from_args(cli.parse_args(args))
+        tcfg = dataclasses.replace(tcfg, init_hf=None, fit_vocab=False, total_steps=2,
+                                   checkpoint_dir=None, metrics_port=None, status_file=None,
+                                   log_dir=str(work / "inproc"), run_name="inproc",
+                                   quiet=True)
+        ref = train(tcfg, device="cuda")
+        del held
+    ref_first = read_jsonl_records(str(work / "inproc" / "inproc.jsonl"))[0]
+    ref_loss = next(r["loss"] for r in ref_first if r.get("step") == 1 and "loss" in r)
+    if steps[0]["loss"] != ref_loss:
+        fail("faults_8b", f"first-step loss {steps[0]['loss']!r} != in-process {ref_loss!r}")
+    del ref
+    torch.cuda.empty_cache()
+
+    # export the checkpoint's snapshot, re-import it, hold it leaf by leaf
+    out = work / "export"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["export-hf", "--checkpoint-dir", str(work / "ck"), "--out", str(out),
+                  "--max-shard-gb", "2"])
+    exported = sorted(p.name for p in out.iterdir())
+    export_s = time.perf_counter() - t0
+    export_bytes = sum(p.stat().st_size for p in out.glob("*.safetensors"))
+    ck_cfg, _, snapshot = cli._load_checkpoint_snapshot(str(work / "ck"), None)
+    back = from_hf_pretrained(str(out), ck_cfg, "cuda")
+    diff = [n for (n, a), (_, b) in zip(named_leaves(snapshot), named_leaves(back))
+            if not torch.equal(a.to("cuda"), b)]
+    n_shards = len(list(out.glob("model-*-of-*.safetensors")))
+    if diff or n_shards != 3 or not (out / "model.safetensors.index.json").exists():
+        fail("faults_8b", f"export: {n_shards} shards, leaves differing {diff[:5]}")
+    del back, snapshot
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    emit(phase="faults_8b", ok=True, nvidia_smi=smi, fixture_bytes=fixture_bytes,
+         fixture_write_s=fixture_s, cli_run_s=run_s, plan=FAULT_PLAN_8B,
+         first_step_loss=steps[0]["loss"], in_process_first_step_loss=ref_loss,
+         losses=[r["loss"] for r in steps], nan_sync=nan_sync.get("quarantined_workers"),
+         fault_records=list(fault_recs.values()), save_retries=len(retries),
+         checkpoint_step=latest, stall_alarms=stall_alarms, elastic=elastic,
+         goodput=gp, goodput_cause_sum_s=cause_sum, scrape=scrape,
+         cost_analysis=cost, tokens_per_sec=summary["tokens_per_sec"],
+         tokens_per_sec_after_first_round=tps,
+         mfu_analytic=analytic_mfu(cost, tps), alarms=summary["alarms"],
+         launches=launches, export_files=exported, export_bytes=export_bytes,
+         export_s=export_s, reimport_leaves_equal=True)
+    return launches
+
+
+SUPERVISE_ROUNDS = 8
+
+
+def child_pids(pid: int) -> list[int]:
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                stat = open(f"/proc/{entry}/stat").read()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(entry))
+    return out
+
+
+def phase_supervise_small(smi: str) -> None:
+    """`supervise` over the CLI at the resume phase's size: a crash fault at
+    step 5 (exit 71, restart from the step-4 checkpoint after a backoff),
+    then SIGTERM to the second child once it has trained past its resume
+    (exit 75, an immediate restart), then the third child finishes. The
+    final snapshot must equal an uninterrupted run's, run beside it, bit
+    for bit; `report faults` and `report goodput` must show the three
+    lifetimes and restart_downtime > 0."""
+    work = MEM_WORK / "supervise"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    model_file = work / "model.json"
+    model_file.write_text(json.dumps(RESUME_MODEL.to_dict()))
+    total = 2 * SUPERVISE_ROUNDS
+    plan = work / "plan.json"
+    plan.write_text(json.dumps({"faults": [{"kind": "crash", "step": 5}]}))
+
+    def args(name: str) -> list[str]:
+        return ["--llama-config-file", str(model_file), "--seed", "0", "--batch-size", "2",
+                "--per-device-batch-size", "1", "--seq-length", "512", "--warmup-steps", "1",
+                "--inner-steps", "2", "--total-steps", str(total), "--num-workers", "2",
+                "--checkpoint-dir", str(work / f"ck_{name}"), "--checkpoint-every", "2",
+                "--log-dir", str(work / "runs"),
+                "--run-name", name, "--quiet"]
+
+    jsonl = work / "runs" / "sup.jsonl"
+
+    def records() -> list[dict]:
+        return read_jsonl_records(str(jsonl))[0] if jsonl.exists() else []
+
+    log, twin_log = work / "sup.log", work / "twin.log"
+    t0 = time.perf_counter()
+    with open(twin_log, "w") as out:
+        twin = subprocess.Popen([sys.executable, "-m", "nanodiloco_tpu_torch", *args("twin")],
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    with open(log, "w") as out:
+        # its own process group: a failed check kills the supervisor's
+        # child with it
+        sup = subprocess.Popen(
+            [sys.executable, "-m", "nanodiloco_tpu_torch", "supervise", "--backoff-base",
+             "0.5", "--events-jsonl", str(work / "events.jsonl"), "--",
+             *args("sup"), "--fault-plan", str(plan)],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    try:
+        # the second lifetime: resumed, and one round past its resume
+        def second_running() -> bool:
+            recs = records()
+            resumes = [i for i, r in enumerate(recs) if "resume" in r]
+            return bool(resumes) and any(r.get("outer_synced") for r in recs[resumes[-1]:])
+
+        wait_for(second_running, sup, "supervise_small", log)
+        kids = child_pids(sup.pid)
+        if len(kids) != 1:
+            fail("supervise_small", f"supervisor children {kids}")
+        os.kill(kids[0], signal.SIGTERM)
+        rc = sup.wait(timeout=600)
+        twin_rc = twin.wait(timeout=600)
+    finally:
+        if sup.poll() is None:
+            os.killpg(sup.pid, signal.SIGKILL)
+        if twin.poll() is None:
+            twin.kill()
+    seconds = time.perf_counter() - t0
+    if rc != 0 or twin_rc != 0:
+        fail("supervise_small", f"supervise exited {rc}, the twin {twin_rc}: "
+                                f"{log.read_text()[-2000:]} {twin_log.read_text()[-1000:]}")
+    events = [json.loads(line) for line in open(work / "events.jsonl")]
+    kinds = [e["event"] for e in events]
+    crash = [e for e in events if e["event"] == "crash"]
+    if (kinds != ["launch", "crash", "backoff", "launch", "preempt_resume", "launch",
+                  "finished"] or crash[0]["exit_code"] != 71):
+        fail("supervise_small", f"supervisor events {events}")
+    recs = records()
+    resumes = [r for r in recs if "resume" in r]
+    preempts = [r for r in recs if r.get("preempt")]
+    if ([r["restart_count"] for r in resumes] != [1, 2] or resumes[0]["resume"] != 4
+            or [(p["preempt"], p["exit_code"]) for p in preempts] != [("preempt", 75)]):
+        fail("supervise_small", f"resume records {resumes}, preempt records {preempts}")
+    snap = CheckpointManager(str(work / "ck_sup")).restore_raw(total, only={"snapshot"})
+    twin_snap = CheckpointManager(str(work / "ck_twin")).restore_raw(total, only={"snapshot"})
+    diff = [n for (n, a), (_, b) in zip(named_leaves(snap["snapshot"]),
+                                        named_leaves(twin_snap["snapshot"]))
+            if not torch.equal(a, b)]
+    if diff:
+        fail("supervise_small", f"the supervised run's final snapshot differs from the "
+                                f"uninterrupted one at {diff[:5]}")
+    faults_out, goodput_out = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(faults_out):
+        cli.main(["report", "faults", str(jsonl)])
+    with contextlib.redirect_stdout(goodput_out):
+        cli.main(["report", "goodput", str(jsonl), "--json"])
+    goodput = json.loads(goodput_out.getvalue())
+    if (goodput["lifetimes"] != 3 or not goodput["restart_downtime_s"] > 0
+            or "crash" not in faults_out.getvalue() or "resume" not in faults_out.getvalue()):
+        fail("supervise_small", f"report: {faults_out.getvalue()} {goodput}")
+    shutil.rmtree(work)
+    emit(phase="supervise_small", ok=True, nvidia_smi=smi, seconds=seconds,
+         rounds=SUPERVISE_ROUNDS, events=events, exit_codes=[71, 75],
+         restart_count=resumes[-1]["restart_count"], snapshot_bit_identical=True,
+         report_faults=faults_out.getvalue().splitlines(), goodput=goodput)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -1878,15 +2368,23 @@ def main() -> None:
     phase_serve_modes_small(smi)
     serve_launches, sp = phase_serve(smi)
     phase_serve_paged(sp, smi)
+    fixture = phase_hf_8b(sp, smi)
     del sp
+    torch.cuda.empty_cache()
+    faults_launches = phase_faults_8b(fixture, smi)
+    del fixture
+    torch.cuda.empty_cache()
+    phase_supervise_small(smi)
     shutil.rmtree(WORK, ignore_errors=True)
+    shutil.rmtree(MEM_WORK, ignore_errors=True)
 
     emit(kernels=[
         {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],
          "replaces": REPLACES[name], "launches": launches[name],
          "launches_diloco_options_small": options_small[name],
          "launches_diloco_options_8b": options_8b[name],
-         "launches_serve": serve_launches[name], **kernels[name]}
+         "launches_serve": serve_launches[name],
+         "launches_faults_8b": faults_launches[name], **kernels[name]}
         for name in REPLACES
     ])
     print(smi, flush=True)

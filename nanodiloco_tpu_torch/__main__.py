@@ -1,22 +1,40 @@
 """``python -m nanodiloco_tpu_torch``: the DiLoCo training job, with the
 JAX CLI's flag names for every ``TrainConfig`` field the port has: data
-(``--dataset-path X.tshrd``, ``--data-layout``), held-out evaluation
-(``--eval-every``, ``--eval-batches``), checkpoint and resume
-(``--checkpoint-dir``, ``--checkpoint-every``, ``--no-resume``), the
-metrics JSONL (``--log-dir``, ``--run-name``), ``--measure-comm``,
-``--trace-out`` and ``--preempt-signals`` (SIGTERM/SIGINT checkpoint at
-the next round boundary and exit 75), and the DiLoCo options
+(``--dataset-path`` a ``.tshrd`` or an HF ``datasets`` directory,
+``--data-layout``, ``--tokenizer``, ``--fit-vocab``), the model
+(``--llama-config-file``, ``--init-hf DIR`` whose ``config.json`` is the
+model config unless one is given, ``--dtype``, ``--attention``,
+``--loss-chunk``), held-out evaluation (``--eval-every``,
+``--eval-batches``), checkpoint and resume (``--checkpoint-dir``,
+``--checkpoint-every``, ``--no-resume``), the metrics JSONL (``--log-dir``,
+``--run-name``), ``--measure-comm``, ``--trace-out``, the DiLoCo options
 (``--streaming-fragments``, ``--streaming-delay``, ``--merge-alpha``,
 ``--async-outer``, ``--outer-delay``, ``--inner-steps-per-worker``,
 ``--straggler-factor``, ``--straggler-min-steps``, ``--outer-comm-dtype``,
 ``--outer-wire-collective``, ``--quarantine-nonfinite``,
-``--offload-snapshot``, ``--dynamics-metrics/--no-dynamics-metrics``). Prints the metrics records and the
-run summary last. Runs on the CUDA card unless ``--device cpu``.
+``--offload-snapshot``, ``--dynamics-metrics/--no-dynamics-metrics``), and
+the job's resilience and observability (``--preempt-signals``: SIGTERM or
+SIGINT checkpoint at the next round boundary and exit 75;
+``--fault-plan``; the ``--watch-*`` sentinels and ``--watch-action
+checkpoint-exit``, exit 76; ``--status-file``; ``--metrics-port``;
+``--cost-analysis``). Prints the metrics records and the run summary
+last. Runs on the CUDA card unless ``--device cpu``.
 
-``python -m nanodiloco_tpu_torch report RUN.jsonl`` summarizes a run's
-JSONL; ``report compare BASELINE CANDIDATE`` is the regression gate
-(exit 1 on a regression). Both give the JAX CLI's output, for a run of
-either package.
+``supervise [flags] -- <train flags>`` runs training as a supervised
+child process (resilience/supervisor.py): preempt exits resume at once,
+crashes restart from the latest checkpoint with backoff and a budget.
+``export-hf --checkpoint-dir DIR --out OUT`` writes a checkpoint's merged
+snapshot as an HF safetensors checkpoint with its ``config.json``.
+
+``report RUN.jsonl`` summarizes a run's JSONL; ``report compare BASELINE
+CANDIDATE`` is the regression gate (exit 1 on a regression); ``report
+cost|faults|goodput|drift RUN.jsonl`` and ``report blackbox DUMP.json``
+print the cost reconciliation, the resilience timeline, the goodput
+budget stitched across restarts, the dynamics timeline and a
+flight-recorder dump. All give the JAX CLI's output, for a run of either
+package. The serving fleet's commands and report verbs (``fleet``,
+``obs-watch``, ``report trace|merge-trace|timeseries|dashboard``) are not
+ported (ROADMAP.md, Queue A item 5b) and say so.
 
 ``python -m nanodiloco_tpu_torch generate --checkpoint-dir DIR`` samples
 text from a checkpoint's merged snapshot; ``serve --checkpoint-dir DIR``
@@ -24,16 +42,17 @@ runs the continuous-batching HTTP server over it (``POST /v1/generate``,
 ``GET /healthz``, ``GET /metrics``, ``POST /admin/swap`` to hot-swap
 another checkpoint's weights in, ``/admin/kv/export`` and
 ``/admin/kv/import`` to ship a stream's KV rows). Both take the JAX
-CLI's flags, plus ``--device`` (the card unless ``--device cpu``):
+CLI's flags, plus ``--device`` (the card unless ``--device cpu``), and
+decode with the tokenizer the checkpoint was trained on, or refuse:
 ``--kv-block-size`` serves from a paged block arena, ``--kv-dtype int8``
 stores it quantized, ``--spec-k`` turns on prompt-lookup speculative
 decoding. ``--tp`` above 1 raises NotImplementedError (tensor-parallel
 serving is not ported yet).
 """
-
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -57,10 +76,31 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--lr", type=float, default=4e-4)
     p.add_argument("--outer-lr", type=float, default=0.7)
     p.add_argument("--dataset-path", type=str, default=None,
-                   help="pre-tokenized .tshrd shard (scripts/prepare_data.py); "
-                        "default: built-in synthetic corpus")
+                   help="pre-tokenized .tshrd shard (scripts/torch_prepare_data.py) or "
+                        "a datasets.save_to_disk directory (needs the datasets "
+                        "package); default: built-in synthetic corpus")
     p.add_argument("--llama-config-file", type=str, default=None,
                    help="HF-style model config JSON (configs/*.json)")
+    p.add_argument("--init-hf", type=str, default=None, metavar="DIR",
+                   help="initialize weights from an HF Llama checkpoint directory "
+                        "(sharded or single-file safetensors): continued "
+                        "pretraining. DIR/config.json supplies the model config "
+                        "unless --llama-config-file is given; a resumable "
+                        "checkpoint still wins")
+    p.add_argument("--dtype", type=str, default=None,
+                   help="compute dtype override (e.g. bfloat16)")
+    p.add_argument("--attention", type=str, default=None, choices=["dense", "flash"],
+                   help="attention override: flash runs the CUDA kernels (packed "
+                        "sequences; ignores padding masks), dense honors masks")
+    p.add_argument("--loss-chunk", type=int, default=None,
+                   help="rows per chunk of the blockwise cross-entropy (0 = the "
+                        "full logits)")
+    p.add_argument("--tokenizer", type=str, default=None,
+                   help="HF tokenizer name/path, read from local files (needs "
+                        "transformers); default byte-level")
+    p.add_argument("--fit-vocab", action=argparse.BooleanOptionalAction, default=True,
+                   help="shrink the model's vocab_size to the tokenizer's "
+                        "vocabulary (rounded up to 128) when the config's is larger")
     p.add_argument("--data-layout", type=str, default="packed",
                    choices=["packed", "padded"],
                    help="packed (default): eos-joined stream cut into fixed-length "
@@ -96,12 +136,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--straggler-factor", type=float, default=0.0,
                    help="straggler policy (must be > 1; 0 disables): turns on "
                         "heterogeneous H, the `elastic` records and the schedule "
-                        "sidecar. Its rule demotes a worker whose per-step round "
-                        "seconds exceed this factor x the median of the others, but "
-                        "this package models every worker's per-step seconds as the "
-                        "round's wall time / H, so it never demotes until fault "
-                        "injection, whose straggle seconds drive it, is ported "
-                        "(ROADMAP.md, Queue A item 5)")
+                        "sidecar, and demotes a worker whose per-step round seconds "
+                        "exceed this factor x the median of the others, restoring it "
+                        "when it recovers. One process runs every worker in one "
+                        "batched program, so the only per-worker skew is a "
+                        "`straggler` fault's injected seconds (--fault-plan)")
     p.add_argument("--straggler-min-steps", type=int, default=1,
                    help="floor for straggler demotions")
     p.add_argument("--outer-comm-dtype", type=str, default=None,
@@ -133,6 +172,45 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--trace-out", type=str, default=None, metavar="JSON",
                    help="write a Chrome trace-event JSON of host-side round "
                         "phases (data/inner/sync/eval/ckpt)")
+    p.add_argument("--status-file", type=str, default=None, metavar="JSON",
+                   help="maintain a live status.json (atomic rewrite) with "
+                        "state/step/loss/throughput/alarms for external pollers")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                   help="serve live telemetry over HTTP on this port: /metrics "
+                        "(OpenMetrics), /healthz (200/503 from the watchdog), POST "
+                        "/debug/profile; 0 picks a free port (printed); unset = no "
+                        "server")
+    p.add_argument("--cost-analysis", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="log the one-time cost_analysis record (FLOPs per token of "
+                        "one microbatch, counted on the meta device, and the card's "
+                        "peak) for `report cost` and the mfu_analytic gate")
+    p.add_argument("--watch-loss-zscore", type=float, default=6.0,
+                   help="watchdog: alarm when a loss rises more than this many "
+                        "rolling-window std-devs above the window mean (0 disables)")
+    p.add_argument("--watch-loss-window", type=int, default=32,
+                   help="watchdog: rolling window length for the spike and "
+                        "throughput sentinels")
+    p.add_argument("--watch-tps-collapse", type=float, default=0.4,
+                   help="watchdog: alarm when tokens/sec drops below this fraction "
+                        "of the rolling median (0 disables)")
+    p.add_argument("--watch-stall-factor", type=float, default=5.0,
+                   help="watchdog: alarm when no round heartbeat for this many times "
+                        "the rolling round time, floored at $NANODILOCO_WATCH_MIN_"
+                        "STALL_S (30 s) (0 disables the heartbeat thread)")
+    p.add_argument("--watch-drift", type=float, default=0.0,
+                   help="watchdog: alarm when a sync's drift_max exceeds this (0 "
+                        "disables; needs the dynamics metrics)")
+    p.add_argument("--watch-action", type=str, default="none",
+                   choices=["none", "checkpoint-exit"],
+                   help="what a fatal watchdog alarm (stall/NaN) does: "
+                        "checkpoint-exit checkpoints at the next round boundary and "
+                        "exits 76 for the supervisor (a wedged loop is force-exited "
+                        "after $NANODILOCO_STALL_ESCALATE_S); none observes")
+    p.add_argument("--fault-plan", type=str, default=None, metavar="JSON",
+                   help="schedule-driven fault injection: a JSON plan of step-keyed "
+                        "faults (nan_params/io_error/stall/crash/straggler/resize) "
+                        "fired through the real loop, checkpoint and prefetch hooks")
     p.add_argument("--preempt-signals", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="install SIGTERM/SIGINT handlers that checkpoint at the "
@@ -149,8 +227,22 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 def config_from_args(a: argparse.Namespace) -> TrainConfig:
-    model = (LlamaConfig.from_json(a.llama_config_file) if a.llama_config_file
-             else LlamaConfig())
+    model_file = a.llama_config_file
+    if not model_file and a.init_hf:
+        # the imported checkpoint's own config describes its architecture
+        candidate = os.path.join(a.init_hf, "config.json")
+        if os.path.exists(candidate):
+            model_file = candidate
+    model = LlamaConfig.from_json(model_file) if model_file else LlamaConfig()
+    overrides = {}
+    if a.dtype:
+        overrides["dtype"] = a.dtype
+    if a.attention:
+        overrides["attention_impl"] = a.attention
+    if a.loss_chunk is not None:
+        overrides["loss_chunk"] = a.loss_chunk
+    if overrides:
+        model = dataclasses.replace(model, **overrides)
     return TrainConfig(
         seed=a.seed, batch_size=a.batch_size,
         per_device_batch_size=a.per_device_batch_size, seq_length=a.seq_length,
@@ -171,17 +263,38 @@ def config_from_args(a: argparse.Namespace) -> TrainConfig:
         straggler_factor=a.straggler_factor, straggler_min_steps=a.straggler_min_steps,
         outer_comm_dtype=a.outer_comm_dtype, outer_wire_collective=a.outer_wire_collective,
         quarantine_nonfinite=a.quarantine_nonfinite, offload_snapshot=a.offload_snapshot,
-        dynamics_metrics=a.dynamics_metrics,
+        dynamics_metrics=a.dynamics_metrics, init_hf=a.init_hf, tokenizer=a.tokenizer,
+        fit_vocab=a.fit_vocab, status_file=a.status_file, metrics_port=a.metrics_port,
+        cost_analysis=a.cost_analysis, watch_loss_zscore=a.watch_loss_zscore,
+        watch_loss_window=a.watch_loss_window, watch_tps_collapse=a.watch_tps_collapse,
+        watch_stall_factor=a.watch_stall_factor, watch_drift=a.watch_drift,
+        watch_action=a.watch_action, fault_plan=a.fault_plan,
     )
+
+
+# the JAX CLI's report verbs and subcommands that belong to the serving
+# fleet (ROADMAP.md, Queue A item 5b)
+NOT_PORTED_REPORTS = ("trace", "merge-trace", "timeseries", "dashboard")
+NOT_PORTED_COMMANDS = ("fleet", "obs-watch")
 
 
 def report_main(argv: list[str]) -> None:
     """``report RUN.jsonl``: one-screen summary of a run's JSONL.
     ``report compare BASELINE CANDIDATE``: exit 1 when the candidate
-    regresses past the thresholds."""
-    if argv[:1] == ["compare"]:
-        report_compare_main(argv[1:])
+    regresses past the thresholds. ``report cost|faults|goodput|drift
+    RUN.jsonl`` and ``report blackbox DUMP.json``: the cost
+    reconciliation, the resilience timeline, the stitched goodput
+    budget, the dynamics timeline and a flight-recorder dump, as the JAX
+    CLI prints them."""
+    verbs = {"compare": report_compare_main, "cost": report_cost_main,
+             "faults": report_faults_main, "goodput": report_goodput_main,
+             "blackbox": report_blackbox_main, "drift": report_drift_main}
+    if argv[:1] and argv[0] in verbs:
+        verbs[argv[0]](argv[1:])
         return
+    if argv[:1] and argv[0] in NOT_PORTED_REPORTS:
+        raise SystemExit(f"report {argv[0]} is not ported yet (ROADMAP.md, Queue A "
+                         "item 5b: the fleet's observability)")
     p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report")
     p.add_argument("jsonl", help="metrics JSONL written by training")
     p.add_argument("--json", action="store_true",
@@ -246,6 +359,345 @@ def report_compare_main(argv: list[str]) -> None:
         raise SystemExit(1)
 
 
+def report_cost_main(argv: list[str]) -> None:
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report cost")
+    p.add_argument("jsonl",
+                   help="metrics JSONL from a run with cost capture on "
+                        "(the default; --no-cost-analysis disables it)")
+    p.add_argument("--json", action="store_true",
+                   help="print the reconciliation as one JSON object")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.training.metrics import find_cost_record, read_jsonl_records
+
+    recs, _torn = read_jsonl_records(args.jsonl)
+    cost = find_cost_record(recs)
+    if cost is None:
+        raise SystemExit(
+            f"{args.jsonl} has no cost_analysis record: the run was "
+            "started with --no-cost-analysis or predates cost capture"
+        )
+
+    from nanodiloco_tpu_torch.obs.costs import analytic_mfu
+
+    out: dict = {"program": cost.get("program"),
+                 "device_kind": cost.get("device_kind"),
+                 "num_devices": cost.get("num_devices")}
+    fpt = cost.get("flops_per_token")
+    hand = cost.get("flops_per_token_hand")
+    if fpt:
+        out["flops_per_token_analytic"] = round(fpt, 1)
+    if hand:
+        out["flops_per_token_hand"] = round(hand, 1)
+    if fpt and hand:
+        out["analytic_vs_hand_ratio"] = round(fpt / hand, 4)
+    # the dispatched executable's own (loop-bodies-once) analysis —
+    # trend numbers, not per-token truths (obs/costs caveat)
+    for k in ("flops_billed", "bytes_accessed_billed"):
+        if k in cost:
+            out[k] = cost[k]
+    tps = [r["tokens_per_sec"] for r in recs
+           if r.get("tokens_per_sec") is not None]
+    if tps:
+        out["tokens_per_sec_last"] = round(tps[-1], 1)
+        mfu = analytic_mfu(cost, tps[-1])
+        if mfu is not None:
+            out["mfu_analytic"] = round(mfu, 5)
+            out["peak_tflops"] = cost.get("peak_tflops")
+        else:
+            out["mfu_analytic"] = None  # no chip peak captured (e.g. CPU)
+    # analytic-vs-ledger wire bytes: what sync_wire_bytes SAID a sync
+    # moves vs what the per-round ledger actually accumulated
+    per_sync = [r["wire_bytes_per_sync"] for r in recs
+                if r.get("wire_bytes_per_sync") is not None]
+    totals = [r["wire_bytes_total"] for r in recs
+              if r.get("wire_bytes_total") is not None]
+    syncs = sum(1 for r in recs if r.get("outer_synced"))
+    if per_sync:
+        out["wire_bytes_per_sync_analytic"] = int(per_sync[-1])
+    if totals and syncs:
+        ledger = totals[-1] / syncs
+        out["wire_bytes_per_sync_ledger"] = int(ledger)
+        if per_sync:
+            out["wire_match"] = bool(abs(ledger - per_sync[-1]) < 0.5)
+    if args.json:
+        print(json.dumps(out))
+        return
+    for k, v in out.items():
+        print(f"{k:>28}: {v}")
+
+
+def report_faults_main(argv: list[str]) -> None:
+    """``report faults RUN.jsonl``: one line per resilience event, in
+    record order (the JSONL is append-only, so record order IS time
+    order — even across restarts, which append to the same file)."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report faults")
+    p.add_argument("jsonl", help="metrics JSONL written by training")
+    p.add_argument("--json", action="store_true",
+                   help="print the event list as one JSON array")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.training.metrics import read_jsonl_records
+
+    recs, _torn = read_jsonl_records(args.jsonl)
+    events = []
+    for r in recs:
+        if r.get("fault"):
+            events.append({"event": "fault", "kind": r["fault"],
+                           **{k: v for k, v in r.items() if k != "fault"}})
+        elif r.get("alarm"):
+            events.append({"event": "alarm", "kind": r["alarm"],
+                           **{k: v for k, v in r.items() if k != "alarm"}})
+        elif r.get("retry"):
+            events.append({"event": "retry", "op": r["retry"],
+                           **{k: v for k, v in r.items() if k != "retry"}})
+        elif "resume" in r:
+            events.append({"event": "resume", **r})
+        elif r.get("preempt"):
+            events.append({"event": "preempt", "reason": r["preempt"],
+                           **{k: v for k, v in r.items() if k != "preempt"}})
+        elif r.get("elastic"):
+            # elastic DiLoCo decisions: straggler demote/restore, a
+            # width change absorbed at resume, an H-schedule reset
+            events.append({"event": "elastic", "kind": r["elastic"],
+                           **{k: v for k, v in r.items() if k != "elastic"}})
+        elif r.get("slo_alert"):
+            # SLO burn-rate transitions (obs/slo): firing/resolved per
+            # rule and target, with the burn seconds on resolve. The
+            # record's own "kind" is the rule DIRECTION (ceiling/floor)
+            # — renamed so it cannot shadow the rule name in the label
+            events.append({"event": "slo_alert", "kind": r["slo_alert"],
+                           **{("direction" if k == "kind" else k): v
+                              for k, v in r.items()
+                              if k != "slo_alert"}})
+        elif r.get("deploy_event") in ("slo_burn", "slo_clear",
+                                       "canary_deferred"):
+            # the router's side of the same incident: route-around
+            # marks and deferred canaries, from a deploy JSONL passed
+            # here directly
+            events.append({"event": r["deploy_event"],
+                           **{k: v for k, v in r.items()
+                              if k != "deploy_event"}})
+        elif r.get("event") in ("scale_up", "scale_down"):
+            # a supervisor --events-jsonl passed here directly: the
+            # symmetric width-change events read like any other
+            # resilience event (the other supervisor events keep their
+            # own stream semantics)
+            events.append(dict(r))
+    if args.json:
+        print(json.dumps(events))
+        return
+    if not events:
+        print("no resilience events recorded (clean run)")
+        return
+    for e in events:
+        detail = " ".join(
+            f"{k}={v}" for k, v in e.items()
+            if k not in ("event", "kind", "op", "reason", "step")
+        )
+        label = e.get("kind") or e.get("op") or e.get("reason") or ""
+        print(f"step {e.get('step', '?'):>8}  {e['event']:<8} {label:<18} {detail}")
+
+
+def report_goodput_main(argv: list[str]) -> None:
+    """``report goodput RUN.jsonl``: the cause-ordered wall-clock budget
+    table plus the goodput fraction — stitched across process lifetimes
+    when the JSONL spans supervised restarts, so a crash-loopy run
+    reports ONE honest end-to-end number (restart downtime included)."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report goodput")
+    p.add_argument("jsonl", help="metrics JSONL written by training "
+                                 "(goodput records are on by default)")
+    p.add_argument("--json", action="store_true",
+                   help="print the stitched ledger as one JSON object")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.obs.goodput import CAUSES, stitch_goodput_records
+    from nanodiloco_tpu_torch.training.metrics import read_jsonl_records
+
+    recs, _torn = read_jsonl_records(args.jsonl)
+    stitched = stitch_goodput_records(recs)
+    if stitched is None:
+        raise SystemExit(
+            f"{args.jsonl} has no goodput records: the run predates the "
+            "goodput ledger"
+        )
+    if args.json:
+        print(json.dumps(stitched))
+        return
+    elapsed = stitched["elapsed_s"]
+    print(f"{'elapsed':>18}: {elapsed:.3f} s over "
+          f"{stitched['lifetimes']} process lifetime(s)")
+    # cause-ordered budget: biggest first — the table an operator reads
+    # top-down to find where the wall-clock went
+    by_cause = sorted(
+        ((c, stitched.get(f"{c}_s", 0.0)) for c in CAUSES),
+        key=lambda cv: -cv[1],
+    )
+    for cause, s in by_cause:
+        if s <= 0:
+            continue
+        share = s / elapsed if elapsed else 0.0
+        print(f"{cause:>18}: {s:10.3f} s  {share:7.2%}")
+    gf = stitched.get("goodput_fraction")
+    print(f"{'goodput_fraction':>18}: "
+          + (f"{gf:.4f}" if gf is not None else "n/a"))
+    if stitched.get("badput_top_cause"):
+        print(f"{'badput_top_cause':>18}: {stitched['badput_top_cause']}")
+    if stitched.get("tokens_per_wall_s") is not None:
+        print(f"{'tokens_per_wall_s':>18}: {stitched['tokens_per_wall_s']}"
+              " (restarts included)")
+
+
+def report_blackbox_main(argv: list[str]) -> None:
+    """``report blackbox DUMP.json``: render a crash flight-recorder
+    dump (obs/flightrec) as a last-N event timeline — the forensic view
+    of a process's final moments."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report blackbox")
+    p.add_argument("dump", help="a <run>-blackbox.json flight-recorder "
+                                "dump (the supervisor's crash event "
+                                "records its path)")
+    p.add_argument("-n", "--last", type=int, default=50,
+                   help="how many trailing events to show (default 50)")
+    p.add_argument("--json", action="store_true",
+                   help="print the raw dump document")
+    args = p.parse_args(argv)
+
+    with open(args.dump) as f:
+        doc = json.load(f)
+    if not isinstance(doc, dict) or not doc.get("blackbox"):
+        raise SystemExit(
+            f"{args.dump} is not a flight-recorder dump (no 'blackbox' "
+            "marker)"
+        )
+    if args.json:
+        print(json.dumps(doc))
+        return
+    import datetime as _dt
+
+    def _ts(t) -> str:
+        if not isinstance(t, (int, float)):
+            return "?"
+        return _dt.datetime.fromtimestamp(t).strftime("%H:%M:%S.%f")[:-3]
+
+    events = doc.get("events") or []
+    print(f"blackbox: reason={doc.get('reason')} pid={doc.get('pid')} "
+          f"dumped_at={_ts(doc.get('t_unix'))} "
+          f"events={len(events)}"
+          + (f" (+{doc['dropped_events']} older dropped)"
+             if doc.get("dropped_events") else ""))
+    for ev in (events[-args.last:] if args.last > 0 else []):
+        data = ev.get("data") or {}
+        detail = " ".join(f"{k}={v}" for k, v in data.items())
+        if len(detail) > 140:
+            detail = detail[:137] + "..."
+        print(f"{_ts(ev.get('t_unix')):>14}  {ev.get('kind', '?'):<10} {detail}")
+
+
+def report_drift_main(argv: list[str]) -> None:
+    """``report drift RUN.jsonl``: one line per outer sync, in step
+    order — the dynamics timeline a drift alarm sends an operator to.
+    Divergence alarms interleave at their step so the timeline shows
+    what the sentinel saw when it fired."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report drift")
+    p.add_argument("jsonl", help="metrics JSONL from a run with "
+                                 "--dynamics-metrics (the default)")
+    p.add_argument("--json", action="store_true",
+                   help="print the timeline as one JSON array")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.training.metrics import read_jsonl_records
+
+    recs, _torn = read_jsonl_records(args.jsonl)
+    events = []
+    for r in recs:
+        if r.get("drift_max") is not None:
+            events.append({
+                "event": "sync",
+                "step": r.get("step"),
+                "drift_max": r["drift_max"],
+                "drift_mean": r.get("drift_mean"),
+                "pg_norm": r.get("pg_norm"),
+                "outer_momentum_norm": r.get("outer_momentum_norm"),
+                "outer_update_cos": r.get("outer_update_cos"),
+                **({"quarantined_workers": r["quarantined_workers"]}
+                   if r.get("quarantined_workers") else {}),
+            })
+        elif r.get("alarm") == "divergence":
+            events.append({"event": "alarm", **r})
+    if args.json:
+        print(json.dumps(events))
+        return
+    if not events:
+        print(
+            "no dynamics records (run predates the dynamics metrics, "
+            "used --no-dynamics-metrics, or streamed)"
+        )
+        return
+    def num(e: dict, key: str, spec: str = ".4g") -> str:
+        # keys may be PRESENT but None (a torn record, an older writer):
+        # a dict.get default never fires then — format defensively
+        v = e.get(key)
+        return format(v, spec) if isinstance(v, (int, float)) else "?"
+
+    def step_of(e: dict):
+        # same present-but-null hazard: ">8" on None raises
+        s = e.get("step")
+        return "?" if s is None else s
+
+    for e in events:
+        if e["event"] == "alarm":
+            print(
+                f"step {step_of(e):>8}  ALARM divergence "
+                f"drift={e.get('drift')} threshold={e.get('threshold')}"
+            )
+            continue
+        # same present-but-null hazard for the list-valued key
+        pg = [x for x in (e.get("pg_norm") or [])
+              if isinstance(x, (int, float))]
+        pg_s = (
+            f" pg[min={min(pg):.4g} max={max(pg):.4g}]" if pg else ""
+        )
+        quar = (
+            f" quarantined={e['quarantined_workers']}"
+            if e.get("quarantined_workers") else ""
+        )
+        print(
+            f"step {step_of(e):>8}  "
+            f"drift_max={num(e, 'drift_max')} "
+            f"drift_mean={num(e, 'drift_mean')}"
+            f"{pg_s} "
+            f"momentum={num(e, 'outer_momentum_norm')} "
+            f"cos={num(e, 'outer_update_cos', '.3f')}{quar}"
+        )
+
+
+def export_hf_main(argv: list[str]) -> list[str]:
+    """Export a trained checkpoint's merged snapshot as an HF-layout
+    safetensors checkpoint plus ``config.json``, which
+    ``transformers.LlamaForCausalLM.from_pretrained`` loads. Reads the
+    snapshot memory-mapped on the host; writes one tensor at a time in
+    float32. Returns the written file names."""
+    from nanodiloco_tpu_torch.models.hf_interop import hf_config, save_hf_pretrained
+
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch export-hf")
+    p.add_argument("--checkpoint-dir", type=str, required=True)
+    p.add_argument("--out", type=str, required=True,
+                   help="output directory for the safetensors shard(s) + config.json")
+    p.add_argument("--step", type=int, default=None)
+    p.add_argument("--max-shard-gb", type=float, default=5.0,
+                   help="split the safetensors above this many GiB (HF sharded "
+                        "layout with its index; 5 is transformers' own default)")
+    args = p.parse_args(argv)
+    model_cfg, _sidecar, snapshot = _load_checkpoint_snapshot(args.checkpoint_dir, args.step)
+    os.makedirs(args.out, exist_ok=True)
+    written = save_hf_pretrained(snapshot, model_cfg, args.out,
+                                 max_shard_bytes=int(args.max_shard_gb * 1024**3))
+    with open(os.path.join(args.out, "config.json"), "w") as f:
+        json.dump(hf_config(model_cfg), f, indent=1)
+    print(f"exported {', '.join(written)} to {args.out}")
+    return written
+
+
 def _load_checkpoint_snapshot(checkpoint_dir: str, step: int | None):
     """(model_cfg, sidecar dict, snapshot params) from a self-describing
     checkpoint: the merged global model alone, memory-mapped on the host,
@@ -302,12 +754,12 @@ def build_generate_parser() -> argparse.ArgumentParser:
 
 def generate_main(argv: list[str]) -> list[str]:
     """Prints one continuation per prompt; returns them."""
-    from nanodiloco_tpu_torch.data.tokenizer import get_tokenizer
+    from nanodiloco_tpu_torch.data.tokenizer import load_tokenizer
     from nanodiloco_tpu_torch.models.generate import generate, pad_prompts
 
     args = build_generate_parser().parse_args(argv)
     model_cfg, sidecar, params = _load_checkpoint_snapshot(args.checkpoint_dir, args.step)
-    tokenizer = get_tokenizer(args.tokenizer or sidecar.get("tokenizer"))
+    tokenizer = load_tokenizer(args.tokenizer or sidecar.get("tokenizer"))
     if args.prompts_file:
         with open(args.prompts_file) as f:
             prompts = [line for line in f.read().splitlines() if line.strip()]
@@ -434,14 +886,14 @@ def serve_main(argv: list[str]) -> None:
     import signal
     import threading
 
-    from nanodiloco_tpu_torch.data.tokenizer import get_tokenizer
+    from nanodiloco_tpu_torch.data.tokenizer import load_tokenizer
     from nanodiloco_tpu_torch.obs import flightrec
     from nanodiloco_tpu_torch.obs.tracer import SpanTracer
     from nanodiloco_tpu_torch.serve import InferenceEngine, Scheduler, ServeServer
 
     args = build_serve_parser().parse_args(argv)
     model_cfg, sidecar, params = _load_checkpoint_snapshot(args.checkpoint_dir, args.step)
-    tokenizer = get_tokenizer(args.tokenizer or sidecar.get("tokenizer"))
+    tokenizer = load_tokenizer(args.tokenizer or sidecar.get("tokenizer"))
     max_len = min(args.max_len, model_cfg.max_position_embeddings)
     engine = InferenceEngine(
         params, model_cfg, num_slots=args.slots, max_len=max_len,
@@ -541,6 +993,17 @@ def _append_serve_stats(path: str, scheduler) -> None:
 
 def main(argv=None) -> dict | None:
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["supervise"]:
+        from nanodiloco_tpu_torch.resilience.supervisor import supervise_main
+
+        supervise_main(argv[1:])
+        return None
+    if argv[:1] == ["export-hf"]:
+        export_hf_main(argv[1:])
+        return None
+    if argv[:1] and argv[0] in NOT_PORTED_COMMANDS:
+        raise SystemExit(f"{argv[0]} is not ported yet (ROADMAP.md, Queue A item 5b: "
+                         "the serving fleet)")
     if argv[:1] == ["report"]:
         report_main(argv[1:])
         return None

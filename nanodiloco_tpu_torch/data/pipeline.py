@@ -1,12 +1,13 @@
 """Data pipeline: a copy of the numpy-only parts of
 ``nanodiloco_tpu/data/pipeline.py``: a synthetic corpus, packing into
 fixed-length rows (in memory, or streamed into a tokenshard file), the
-one-document-per-row padded layout, and the deterministic per-worker
-batchers whose batches come out as [W, accum, B, S]: ``DilocoBatcher``
-over rows in memory, ``ShardBatcher`` over a ``.tshrd`` file. Loading an
-HF ``datasets`` directory is not ported (the card's machine has no
-``datasets`` package): prepare a ``.tshrd`` with
-``scripts/prepare_data.py`` instead."""
+one-document-per-row padded layout, the texts of an HF ``datasets``
+directory (``save_to_disk``; the ``datasets`` package is imported only
+when one is read), and the deterministic per-worker batchers whose
+batches come out as [W, accum, B, S]: ``DilocoBatcher`` over rows in
+memory, ``ShardBatcher`` over a ``.tshrd`` file (written by
+``scripts/torch_prepare_data.py``, which needs no ``datasets`` package
+for its offline sources)."""
 
 from __future__ import annotations
 
@@ -36,6 +37,35 @@ def synthetic_corpus(n_docs: int = 2000, seed: int = 0) -> list[str]:
         words = rng.choice(vocab, size=n_words, p=probs)
         docs.append(" ".join(words) + ".")
     return docs
+
+
+def iter_hf_dataset_texts(
+    path: str, split: str = "train", column: str = "text"
+) -> Iterator[str]:
+    """Stream texts from a ``datasets.save_to_disk`` directory one row at
+    a time off the Arrow memory map (a corpus larger than host memory
+    streams through), reading only ``column``."""
+    try:
+        from datasets import load_from_disk
+    except ImportError as e:
+        raise ImportError(
+            f"reading the HF datasets directory {path!r} needs the datasets package; "
+            "without it, make a .tshrd shard with scripts/torch_prepare_data.py"
+        ) from e
+
+    ds = load_from_disk(path)
+    if hasattr(ds, "keys") and split in getattr(ds, "keys", lambda: [])():
+        ds = ds[split]
+    if hasattr(ds, "select_columns"):
+        ds = ds.select_columns([column])
+    for row in ds:
+        yield row[column]
+
+
+def load_hf_dataset_texts(path: str, split: str = "train", column: str = "text") -> list[str]:
+    """``iter_hf_dataset_texts`` materialized, for corpora that fit in
+    memory."""
+    return list(iter_hf_dataset_texts(path, split, column))
 
 
 def pack_corpus(

@@ -1,18 +1,29 @@
-"""Goodput records: what ``summarize_run`` reads of them.
+"""Goodput ledger: attribute EVERY wall-clock second of a run to a cause.
 
-The reader half of ``nanodiloco_tpu/obs/goodput.py`` (jax-free; the JAX
+A copy of ``nanodiloco_tpu/obs/goodput.py``'s training half (the JAX
 package's ``__init__`` imports jax, so the port keeps its own): the
-closed cause set and ``stitch_goodput_records``, which ``report`` uses to
-fold the per-lifetime ``{"goodput": ...}`` snapshots of a JSONL into one
-run-level ledger. The ledger that writes those snapshots during training
-(``GoodputLedger``) is not ported, so a port run's JSONL carries none and
-its summary has no goodput keys; a JAX run's JSONL summarizes the same
-through either package.
+closed cause set, ``GoodputLedger``, which the train loop opens first
+and snapshots into the JSONL once per round and once at teardown, and
+``stitch_goodput_records``, which ``report goodput`` and
+``summarize_run`` use to fold the per-lifetime snapshots of a
+(restart-appended) JSONL into one run-level ledger. The fleet's state
+set (``FLEET_STATE_CAUSES``) belongs to the serving fleet, not ported.
+
+Accounting contract: ``sum(cause seconds) == elapsed wall-clock``
+exactly, by construction (attributed phase seconds are clamped to the
+window they were observed in, the remainder is ``other`` or a
+caller-chosen residual cause); seconds that passed while no process
+existed (the supervisor's relaunch gap) are booked as
+``restart_downtime``; the ledger is host-side observation only. In the
+port, the first round's compute is ``compile_warmup``: it holds the
+kernels' first-use build and cuBLAS's first heuristics.
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterable
+import os
+import time
+from typing import Any, Callable, Iterable
 
 #: The closed cause set. ``compute`` is the only goodput cause — every
 #: other bucket is badput an operator can act on.
@@ -29,6 +40,149 @@ CAUSES = (
     "restart_downtime",   # supervisor relaunch gap (no process existed)
     "other",              # startup/logging/unattributed residual
 )
+
+
+#: tracer depth-0 span name -> cause. ``t_``-prefixed JSONL keys map
+#: through the same table (``observe_phases`` strips the prefix).
+PHASE_CAUSE = {
+    "inner": "compute",
+    "sync": "outer_sync",
+    "ckpt": "checkpoint",
+    "data": "data_wait",
+    "eval": "eval",
+    "restore": "resume_restore",
+    "comm_probe": "compile_warmup",  # extra compile + throwaway rounds
+    # the per-round straggler wait the train loop splits OUT of the
+    # inner span (t_straggler in the round budget): healthy workers'
+    # seconds spent on the slowest island, attributed — never silently
+    # inflating compute or outer_sync
+    "straggler": "straggler_wait",
+    "cost_analysis": "other",
+    "log": "other",
+    # the injected stall the train loop splits out of the data wait
+    # (the prefetch thread slept it): watchdog-attributable dead time
+    "stall": "stall",
+}
+
+
+class GoodputLedger:
+    """Per-process-lifetime wall-clock partition. ``clock`` is a
+    monotonic seconds source (tests inject a fake); ``wall`` stamps
+    snapshots with absolute time. ``lifetime`` is the supervisor's
+    restart ordinal, the key ``stitch_goodput_records`` groups by."""
+
+    def __init__(
+        self,
+        clock: Callable[[], float] = time.perf_counter,
+        wall: Callable[[], float] = time.time,
+        lifetime: int = 0,
+    ) -> None:
+        self._clock = clock
+        self._wall = wall
+        self.lifetime = int(lifetime)
+        # stamped into every snapshot: the stitcher's discriminator
+        # between two PROCESSES that share a lifetime ordinal (the
+        # supervisor's restart count resets per invocation)
+        self._pid = os.getpid()
+        self._t0: float | None = None
+        self._attributed: dict[str, float] = {c: 0.0 for c in CAUSES}
+        # seconds that happened OUTSIDE this process's clock (the
+        # supervisor's relaunch gap): they extend elapsed as well as
+        # their cause, so the partition includes time no process saw
+        self._external = 0.0
+        self._tokens = 0
+
+    def start(self) -> "GoodputLedger":
+        """Open the ledger window (idempotent — the first call wins, so
+        'as early in the process as possible' is safe to call twice)."""
+        if self._t0 is None:
+            self._t0 = self._clock()
+        return self
+
+    def note(self, cause: str, seconds: float) -> None:
+        """Attribute ``seconds`` of this lifetime's elapsed wall-clock
+        to ``cause``."""
+        if cause not in self._attributed:
+            raise ValueError(f"unknown goodput cause {cause!r}; use one of {CAUSES}")
+        self._attributed[cause] += max(0.0, float(seconds))
+
+    def book_external(self, cause: str, seconds: float) -> None:
+        """Attribute seconds that elapsed while THIS process did not
+        exist (the supervisor's relaunch gap, handed down via the
+        downtime env var): they extend the ledger's elapsed total too —
+        downtime is part of the run's wall-clock even though no clock of
+        ours was running."""
+        s = max(0.0, float(seconds))
+        self.note(cause, s)
+        self._external += s
+
+    def observe_phases(
+        self, phases: dict[str, float], warmup: bool = False
+    ) -> None:
+        """Fold one round's phase budget into the ledger. Accepts both
+        raw tracer names (``inner``) and JSONL keys (``t_inner``);
+        unknown phases land in ``other`` — a new span name must never
+        silently vanish from the partition. ``warmup=True`` routes
+        compute-destined seconds to ``compile_warmup`` instead: the
+        first dispatch of each program carries its XLA compile, and
+        calling that round "compute" would flatter the fraction."""
+        for key, v in phases.items():
+            if not isinstance(v, (int, float)) or v is None:
+                continue
+            name = key[2:] if key.startswith("t_") else key
+            cause = PHASE_CAUSE.get(name, "other")
+            if warmup and cause == "compute":
+                cause = "compile_warmup"
+            self.note(cause, v)
+
+    def add_tokens(self, n: int) -> None:
+        """Tokens produced this lifetime (the numerator of
+        tokens-per-wall-clock-second-including-restarts)."""
+        self._tokens += int(n)
+
+    # -- snapshots -----------------------------------------------------------
+
+    def elapsed_s(self) -> float:
+        self.start()
+        return (self._clock() - self._t0) + self._external
+
+    def snapshot(
+        self, final: bool = False, residual_cause: str = "other"
+    ) -> dict[str, Any]:
+        """The running ledger record (cumulative for this lifetime):
+        per-cause seconds with the unattributed residual folded into
+        ``residual_cause`` (``other`` normally; a watchdog-stall exit
+        books its dead tail as ``stall``), elapsed, goodput fraction,
+        tokens. The returned causes PARTITION elapsed exactly. When
+        attribution overshoots elapsed (sub-ms clock skew between the
+        tracer's clock and ours), causes are scaled down to fit — the
+        partition property holds in both directions."""
+        elapsed = self.elapsed_s()
+        causes = {c: self._attributed[c] for c in CAUSES}
+        attributed = sum(causes.values())
+        residual = elapsed - attributed
+        if residual >= 0:
+            causes[residual_cause] += residual
+        elif attributed > 0:
+            scale = elapsed / attributed
+            causes = {c: v * scale for c, v in causes.items()}
+        rec: dict[str, Any] = {
+            "lifetime": self.lifetime,
+            "pid": self._pid,
+            "elapsed_s": round(elapsed, 6),
+            "tokens": self._tokens,
+            "t_unix": round(self._wall(), 3),
+        }
+        for c in CAUSES:
+            rec[f"{c}_s"] = round(causes[c], 6)
+        rec["goodput_fraction"] = round(
+            causes["compute"] / elapsed, 6
+        ) if elapsed > 0 else None
+        if elapsed > 0:
+            rec["tokens_per_wall_s"] = round(self._tokens / elapsed, 3)
+        if final:
+            rec["final"] = True
+        return rec
 
 
 def stitch_goodput_records(records: Iterable[dict]) -> dict[str, Any] | None:

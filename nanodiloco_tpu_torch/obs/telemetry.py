@@ -1,7 +1,17 @@
-"""The serving half of ``nanodiloco_tpu/obs/telemetry.py``: the subset
-the serve scheduler and server import, copied (the JAX package's
-``__init__`` imports jax, so the port keeps its own).
+"""Telemetry: a copy of ``nanodiloco_tpu/obs/telemetry.py`` (the JAX
+package's ``__init__`` imports jax, so the port keeps its own), with
+``torch.profiler`` where the JAX one captures ``jax.profiler``.
 
+- ``TelemetryServer``: the trainer's live endpoint (``--metrics-port``).
+  ``GET /metrics`` is OpenMetrics text whose gauges are fed from the
+  same ``MetricsLogger.log`` path that writes the JSONL (loss, tokens/s,
+  phase seconds, the resilience counters: alarms, injected faults, IO
+  retries, resumes, restarts; the drift and elastic gauges, the goodput
+  badput seconds, the devtime ledgers); ``GET /healthz`` answers 200/503
+  from the watchdog's live ``status_doc``; ``POST /debug/profile``
+  captures the live process;
+- ``acquire_profiler_window`` / ``release_profiler_window``: the lock a
+  planned capture holds so a live one answers 409;
 - ``nearest_rank_percentile`` and ``Histogram`` (OpenMetrics cumulative
   buckets with per-bucket exemplars);
 - ``render_exposition`` and its label helpers, and ``parse_metrics_text``
@@ -9,25 +19,93 @@ the serve scheduler and server import, copied (the JAX package's
   rests on;
 - ``handle_profile_request``: ``POST /debug/profile?seconds=N`` captures
   a ``torch.profiler`` trace (CPU and, on the card, CUDA activity) of the
-  live process, where the JAX one captures ``jax.profiler``.
-
-The trainer's ``TelemetryServer`` and its startup profiler window are not
-ported yet.
+  live process.
 """
 
 from __future__ import annotations
 
 import bisect
+import json
 import math
 import os
 import threading
 import time
-from typing import Any
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable
 from urllib.parse import parse_qs, urlparse
+
+from nanodiloco_tpu_torch.obs.devtime import devtime_families
+from nanodiloco_tpu_torch.obs.goodput import CAUSES
 
 OPENMETRICS_CONTENT_TYPE = (
     "application/openmetrics-text; version=1.0.0; charset=utf-8"
 )
+
+# JSONL key -> (metric name, help). All gauges: "last observed value".
+_GAUGE_KEYS = {
+    "loss": ("nanodiloco_loss", "last logged training loss"),
+    "eval_loss": ("nanodiloco_eval_loss", "last held-out eval loss"),
+    "perplexity": ("nanodiloco_perplexity", "last training perplexity"),
+    "lr": ("nanodiloco_lr", "current inner learning rate"),
+    "step": ("nanodiloco_step", "last logged real (inner) step"),
+    "tokens_per_sec": (
+        "nanodiloco_tokens_per_sec", "cumulative training throughput"
+    ),
+    "comm_share": (
+        "nanodiloco_comm_share",
+        "outer-sync share of wall clock (the DiLoCo ratio)",
+    ),
+    "avg_sync_time_s": (
+        "nanodiloco_avg_sync_time_seconds", "mean outer-sync wall clock"
+    ),
+    "wire_bytes_per_sync": (
+        "nanodiloco_wire_bytes_per_sync", "per-worker wire bytes per outer sync"
+    ),
+    "hbm_peak_bytes": (
+        "nanodiloco_hbm_peak_bytes", "peak device memory in use"
+    ),
+    "quarantined_workers": (
+        "nanodiloco_quarantined_workers", "workers masked out of the last sync"
+    ),
+    # elastic DiLoCo (training/elastic.py): the live fleet width and
+    # per-worker realized inner steps — the scrapeable view of
+    # join/shrink and straggler demotions
+    "workers_active": (
+        "nanodiloco_workers_active",
+        "workers contributing to the last outer sync",
+    ),
+    # DiLoCo dynamics metrics (parallel/diloco.py::_sync_dynamics):
+    # drift, momentum, and update-alignment — the quantities quantized
+    # outer comm needs to stay tame (arXiv:2501.18512)
+    "drift_max": (
+        "nanodiloco_drift_max",
+        "max pairwise worker replica distance / snapshot norm at the "
+        "last sync",
+    ),
+    "drift_mean": (
+        "nanodiloco_drift_mean",
+        "RMS pairwise worker replica distance / snapshot norm at the "
+        "last sync",
+    ),
+    "outer_momentum_norm": (
+        "nanodiloco_outer_momentum_norm",
+        "outer Nesterov momentum norm after the last sync",
+    ),
+    "outer_update_cos": (
+        "nanodiloco_outer_update_cos",
+        "cosine(mean pseudo-gradient, applied outer update descent "
+        "direction) at the last sync",
+    ),
+    # async delayed-apply outer step (parallel/diloco.py async_outer):
+    # rounds between the applied merge's launch and its apply — the
+    # realized staleness of the overlap (streaming logs its fragment
+    # stagger here as a fraction of a round)
+    "outer_staleness": (
+        "nanodiloco_outer_staleness",
+        "rounds the last applied outer merge landed late "
+        "(async delayed-apply / streaming stagger)",
+    ),
+}
 
 
 # -- histograms (OpenMetrics cumulative-bucket form) --------------------------
@@ -127,9 +205,326 @@ class Histogram:
         return snap
 
 
+class TelemetryServer:
+    """Scrapeable mirror of the metrics stream. ``observe(rec)`` is
+    called by ``MetricsLogger.log`` with every record (metrics AND
+    alarms — one source of truth); ``health_fn`` returns the watchdog's
+    status document on each /healthz hit (live state, not a cached
+    copy). Thread-safe: the HTTP threads read under the same lock the
+    train loop writes under."""
+
+    def __init__(
+        self,
+        port: int = 0,
+        host: str = "0.0.0.0",
+        health_fn: Callable[[], dict] | None = None,
+        profile_dir: str | None = None,
+    ) -> None:
+        self._health_fn = health_fn
+        # on-demand live profiling: POST /debug/profile?seconds=N
+        # captures a torch.profiler trace from THIS process into
+        # ``profile_dir`` (None = the endpoint answers 404 — profiling
+        # must be an operator opt-in, the capture is heavyweight)
+        self.profile_dir = profile_dir
+        self._lock = threading.Lock()
+        self._gauges: dict[str, float] = {}
+        self._worker_pg: dict[int, float] = {}  # worker -> last pg norm
+        self._worker_h: dict[int, float] = {}   # worker -> realized H
+        self._elastic: dict[str, int] = {}      # elastic records by kind
+        self._phases: dict[str, float] = {}
+        self._badput: dict[str, float] = {}  # cause -> cumulative seconds
+        self._alarms: dict[str, int] = {}
+        self._faults: dict[str, int] = {}    # injected-fault records by kind
+        self._retries: dict[str, int] = {}   # IO retry records by op
+        self._devtime: dict | None = None    # last devtime snapshot
+        self._resumes = 0                    # checkpoint-resume records
+        self._outer_syncs = 0
+        self._wire_total = 0.0
+        self._thread: threading.Thread | None = None
+
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):  # a scrape must not spam stdout
+                pass
+
+            def _reply(self, code, body, ctype):
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = self.path.split("?", 1)[0]
+                if path == "/metrics":
+                    body = server.render_metrics().encode()
+                    ctype = OPENMETRICS_CONTENT_TYPE
+                    code = 200
+                elif path == "/healthz":
+                    code, doc = server.health()
+                    body = (json.dumps(doc) + "\n").encode()
+                    ctype = "application/json"
+                else:
+                    code, body, ctype = 404, b"not found\n", "text/plain"
+                self._reply(code, body, ctype)
+
+            def do_POST(self):
+                if self.path.split("?", 1)[0] != "/debug/profile":
+                    self._reply(404, b"not found\n", "text/plain")
+                    return
+                code, doc = handle_profile_request(
+                    server.profile_dir, self.path
+                )
+                self._reply(
+                    code, (json.dumps(doc) + "\n").encode(),
+                    "application/json",
+                )
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self.port = int(self._httpd.server_address[1])
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def start(self) -> "TelemetryServer":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._httpd.serve_forever,
+                name="nanodiloco-telemetry",
+                daemon=True,
+            )
+            self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    # -- ingest (the MetricsLogger.log path) ---------------------------------
+
+    def observe(self, rec: dict[str, Any]) -> None:
+        with self._lock:
+            for k, v in rec.items():
+                if v is None:
+                    continue
+                if k == "alarm":
+                    self._alarms[str(v)] = self._alarms.get(str(v), 0) + 1
+                elif k == "fault":
+                    self._faults[str(v)] = self._faults.get(str(v), 0) + 1
+                elif k == "retry":
+                    self._retries[str(v)] = self._retries.get(str(v), 0) + 1
+                elif k == "resume":
+                    self._resumes += 1
+                elif k == "restart_count" and isinstance(v, (int, float)):
+                    # supervisor-side restart counter, carried in by the
+                    # resume record so a scrape sees restart pressure
+                    self._gauges["nanodiloco_restarts"] = float(v)
+                elif k == "outer_synced":
+                    self._outer_syncs += int(bool(v))
+                elif k == "wire_bytes_total":
+                    self._wire_total = float(v)
+                elif k == "pg_norm" and isinstance(v, (list, tuple)):
+                    # per-worker pseudo-gradient norms from the sync's
+                    # dynamics record -> one labeled gauge per worker
+                    for w, nv in enumerate(v):
+                        if isinstance(nv, (int, float)):
+                            self._worker_pg[w] = float(nv)
+                elif k == "elastic":
+                    # elastic DiLoCo decisions by kind (straggler
+                    # demote/restore, resize absorbed at resume) — the
+                    # demotion total is its own headline counter
+                    self._elastic[str(v)] = self._elastic.get(str(v), 0) + 1
+                elif k == "inner_steps_realized" and isinstance(
+                    v, (list, tuple)
+                ):
+                    # a resize drops/adds workers: the realized-H gauge
+                    # family must track the CURRENT fleet, not keep
+                    # ghost series for departed workers
+                    self._worker_h = {
+                        w: float(nv) for w, nv in enumerate(v)
+                        if isinstance(nv, (int, float))
+                    }
+                elif k == "goodput" and isinstance(v, dict):
+                    # goodput ledger snapshot (obs/goodput): the
+                    # fraction as a gauge, every badput cause's
+                    # cumulative seconds as a labeled counter family —
+                    # the scrapeable wall-clock budget
+                    gf = v.get("goodput_fraction")
+                    if isinstance(gf, (int, float)):
+                        self._gauges["nanodiloco_goodput_fraction"] = float(gf)
+                    for cause in CAUSES:
+                        if cause == "compute":
+                            continue
+                        s = v.get(f"{cause}_s")
+                        if isinstance(s, (int, float)):
+                            self._badput[cause] = float(s)
+                elif k.startswith("t_") and isinstance(v, (int, float)):
+                    self._phases[k[2:]] = float(v)
+                elif k == "devtime" and isinstance(v, dict):
+                    # DispatchAccountant snapshot (obs/devtime): the
+                    # ledgers are cumulative, so keeping the LAST
+                    # snapshot renders correct counters
+                    self._devtime = v
+                elif k == "cost_analysis" and isinstance(v, dict):
+                    fpt = v.get("flops_per_token")
+                    if isinstance(fpt, (int, float)):
+                        self._gauges["nanodiloco_flops_per_token"] = float(fpt)
+                elif k in _GAUGE_KEYS and isinstance(v, (int, float)):
+                    self._gauges[_GAUGE_KEYS[k][0]] = float(v)
+
+    # -- render --------------------------------------------------------------
+
+    def render_metrics(self) -> str:
+        """OpenMetrics text via the shared ``render_exposition`` (the
+        serve endpoint, nanodiloco_tpu/serve/server.py, uses the same
+        renderer so every /metrics in the project speaks one dialect)."""
+        with self._lock:
+            gauges = dict(self._gauges)
+            worker_pg = dict(self._worker_pg)
+            worker_h = dict(self._worker_h)
+            elastic = dict(self._elastic)
+            phases = dict(self._phases)
+            badput = dict(self._badput)
+            alarms = dict(self._alarms)
+            faults = dict(self._faults)
+            retries = dict(self._retries)
+            resumes = self._resumes
+            syncs = self._outer_syncs
+            wire_total = self._wire_total
+            devtime = self._devtime
+        helps = {name: h for name, h in _GAUGE_KEYS.values()}
+        helps["nanodiloco_flops_per_token"] = (
+            "analytic FLOPs per token of one training microbatch "
+            "(obs/costs probe)"
+        )
+        helps["nanodiloco_restarts"] = (
+            "supervisor restarts preceding this process (from the "
+            "resume record)"
+        )
+        helps["nanodiloco_goodput_fraction"] = (
+            "fraction of this lifetime's wall-clock attributed to "
+            "compute (obs/goodput ledger)"
+        )
+        families: list = [
+            (name, "gauge", helps.get(name), [(None, gauges[name])])
+            for name in sorted(gauges)
+        ]
+        if worker_pg:
+            families.append((
+                "nanodiloco_worker_pg_norm", "gauge",
+                "per-worker pseudo-gradient norm at the last outer sync",
+                [({"worker": str(w)}, worker_pg[w])
+                 for w in sorted(worker_pg)],
+            ))
+        if worker_h:
+            families.append((
+                "nanodiloco_inner_steps_realized", "gauge",
+                "per-worker realized inner steps in the last round "
+                "(elastic DiLoCo heterogeneous H)",
+                [({"worker": str(w)}, worker_h[w])
+                 for w in sorted(worker_h)],
+            ))
+        if elastic:
+            families.append((
+                "nanodiloco_straggler_demotions", "counter",
+                "straggler-policy demotions observed (elastic records "
+                "of kind straggler_demote)",
+                [(None, elastic.get("straggler_demote", 0))],
+            ))
+            families.append((
+                "nanodiloco_elastic_events", "counter",
+                "elastic DiLoCo records by kind (straggler "
+                "demote/restore, resize absorbed at resume, schedule "
+                "reset)",
+                [({"kind": k}, elastic[k]) for k in sorted(elastic)]
+                + [(None, sum(elastic.values()))],
+            ))
+        if phases:
+            families.append((
+                "nanodiloco_phase_seconds", "gauge",
+                "last round's host-side phase budget",
+                [({"phase": ph}, phases[ph]) for ph in sorted(phases)],
+            ))
+        if badput:
+            families.append((
+                "nanodiloco_badput_seconds", "counter",
+                "this lifetime's wall-clock seconds NOT spent computing, "
+                "by attributed cause (obs/goodput ledger)",
+                [({"cause": c}, badput[c]) for c in sorted(badput)],
+            ))
+        # resilience counters: alarms/injected faults by kind, IO retries
+        # by op, checkpoint resumes — the scrapeable fault timeline
+        for name, help_text, label, by in (
+            ("nanodiloco_alarms", "watchdog alarms by kind", "kind", alarms),
+            ("nanodiloco_faults", "injected faults fired, by kind", "kind",
+             faults),
+            ("nanodiloco_retries", "IO retry attempts, by operation", "op",
+             retries),
+        ):
+            families.append((
+                name, "counter", help_text,
+                [({label: k}, by[k]) for k in sorted(by)]
+                + [(None, sum(by.values()))],
+            ))
+        families.append(("nanodiloco_resumes", "counter",
+                         "checkpoint resumes observed by this process",
+                         [(None, resumes)]))
+        families.append(("nanodiloco_outer_syncs", "counter",
+                         "outer syncs completed",
+                         [(None, syncs)]))
+        families.append((
+            "nanodiloco_wire_bytes", "counter",
+            "cumulative per-worker outer-sync wire bytes",
+            [(None, wire_total)],
+        ))
+        # per-program device/compile-second ledgers (obs/devtime): the
+        # SAME family definition the serve /metrics uses, so the two
+        # tiers' expositions cannot drift
+        families.extend(devtime_families(devtime))
+        return render_exposition(families)
+
+    def health(self) -> tuple[int, dict]:
+        """(status code, document). Unhealthy (503) = stalled, crashed,
+        or any ``nan_loss`` alarm on record; everything else — spikes,
+        throughput dips, a finished run — reports 200 with the detail
+        in the body."""
+        if self._health_fn is None:
+            return 200, {"state": "unknown", "healthy": True}
+        try:
+            doc = dict(self._health_fn())
+        except Exception as e:  # a broken probe is itself unhealthy
+            return 503, {"state": "error", "healthy": False, "error": str(e)}
+        kinds = doc.get("alarm_kinds") or {}
+        unhealthy = (
+            doc.get("state") in ("stalled", "crashed")
+            or kinds.get("nan_loss", 0) > 0
+        )
+        doc["healthy"] = not unhealthy
+        return (503 if unhealthy else 200), doc
+
+
+
 _PROFILE_LOCK = threading.Lock()
 _PROFILE_SEQ = [0]
 PROFILE_MAX_SECONDS = 60.0
+
+
+def acquire_profiler_window() -> None:
+    """Blocking-acquire the process-global profiler for a planned trace
+    window. While held, live ``/debug/profile`` captures answer 409;
+    conversely a live capture in flight makes this WAIT (bounded by
+    ``PROFILE_MAX_SECONDS``) instead of letting a planned capture start
+    a second profiler. Pair every acquire with
+    ``release_profiler_window``."""
+    _PROFILE_LOCK.acquire()
+
+
+def release_profiler_window() -> None:
+    _PROFILE_LOCK.release()
 
 
 def capture_live_profile(out_dir: str, seconds: float) -> dict:

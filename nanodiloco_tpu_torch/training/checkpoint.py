@@ -22,7 +22,9 @@ and, for the async outer path (JAX ``AsyncDilocoState``), ``pending``
 A save writes ``step_<n>.tmp``, fsyncs it, renames it into place and
 fsyncs the directory, so a crash mid-save never becomes ``latest_step``.
 Saves are synchronous only (the JAX module's own note says why its
-asynchronous mode is not to be trusted). A restore memory-maps the file
+asynchronous mode is not to be trusted). Every save and restore attempt
+asks the fault plan first (``resilience/faults.check_io``), so an
+injected ``io_error`` runs through the retry path. A restore memory-maps the file
 on the host and copies it leaf by leaf into the live state, so the card
 never holds two states: at Llama-3-8B width one state is most of it.
 """
@@ -36,6 +38,7 @@ from typing import Any, Callable
 import torch
 
 from nanodiloco_tpu_torch.models.llama import Params, tree_leaves
+from nanodiloco_tpu_torch.resilience import faults
 from nanodiloco_tpu_torch.resilience.retry import RetryPolicy, retry_call
 
 _STEP_FILE = re.compile(r"step_(\d+)\.pt")
@@ -158,6 +161,7 @@ class CheckpointManager:
         final, tmp = self.path(step), os.path.join(self.directory, f"step_{step}.tmp")
 
         def attempt():
+            faults.check_io("save")  # injection hook (io_error op=save)
             torch.save(tree, tmp)
             _fsync(tmp)
             os.replace(tmp, final)
@@ -171,11 +175,12 @@ class CheckpointManager:
         step = self.latest_step if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint found under {self.directory}")
-        return self._attempt(
-            "ckpt_restore",
-            lambda: torch.load(self.path(step), map_location="cpu", mmap=True,
-                               weights_only=True),
-        )
+        def attempt():
+            faults.check_io("restore")  # injection hook (io_error op=restore)
+            return torch.load(self.path(step), map_location="cpu", mmap=True,
+                              weights_only=True)
+
+        return self._attempt("ckpt_restore", attempt)
 
     def restore_raw(self, step: int | None = None, only: set[str] | None = None) -> dict:
         """The saved tree without a live state to restore into: nested

@@ -67,6 +67,10 @@ class MetricsLogger:
         # ALWAYS set, even for file-less runs: any consumer probing
         # logger.path must read None, not AttributeError
         self.path: str | None = None
+        # optional live scrape mirror (obs/telemetry.TelemetryServer):
+        # every record log() writes also updates its gauges, so /metrics
+        # and the JSONL cannot disagree; assigned by the train loop
+        self.telemetry = None
         # records may be logged from more than one thread; one lock keeps
         # JSONL lines whole (a torn line is exactly the corruption
         # summarize_run has to paper over)
@@ -85,6 +89,11 @@ class MetricsLogger:
             if self._file:
                 self._file.write(json.dumps(rec) + "\n")
                 self._file.flush()
+        if self.telemetry is not None:
+            try:
+                self.telemetry.observe(rec)
+            except Exception:
+                pass  # a scrape-mirror bug must never take down training
         # black-box feed (obs/flightrec): every JSONL record also lands
         # in the bounded crash ring. No-op when no recorder is installed;
         # a ring bug must never take down training.

@@ -1,8 +1,11 @@
 """The port stands alone: no module of nanodiloco_tpu_torch, and not
 chip_smoke.py, imports jax or anything of the JAX package nanodiloco_tpu
 (only the tests import both); nor do the port's scripts
-(``scripts/torch_*.py``). Checked on the source, so a module that is
-never imported here is covered too."""
+(``scripts/torch_*.py``). Nor does any of them import the HF packages
+(transformers, tokenizers, datasets, safetensors) at module level: the
+card's machine has none of them, so each is imported only inside the
+function that needs it. Checked on the source, so a module that is never
+imported here is covered too."""
 
 import ast
 from pathlib import Path
@@ -13,6 +16,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = (sorted((ROOT / "nanodiloco_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
          + sorted((ROOT / "scripts").glob("torch_*.py")))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nanodiloco_tpu")
+OPTIONAL = ("transformers", "tokenizers", "datasets", "safetensors")
 
 
 def imported_modules(path: Path) -> list[str]:
@@ -39,3 +43,35 @@ def test_scan_sees_the_whole_port():
 def test_no_jax_import(path):
     bad = [n for n in imported_modules(path) if forbidden(n)]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def module_level_imports(path: Path) -> list[str]:
+    """Imports executed when the module is imported: the top level and
+    the bodies of top-level ``if``/``try``/``with``, not functions or
+    classes."""
+    names, todo = [], list(ast.parse(path.read_text(), filename=str(path)).body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.append(node.module)
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo += getattr(node, field, [])
+        elif isinstance(node, ast.ExceptHandler):
+            todo += node.body
+    return names
+
+
+def test_optional_scan_sees_module_level_only(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\ntry:\n    import datasets\nexcept ImportError:\n    pass\n"
+                 "def g():\n    import transformers\n")
+    assert sorted(module_level_imports(f)) == ["datasets", "os"]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_hf_import(path):
+    bad = [n for n in module_level_imports(path) if n.split(".")[0] in OPTIONAL]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"

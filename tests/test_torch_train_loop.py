@@ -35,6 +35,7 @@ from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.llama import params_from_numpy, tree_leaves
 from nanodiloco_tpu_torch.obs import tracer
 from nanodiloco_tpu_torch.parallel import diloco as port_diloco
+from nanodiloco_tpu_torch.resilience.retry import RetryError
 from nanodiloco_tpu_torch.training import metrics
 from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager
 from nanodiloco_tpu_torch.training.train_loop import TrainConfig, train
@@ -45,13 +46,13 @@ CFG = LlamaConfig(vocab_size=384, hidden_size=32, intermediate_size=64,
 COMMON = dict(seed=1337, batch_size=4, per_device_batch_size=2, seq_length=32,
               warmup_steps=2, total_steps=6, inner_steps=3, lr=1e-3, num_workers=2,
               eval_every=1, eval_batches=2, quiet=True)
-# JSONL keys only the JAX loop writes, from subsystems the port has not
-# ported: device-time accounting (devtime), cost analysis
-# (t_cost_analysis and its record), the fused loop's differenced comm
+# JSONL keys only the JAX loop writes: the fused loop's differenced comm
 # probe (t_comm_probe: the port times the outer step directly), and the
-# goodput ledger's records
-UNPORTED_KEYS = {"devtime", "t_cost_analysis", "t_comm_probe"}
-UNPORTED_RECORDS = ("goodput", "cost_analysis")
+# compiled program's own billed cost (eager PyTorch has none)
+UNPORTED_KEYS = {"t_comm_probe"}
+UNPORTED_COST_KEYS = {"flops_billed", "bytes_accessed_billed"}
+# the records that are not per-step metrics, compared on their own
+SIDE_RECORDS = ("goodput", "cost_analysis")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -70,7 +71,12 @@ def read(path):
 
 
 def step_records(path):
-    return [r for r in read(path) if not any(k in r for k in UNPORTED_RECORDS)]
+    return [r for r in read(path) if not any(k in r for k in SIDE_RECORDS)]
+
+
+def side_records(path, kind):
+    """(step, keys of the record's body) of each ``kind`` record."""
+    return [(r.get("step"), set(r[kind])) for r in read(path) if kind in r]
 
 
 def port_config(tmp_path, **kw) -> TrainConfig:
@@ -134,7 +140,13 @@ def test_record_keys_match_jax_but_the_unported(runs):
         want = set(j) - UNPORTED_KEYS
         got = set(p) - ({"t_sync"} if i < 3 else set())
         assert got == want, (i, got ^ want)
-    assert not any(k in r for r in read(runs["port_jsonl"]) for k in UNPORTED_RECORDS)
+    # the goodput snapshots (one a round and a final one) and the one
+    # cost_analysis record, at the same steps with the same keys
+    assert (side_records(runs["port_jsonl"], "goodput")
+            == side_records(runs["jax_jsonl"], "goodput"))
+    [(jstep, jkeys)] = side_records(runs["jax_jsonl"], "cost_analysis")
+    assert side_records(runs["port_jsonl"], "cost_analysis") == [
+        (jstep, jkeys - UNPORTED_COST_KEYS)]
     summary_keys = {"final_loss", "steps", "avg_sync_time_s", "comm_share", "run_name",
                     "state", "eval_loss", "eval_perplexity", "eval_tokens"}
     assert summary_keys <= set(runs["port"])
@@ -262,7 +274,8 @@ def test_no_prefetch_thread_survives_a_failed_train(tmp_path, monkeypatch):
 
 def test_train_on_a_tokenshard(tmp_path):
     """--dataset-path X.tshrd: the manifest sizes the vocabulary (no fit)
-    and the holdout comes from the shard's tail."""
+    and the holdout comes from the shard's tail; another path is read as
+    an HF datasets directory."""
     rows = pipeline.pack_corpus(pipeline.synthetic_corpus(n_docs=200, seed=0),
                                 ByteTokenizer(), 32)
     path = str(tmp_path / "data.tshrd")
@@ -277,7 +290,8 @@ def test_train_on_a_tokenshard(tmp_path):
     assert sidecar["model"]["vocab_size"] == 512 and sidecar["tokenizer"] is None
     with pytest.raises(ValueError, match="seq-length"):
         train(port_config(tmp_path, dataset_path=path, seq_length=64), device="cpu")
-    with pytest.raises(ValueError, match="prepare_data.py"):
+    # any other path is an HF datasets directory, fetched under retries
+    with pytest.raises(RetryError, match="hf_dir not found"):
         train(port_config(tmp_path, dataset_path=str(tmp_path / "hf_dir")), device="cpu")
 
 

@@ -40,11 +40,12 @@ CFG = LlamaConfig(vocab_size=384, hidden_size=32, intermediate_size=64,
 COMMON = dict(seed=1337, batch_size=4, per_device_batch_size=2, seq_length=32,
               warmup_steps=2, total_steps=6, inner_steps=3, lr=1e-3, num_workers=2,
               quiet=True)
-# JSONL keys and records of JAX subsystems the port has not ported
-# (device-time accounting, cost analysis, the fused loop's differenced
-# comm probe, the goodput ledger)
-UNPORTED_KEYS = {"devtime", "t_cost_analysis", "t_comm_probe"}
-UNPORTED_RECORDS = ("goodput", "cost_analysis")
+# the JSONL key only the JAX loop writes: the fused loop's differenced
+# comm probe (the port times the outer step directly)
+UNPORTED_KEYS = {"t_comm_probe"}
+# the goodput snapshots, compared on their own (cost analysis is off on
+# both sides here: the JAX side's extra lowering costs test time)
+SIDE_RECORDS = ("goodput",)
 DYN_KEYS = ("pg_norm", "drift_max", "drift_mean", "outer_momentum_norm", "outer_update_cos")
 MODE_KEYS = ("wire_bytes_per_sync", "wire_compression", "wire_bytes_total",
              "quarantined_workers", "workers_active", "inner_steps_realized",
@@ -70,7 +71,13 @@ def one_intra_op_thread():
 
 def records(path):
     return [r for r in (json.loads(line) for line in open(path))
-            if not any(k in r for k in UNPORTED_RECORDS)]
+            if not any(k in r for k in SIDE_RECORDS)]
+
+
+def goodput_records(path):
+    """(step, keys) of each goodput snapshot."""
+    return [(r.get("step"), set(r["goodput"])) for r in map(json.loads, open(path))
+            if "goodput" in r]
 
 
 def run_both(d, name, **kw):
@@ -78,7 +85,8 @@ def run_both(d, name, **kw):
     jcfg = JaxConfig(**CFG.to_dict())
     tree = jax.tree.map(np.asarray, jax_init(jax.random.key(COMMON["seed"]), jcfg))
     with jax.default_matmul_precision("highest"):
-        # no cost analysis on the JAX side: its extra lowering is not ported
+        # no cost analysis on either side: the JAX side's extra lowering
+        # costs test time (tests/test_torch_train_loop.py compares it)
         jsum = jax_train(JaxTrainConfig(**COMMON, **kw, model=jcfg, log_dir=str(d / "jax"),
                                         run_name=name, preempt_signals=False,
                                         cost_analysis=False))
@@ -86,9 +94,10 @@ def run_both(d, name, **kw):
         mp.setattr(port_diloco, "init_params",
                    lambda generator, cfg, device: params_from_numpy(tree, device))
         psum = train(TrainConfig(**COMMON, **kw, model=CFG, log_dir=str(d / "port"),
-                                 run_name=name), device="cpu")
-    return (records(d / "jax" / f"{name}.jsonl"), records(d / "port" / f"{name}.jsonl"),
-            jsum, psum)
+                                 run_name=name, cost_analysis=False), device="cpu")
+    jpath, ppath = d / "jax" / f"{name}.jsonl", d / "port" / f"{name}.jsonl"
+    assert goodput_records(ppath) == goodput_records(jpath)
+    return records(jpath), records(ppath), jsum, psum
 
 
 @pytest.fixture(scope="module")
