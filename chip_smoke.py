@@ -145,11 +145,13 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  8B-width bf16 HF fixture at the train phase's configuration,
                  5 rounds, quarantine, --straggler-factor 1.5, --metrics-port 0,
                  a status file and a fault plan (nan_params, io_error x2 on the
-                 save, a 3 s stall, a 2 s straggle). Checks: its first step's
+                 save, a 34 s stall, a 2 s straggle). Checks: its first step's
                  loss equals an in-process train() on the same weights bit for
                  bit; the NaN round's sync quarantines 1 worker and every loss
-                 is finite; the one final save succeeds after 2 retries; a
-                 stall alarm; a straggler demote then a restore; the final
+                 is finite; the one final save succeeds after 2 retries; one
+                 stall alarm past the watchdog's 30 s floor after the stalled
+                 round (and none but the final save's after it); a straggler
+                 demote then a restore; the final
                  goodput snapshot's causes sum to its elapsed time within 1%
                  with ~2 s of straggler_wait and the stall's wait; a /metrics
                  scrape during the final save agrees with the JSONL; every
@@ -168,7 +170,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, and the files
-of phases 13-15 under /dev/shm/nanodiloco_chip_smoke/ (a tmpfs: the
+of phases 13-15 in a directory of its own under /dev/shm (a tmpfs: the
 card's machine allows a run 45 GiB of disk writes, and
 checkpoint_full takes 40.6 GB of them), each removed at the end.
 """
@@ -188,6 +190,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -216,11 +219,8 @@ from nanodiloco_tpu_torch.models.generate import (
     noise_uniforms,
     serving_params,
 )
-from nanodiloco_tpu_torch.models.hf_interop import (
-    from_hf_pretrained,
-    hf_config,
-    save_hf_pretrained,
-)
+from nanodiloco_tpu_torch.models import safetensors_io
+from nanodiloco_tpu_torch.models.hf_interop import _export_plan, from_hf_pretrained, hf_config
 from nanodiloco_tpu_torch.models.llama import (
     causal_lm_loss,
     forward,
@@ -231,6 +231,7 @@ from nanodiloco_tpu_torch.models.llama import (
 from nanodiloco_tpu_torch.obs.costs import analytic_mfu
 from nanodiloco_tpu_torch.obs.goodput import CAUSES as GOODPUT_CAUSES
 from nanodiloco_tpu_torch.obs.telemetry import parse_metrics_text
+from nanodiloco_tpu_torch.obs.watchdog import WatchdogConfig
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
 from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
@@ -248,10 +249,11 @@ from nanodiloco_tpu_torch.training.train_loop import TrainConfig, train
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
-# the files of hf_8b, faults_8b and supervise_small: in RAM (/dev/shm, a
-# tmpfs), because a run on the card's machine may write 45 GiB to its
-# disk and checkpoint_full writes 40.6 GB there
-MEM_WORK = Path("/dev/shm") / "nanodiloco_chip_smoke"
+# the files of hf_8b, faults_8b and supervise_small go in a directory of
+# this run's own in RAM (/dev/shm, a tmpfs; main() makes it and removes
+# it), because a run on the card's machine may write 45 GiB to its disk
+# and checkpoint_full writes 40.6 GB there
+MEM_PARENT = "/dev/shm"
 
 REPLACES = {
     "flash_fwd": "nanodiloco_tpu/ops/pallas/flash_attention.py:347",
@@ -1957,10 +1959,42 @@ def greedy_streams(params, cfg, prompts) -> list[list[int]]:
     return out
 
 
-def phase_hf_8b(sp, smi: str) -> dict:
+def write_hf_bf16(params, cfg: LlamaConfig, out_dir: Path,
+                  max_shard_bytes: int = 5 * 10**9) -> list[str]:
+    """An HF checkpoint in bf16, as Meta ships Llama-3 (the package's
+    writer exports float32, as the JAX package's does): the export plan's
+    tensors cast back to bf16 (exact, since they were bf16), packed in
+    order into shards of at most max_shard_bytes, the index when there
+    is more than one shard, and config.json. Returns the file names."""
+    shards: list[list] = [[]]
+    acc = 0
+    for key, _, shape, produce in _export_plan(params, cfg, include_tied_head=False):
+        nbytes = 2 * math.prod(shape)
+        if shards[-1] and acc + nbytes > max_shard_bytes:
+            shards.append([])
+            acc = 0
+        shards[-1].append((key, torch.bfloat16, shape, lambda p=produce: p().bfloat16()))
+        acc += nbytes
+    out_dir.mkdir(parents=True, exist_ok=True)
+    n = len(shards)
+    names = (["model.safetensors"] if n == 1
+             else [f"model-{i + 1:05d}-of-{n:05d}.safetensors" for i in range(n)])
+    weight_map, total = {}, 0
+    for name, entries in zip(names, shards):
+        total += safetensors_io.write_file(str(out_dir / name), entries, {"format": "pt"})
+        weight_map.update(dict.fromkeys((e[0] for e in entries), name))
+    if n > 1:
+        index = {"metadata": {"total_size": total}, "weight_map": weight_map}
+        (out_dir / "model.safetensors.index.json").write_text(json.dumps(index, indent=1))
+        names.append("model.safetensors.index.json")
+    (out_dir / "config.json").write_text(json.dumps(hf_config(cfg, "bfloat16"), indent=1))
+    return names
+
+
+def phase_hf_8b(sp, mem: Path, smi: str) -> dict:
     """Llama-3-8B at full depth (32 layers) in bf16, written as an HF
     checkpoint in Meta's layout (4 safetensors shards, the index, a
-    config.json from the LLAMA3_8B preset) in MEM_WORK, and imported back
+    config.json from the LLAMA3_8B preset) in ``mem``, and imported back
     with from_hf_pretrained onto the card: its seconds, GB/s and device
     bytes, and the host RSS it adds (sampled; it must stay under one
     stacked leaf plus one layer tensor); every leaf must equal the written
@@ -1968,15 +2002,12 @@ def phase_hf_8b(sp, smi: str) -> dict:
     the originals. Returns the first layer's bf16 weights (the faults_8b
     fixture)."""
     cfg = dataclasses.replace(LLAMA3_8B, param_dtype="bfloat16")
-    hf_dir = MEM_WORK / "hf_8b"
-    shutil.rmtree(hf_dir, ignore_errors=True)
+    hf_dir = mem / "hf_8b"
     ref = bf16_tree(sp)
     nbytes = tree_bytes(ref)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    written = save_hf_pretrained(ref, cfg, str(hf_dir), max_shard_bytes=5 * 10**9,
-                                 dtype=torch.bfloat16)
-    (hf_dir / "config.json").write_text(json.dumps(hf_config(cfg, "bfloat16"), indent=1))
+    written = write_hf_bf16(ref, cfg, hf_dir)
     shards = sorted(hf_dir.glob("model-*.safetensors"))
     write_s = time.perf_counter() - t0
     want = [f"model-0000{i}-of-00004.safetensors" for i in range(1, 5)]
@@ -2022,7 +2053,7 @@ def phase_hf_8b(sp, smi: str) -> dict:
     emit(phase="hf_8b", ok=True, nvidia_smi=smi, layers=cfg.num_hidden_layers,
          param_bytes=nbytes, file_bytes=file_bytes, files=written, write_s=write_s,
          write_gb_per_s=file_bytes / write_s / 1e9,
-         files_in=str(MEM_WORK), import_s=import_s,
+         files_in=str(mem), import_s=import_s,
          import_gb_per_s=file_bytes / import_s / 1e9, host_rss_before_import_bytes=rss["before"],
          host_peak_rss_bytes=rss["peak"], host_rss_rise_bytes=rss_rise,
          rss_bound_bytes=largest_leaf + layer_tensor, largest_leaf_bytes=largest_leaf,
@@ -2033,14 +2064,17 @@ def phase_hf_8b(sp, smi: str) -> dict:
 
 
 FAULTS_ROUNDS = 5
-# nan_params fires at round 2's top; the stall in round 3's prefetch (the
-# round before has one heartbeat interval, so factor 2 trips on it);
-# the straggle inside round 4, after the stall's long interval has raised
-# the mean (no second stall alarm), and round 5 restores the worker
+# the watchdog calls no silence under its floor a stall (30 s, as in the
+# JAX package) and looks every poll_s (2 s): the injected stall outlasts both
+WATCH = WatchdogConfig()
+STALL_S = WATCH.min_stall_s + 2 * WATCH.poll_s
+# nan_params fires at round 2's top; the stall in round 3's prefetch,
+# after round 2's heartbeat; the straggle inside round 4 (2 s, far under
+# the floor), and round 5 restores the worker
 FAULT_PLAN_8B = [
     {"kind": "nan_params", "step": 3, "worker": 1},
     {"kind": "io_error", "step": 1, "op": "save", "count": 2},
-    {"kind": "stall", "step": 3, "seconds": 3.0},
+    {"kind": "stall", "step": 3, "seconds": STALL_S},
     {"kind": "straggler", "step": 7, "worker": 0, "seconds": 2.0, "rounds": 1},
 ]
 
@@ -2066,7 +2100,7 @@ def wait_for(pred, proc: subprocess.Popen, what: str, log: Path, timeout: float 
         time.sleep(0.02)
 
 
-def phase_faults_8b(fixture: dict, smi: str) -> dict:
+def phase_faults_8b(fixture: dict, mem: Path, smi: str) -> dict:
     """Train from an HF checkpoint under a fault plan, then export: one
     CLI run at the train phase's 8B width (1 layer) from a bf16 HF
     fixture, with quarantine, the straggler policy, a /metrics port, a
@@ -2076,13 +2110,11 @@ def phase_faults_8b(fixture: dict, smi: str) -> dict:
     the JSONL; then `export-hf --max-shard-gb 2` of its checkpoint,
     re-imported and held leaf by leaf against the checkpoint's snapshot.
     Returns the run's kernel launches."""
-    work = MEM_WORK / "faults_8b"
-    shutil.rmtree(work, ignore_errors=True)
+    work = mem / "faults_8b"
     hf_dir = work / "hf"
     model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1)
     t0 = time.perf_counter()
-    save_hf_pretrained(fixture, model, str(hf_dir), dtype=torch.bfloat16)
-    (hf_dir / "config.json").write_text(json.dumps(hf_config(model, "bfloat16"), indent=1))
+    write_hf_bf16(fixture, model, hf_dir)
     fixture_bytes = os.path.getsize(hf_dir / "model.safetensors")
     fixture_s = time.perf_counter() - t0
     plan = work / "plan.json"
@@ -2093,12 +2125,11 @@ def phase_faults_8b(fixture: dict, smi: str) -> dict:
     def records() -> list[dict]:
         return read_jsonl_records(str(jsonl))[0] if jsonl.exists() else []
 
-    env = {**os.environ, "NANODILOCO_WATCH_MIN_STALL_S": "1"}
     t0 = time.perf_counter()
     with open(log, "w") as out:
         proc = subprocess.Popen([sys.executable, "-m", "nanodiloco_tpu_torch", *args,
                                  "--fault-plan", str(plan)],
-                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, env=env)
+                                cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
     try:
         last = 2 * FAULTS_ROUNDS
         wait_for(lambda: any(r.get("goodput") and r.get("step") == last for r in records()),
@@ -2146,16 +2177,24 @@ def phase_faults_8b(fixture: dict, smi: str) -> dict:
     if len(retries) != 2 or latest != last or any(r.get("alarm") == "ckpt_save_failed"
                                                   for r in final):
         fail("faults_8b", f"save: {len(retries)} retries, checkpoint at {latest}")
+    # one alarm for the stall, after round 2's heartbeat; the only other a
+    # sentinel may raise is the final save's (40.6 GB, written while no
+    # round beats, for longer than the floor)
     stall_alarms = [r for r in final if r.get("alarm") == "stall"]
-    if not any(r["step"] == 4 for r in stall_alarms):
-        fail("faults_8b", f"no stall alarm after the round-2 heartbeat: {stall_alarms}")
+    after_stall = [r for r in stall_alarms if r["step"] == 4]
+    if (len(after_stall) != 1 or after_stall[0]["limit_s"] != WATCH.min_stall_s
+            or any(r["step"] not in (4, last) for r in stall_alarms)
+            or len(stall_alarms) > 2):
+        fail("faults_8b", f"want one stall alarm after the round-2 heartbeat at the "
+                          f"{WATCH.min_stall_s} s floor: {stall_alarms}")
     elastic = [(r["elastic"], r["step"], r.get("worker")) for r in final if r.get("elastic")]
     if elastic != [("straggler_demote", 8, 0), ("straggler_restore", 10, 0)]:
         fail("faults_8b", f"elastic records {elastic}")
     gp = [r["goodput"] for r in final if r.get("goodput")][-1]
     cause_sum = sum(gp[f"{c}_s"] for c in GOODPUT_CAUSES)
     if (not gp.get("final") or abs(cause_sum - gp["elapsed_s"]) > 0.01 * gp["elapsed_s"]
-            or not 1.9 <= gp["straggler_wait_s"] <= 2.5 or not 1.0 <= gp["stall_s"] <= 3.5):
+            or not 1.9 <= gp["straggler_wait_s"] <= 2.5
+            or not STALL_S - 2 <= gp["stall_s"] <= STALL_S + 0.5):
         fail("faults_8b", f"goodput snapshot {gp} (causes sum to {cause_sum})")
     launches = summary["kernel_launches"]
     if min(launches.values()) == 0:
@@ -2234,7 +2273,7 @@ def child_pids(pid: int) -> list[int]:
     return out
 
 
-def phase_supervise_small(smi: str) -> None:
+def phase_supervise_small(mem: Path, smi: str) -> None:
     """`supervise` over the CLI at the resume phase's size: a crash fault at
     step 5 (exit 71, restart from the step-4 checkpoint after a backoff),
     then SIGTERM to the second child once it has trained past its resume
@@ -2242,8 +2281,7 @@ def phase_supervise_small(smi: str) -> None:
     final snapshot must equal an uninterrupted run's, run beside it, bit
     for bit; `report faults` and `report goodput` must show the three
     lifetimes and restart_downtime > 0."""
-    work = MEM_WORK / "supervise"
-    shutil.rmtree(work, ignore_errors=True)
+    work = mem / "supervise"
     work.mkdir(parents=True)
     model_file = work / "model.json"
     model_file.write_text(json.dumps(RESUME_MODEL.to_dict()))
@@ -2368,15 +2406,20 @@ def main() -> None:
     phase_serve_modes_small(smi)
     serve_launches, sp = phase_serve(smi)
     phase_serve_paged(sp, smi)
-    fixture = phase_hf_8b(sp, smi)
-    del sp
-    torch.cuda.empty_cache()
-    faults_launches = phase_faults_8b(fixture, smi)
-    del fixture
-    torch.cuda.empty_cache()
-    phase_supervise_small(smi)
+    # this run's own directory: a second run on the same machine never
+    # shares (or removes) its files
+    mem = Path(tempfile.mkdtemp(prefix="nanodiloco_chip_smoke_", dir=MEM_PARENT))
+    try:
+        fixture = phase_hf_8b(sp, mem, smi)
+        del sp
+        torch.cuda.empty_cache()
+        faults_launches = phase_faults_8b(fixture, mem, smi)
+        del fixture
+        torch.cuda.empty_cache()
+        phase_supervise_small(mem, smi)
+    finally:
+        shutil.rmtree(mem, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
-    shutil.rmtree(MEM_WORK, ignore_errors=True)
 
     emit(kernels=[
         {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],

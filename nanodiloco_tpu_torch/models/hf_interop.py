@@ -185,17 +185,18 @@ def from_hf_pretrained(path: str, cfg: LlamaConfig,
         return _build_params(src.get, src.has, cfg, device)
 
 
-def _export_plan(params: Params, cfg: LlamaConfig, include_tied_head: bool = True,
-                 dtype: torch.dtype = torch.float32) -> list[st.Entry]:
+def _export_plan(params: Params, cfg: LlamaConfig,
+                 include_tied_head: bool = True) -> list[st.Entry]:
     """Ordered ``(hf_key, dtype, shape, produce)`` entries. ``produce()``
-    materializes that one tensor on the host, contiguous, in ``dtype``,
-    in HF's orientation; shapes are known up front, so the sharded
-    writer plans its files without touching data."""
+    materializes that one tensor on the host, contiguous, in float32, in
+    HF's orientation; shapes are known up front, so the sharded writer
+    plans its files without touching data."""
     _check_dense(cfg)
+    dtype = torch.float32
 
     def of(t: torch.Tensor, transpose: bool = False) -> Callable[[], torch.Tensor]:
         # transposed and cast where the tensor lives, then one copy out
-        return lambda: (t.T if transpose else t).detach().to(dtype).contiguous().cpu()
+        return lambda: (t.T if transpose else t).detach().float().contiguous().cpu()
 
     def shape(t: torch.Tensor, transpose: bool = False) -> tuple[int, ...]:
         return tuple(t.shape)[::-1] if transpose else tuple(t.shape)
@@ -246,24 +247,21 @@ def hf_config(cfg: LlamaConfig, torch_dtype: str = "float32") -> dict[str, Any]:
 
 
 def save_hf_pretrained(params: Params, cfg: LlamaConfig, out_dir: str,
-                       max_shard_bytes: int = 5 * 1024**3,
-                       dtype: torch.dtype = torch.float32) -> list[str]:
+                       max_shard_bytes: int = 5 * 1024**3) -> list[str]:
     """Write an HF-layout checkpoint under ``out_dir``, one tensor in
     host memory at a time: ``model-XXXXX-of-XXXXX.safetensors`` files
     plus ``model.safetensors.index.json`` when the tensors exceed
     ``max_shard_bytes`` (5 GiB by default), else one ``model.safetensors``.
-    Tensors are written in ``dtype`` (float32 by default, as the JAX
-    package exports). A tied ``lm_head.weight`` is left out, as
+    Tensors are written in float32, as the JAX package exports. A tied ``lm_head.weight`` is left out, as
     ``save_pretrained`` does. Files this writer names that a previous
     export left in ``out_dir`` are removed first (a stale index would
     win the reader's index-first probe); nothing else there is touched.
     Returns the written file names."""
-    plan = _export_plan(params, cfg, include_tied_head=False, dtype=dtype)
-    itemsize = torch.empty((), dtype=dtype).element_size()
+    plan = _export_plan(params, cfg, include_tied_head=False)
     shards: list[list[int]] = [[]]
     acc = 0
     for idx, (_key, _dt, shape, _produce) in enumerate(plan):
-        nbytes = itemsize * int(np.prod(shape, dtype=np.int64))
+        nbytes = 4 * int(np.prod(shape, dtype=np.int64))
         if shards[-1] and acc + nbytes > max_shard_bytes:
             shards.append([])
             acc = 0

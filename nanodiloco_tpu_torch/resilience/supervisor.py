@@ -44,7 +44,6 @@ import dataclasses
 import json
 import os
 import random
-import re
 import signal
 import subprocess
 import sys
@@ -53,6 +52,7 @@ import time
 from typing import Callable
 
 from nanodiloco_tpu_torch.resilience.retry import jittered_backoff
+from nanodiloco_tpu_torch.training.checkpoint import committed_steps
 
 #: EX_TEMPFAIL — the child checkpointed at a round boundary and exited
 #: because it was asked to (SIGTERM/SIGINT). Resume immediately.
@@ -81,9 +81,6 @@ DOWNTIME_ENV = "NANODILOCO_DOWNTIME_S"
 #: width here and preempt-exits, so an injected capacity change flows
 #: through the REAL control-plane path end to end.
 WORKERS_TARGET_ENV = "NANODILOCO_WORKERS_TARGET"
-
-# a committed checkpoint of training/checkpoint.py
-_STEP_FILE = re.compile(r"step_(\d+)\.pt")
 
 
 def find_blackbox_dump(
@@ -136,14 +133,12 @@ def find_blackbox_dump(
 
 def latest_checkpoint_step(directory: str | None) -> int | None:
     """Latest committed checkpoint step in the port's checkpoint dir,
-    read from file names alone (the supervisor must stay a featherweight
-    parent that imports no torch): a save writes ``step_<n>.tmp`` and
-    renames it to ``step_<n>.pt`` once it is on disk
-    (training/checkpoint.py), so only ``.pt`` names are committed."""
+    read from file names alone (``committed_steps``: ``step_<n>.pt``,
+    never a ``.tmp`` mid-save); None when there is none."""
     if not directory or not os.path.isdir(directory):
         return None
-    steps = [int(m.group(1)) for m in map(_STEP_FILE.fullmatch, os.listdir(directory)) if m]
-    return max(steps) if steps else None
+    steps = committed_steps(directory)
+    return steps[-1] if steps else None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,6 +44,14 @@ from nanodiloco_tpu_torch.resilience.retry import RetryPolicy, retry_call
 _STEP_FILE = re.compile(r"step_(\d+)\.pt")
 
 
+def committed_steps(directory: str) -> list[int]:
+    """The committed checkpoint steps in ``directory``, oldest first: a
+    save writes ``step_<n>.tmp`` and renames it to ``step_<n>.pt`` once
+    it is on disk, so ``.tmp`` files never count."""
+    found = (_STEP_FILE.fullmatch(name) for name in os.listdir(directory))
+    return sorted(int(m.group(1)) for m in found if m)
+
+
 def named_leaves(tree: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
     """``[("embed", t), ("final_norm", t), ("layers/attn_norm", t), ...]``
     in ``tree_leaves`` order (sorted keys, depth first)."""
@@ -146,8 +154,7 @@ class CheckpointManager:
 
     def steps(self) -> list[int]:
         """Committed steps, oldest first (``.tmp`` files never count)."""
-        found = (_STEP_FILE.fullmatch(name) for name in os.listdir(self.directory))
-        return sorted(int(m.group(1)) for m in found if m)
+        return committed_steps(self.directory)
 
     @property
     def latest_step(self) -> int | None:

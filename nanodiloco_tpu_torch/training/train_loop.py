@@ -136,13 +136,6 @@ def _stall_escalate_s() -> float:
     return float(os.environ.get("NANODILOCO_STALL_ESCALATE_S", "120"))
 
 
-def _min_stall_s() -> float:
-    """The stall sentinel's floor in seconds (``WatchdogConfig.min_stall_s``,
-    30 by default): a stall shorter than this never alarms. Env-overridable
-    so a short injected stall can prove the sentinel end to end."""
-    return float(os.environ.get("NANODILOCO_WATCH_MIN_STALL_S", "30"))
-
-
 def _env_number(name: str, kind: type, default):
     try:
         return kind(os.environ.get(name, "") or default)
@@ -608,10 +601,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         WatchdogConfig(
             loss_zscore=cfg.watch_loss_zscore, loss_window=cfg.watch_loss_window,
             tps_collapse_frac=cfg.watch_tps_collapse, stall_factor=cfg.watch_stall_factor,
-            drift_threshold=cfg.watch_drift, min_stall_s=_min_stall_s(),
-            # the heartbeat thread polls at most every 2 s, and at least
-            # four times within the floor
-            poll_s=min(2.0, _min_stall_s() / 4),
+            drift_threshold=cfg.watch_drift,
         ),
         emit=logger.log, status_path=cfg.status_file, on_fatal=on_fatal,
     )

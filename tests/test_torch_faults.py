@@ -14,6 +14,7 @@ checkpoint repeats the same arithmetic: bit for bit. A real crash
 ``"raise": true`` variant stands in, as in the JAX tests.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -31,6 +32,7 @@ from nanodiloco_tpu.training.train_loop import TrainConfig as JaxTrainConfig
 from nanodiloco_tpu.training.train_loop import train as jax_train
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.llama import params_from_numpy, tree_leaves
+from nanodiloco_tpu_torch.obs.watchdog import WatchdogConfig
 from nanodiloco_tpu_torch.parallel import diloco as port_diloco
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig
 from nanodiloco_tpu_torch.resilience import faults
@@ -49,6 +51,7 @@ from nanodiloco_tpu_torch.resilience.supervisor import (
     WORKERS_TARGET_ENV,
     latest_checkpoint_step,
 )
+from nanodiloco_tpu_torch.training import train_loop
 from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager
 from nanodiloco_tpu_torch.training.elastic import load_schedule
 from nanodiloco_tpu_torch.training.train_loop import TrainConfig, train
@@ -373,7 +376,9 @@ def test_restore_io_fault_fires_through_train(tmp_path):
 def test_stall_fault_trips_the_watchdog_through_train(tmp_path, monkeypatch):
     """The prefetch's injected stall opens a real silent gap between round
     heartbeats: the stall sentinel fires on the real clock."""
-    monkeypatch.setenv("NANODILOCO_WATCH_MIN_STALL_S", "0.3")
+    # the watchdog's 30 s floor and 2 s poll, scaled down to the test's clock
+    monkeypatch.setattr(train_loop, "WatchdogConfig",
+                        functools.partial(WatchdogConfig, min_stall_s=0.3, poll_s=0.075))
     plan = write_plan(tmp_path, [{"kind": "stall", "step": 4, "seconds": 1.2}])
     summary = train(small_cfg(tmp_path, total_steps=12, fault_plan=plan, watch_stall_factor=2.0,
                               status_file=str(tmp_path / "status.json"), run_name="stall"),

@@ -29,6 +29,7 @@ from nanodiloco_tpu.models import from_hf_state_dict as jax_from_hf_state_dict
 from nanodiloco_tpu.models import save_hf_pretrained as jax_save_hf_pretrained
 from nanodiloco_tpu.models import to_hf_state_dict as jax_to_hf_state_dict
 from nanodiloco_tpu_torch.models import hf_interop as hf
+from nanodiloco_tpu_torch.models import safetensors_io as st
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.llama import (
     causal_lm_loss,
@@ -186,7 +187,10 @@ def test_bf16_export_imports_in_bf16_without_loss(tmp_path):
     cfg = dataclasses.replace(CFG, param_dtype="bfloat16")
     params = {k: v for k, v in params_from_numpy(numpy_params(CFG, 8), "cpu").items()}
     params = jax.tree.map(lambda t: t.bfloat16(), params)
-    hf.save_hf_pretrained(params, cfg, str(tmp_path), dtype=torch.bfloat16)
+    # the export plan's float32 tensors back in bf16 (exact), in one file
+    entries = [(key, torch.bfloat16, shape, lambda p=produce: p().bfloat16())
+               for key, _, shape, produce in hf._export_plan(params, cfg, False)]
+    st.write_file(str(tmp_path / "model.safetensors"), entries, {"format": "pt"})
     back = hf.from_hf_pretrained(str(tmp_path), cfg, "cpu")
     for a, b in zip(tree_leaves(params), tree_leaves(back)):
         assert b.dtype == torch.bfloat16 and b.is_contiguous() and torch.equal(a, b)
