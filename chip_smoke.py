@@ -166,11 +166,48 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  the third lifetime's resume record has restart_count 2, and
                  `report faults` / `report goodput` show the three lifetimes
                  with restart_downtime > 0.
+16. fleet_8b   - serve's Llama-3-8B weights (32 layers, bf16, seed 0, made
+                 again on the card) behind the port's fleet. Two replicas over
+                 one params tree (r0 paged, r1 dense, 4 x 1024 each), each
+                 behind the port's HTTP server: 16 greedy requests (prompts
+                 of 64-600 tokens, 64 new) straight to the replicas, then
+                 through the FleetRouter's front door; every stream equals
+                 solo generate() or parts from it first at a near-tie, each
+                 routed token is the training forward's argmax (through B1)
+                 within NEAR_TIE, both replicas serve; the router's added
+                 latency (8 one-token requests each way); obs-watch (a
+                 subprocess) scrapes both replicas' /metrics throughout.
+                 Chaos: DRILL_PLAN through a ChaosProxy on r1's wire, a lone
+                 long request hedged (its loser cancelled on its replica),
+                 8 requests in pairs: no client connection dropped, every
+                 stream solo's or a near-tie, the breaker opens on r1, r0's
+                 block pool whole again; r1's engine loop stopped, r1 is
+                 ejected and r0 answers. Disagg: a prefill and a decode
+                 replica behind the DisaggRouter, every stream handed off and
+                 solo's or a near-tie; ship bytes per prompt token (131,072 at
+                 8B bf16), ship seconds, TTFT against the monolithic fleet's.
+                 The router's and both tiers' trace shards through `report
+                 merge-trace` and `report trace` (the critical path sums to
+                 the request's wall time); `report timeseries` and `report
+                 dashboard` of obs-watch's series. Peak memory and seconds.
+17. deploy_small - the train -> serve loop through the CLI at the resume
+                 size (an 8B-width checkpoint is 40.6 GB): train() writes
+                 steps 2, 4, 6; two `serve` replicas of step 2; `fleet
+                 --watch-checkpoint-dir` canaries step 4 (its held-out loss on
+                 the card, through B1) and promotes it, then rolls back a
+                 step 6 written with a NaN snapshot and never canaries it
+                 again; `report faults` of the events JSONL lists the
+                 promotion then the rollback; the fleet-goodput record's state
+                 seconds sum to the tracked replica-seconds within 1%; the
+                 CLI's canary losses equal this process's. Then `fleet
+                 --autoscale-template` over one `serve` replica: a burst takes
+                 the fleet from 1 to 2 replicas (the new child serves), idle
+                 drains it back to 1.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, and the files
-of phases 13-15 in a directory of its own under /dev/shm (a tmpfs: the
+of phases 13-17 in a directory of its own under /dev/shm (a tmpfs: the
 card's machine allows a run 45 GiB of disk writes, and
 checkpoint_full takes 40.6 GB of them), each removed at the end.
 """
@@ -239,6 +276,7 @@ from nanodiloco_tpu_torch.serve import (
     GenRequest,
     InferenceEngine,
     Scheduler,
+    ServeServer,
     http_get,
     http_post_json,
     kvship,
@@ -2374,6 +2412,616 @@ def phase_supervise_small(mem: Path, smi: str) -> None:
          report_faults=faults_out.getvalue().splitlines(), goodput=goodput)
 
 
+# -- the serving fleet (phases 16-17) ------------------------------------------
+
+FLEET_NEW = 64
+FLEET_DRILL_NEW = 32
+FLEET_SLOTS = 4
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def fire(url, docs: list[dict], concurrency: int, timeout: float = 300.0) -> list:
+    """POST every doc to ``url``/v1/generate (or doc i to ``url[i %
+    len(url)]``) from ``concurrency`` client threads: per doc (code,
+    reply, client seconds), or ("dropped", error) when the client's
+    connection failed (a dropped stream)."""
+    urls = [url] if isinstance(url, str) else list(url)
+
+    def one(i_doc):
+        i, doc = i_doc
+        t0 = time.perf_counter()
+        try:
+            code, out = http_post_json(urls[i % len(urls)] + "/v1/generate", doc,
+                                       timeout=timeout)
+        except Exception as e:  # a transport failure IS a dropped stream
+            return "dropped", f"{type(e).__name__}: {e}"
+        return code, out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=concurrency) as pool:
+        return list(pool.map(one, enumerate(docs)))
+
+
+def pctl(vals, p: float):
+    vals = sorted(v for v in vals if v is not None)
+    return vals[min(len(vals) - 1, max(0, math.ceil(p * len(vals)) - 1))] if vals else None
+
+
+def fleet_docs(prompts, new: int, tag: str, n: int) -> list[dict]:
+    return [{"token_ids": list(prompts[i % len(prompts)]), "max_new_tokens": new,
+             "temperature": 0.0, "stop": False, "prefix_cache": False,
+             "request_id": f"{tag}-{i}"} for i in range(n)]
+
+
+def fleet_streams(sp, cfg, prompts, refs, docs, results, phase: str, what: str) -> dict:
+    """Every reply must be a 200 whose greedy stream equals the solo
+    stream of its prompt (a prefix of it for a shorter request) or parts
+    from it first at a near-tie; returns the partings and the clients'
+    seconds."""
+    partings, walls = [], []
+    for doc, res in zip(docs, results):
+        if res[0] == "dropped":
+            fail(phase, f"{what}: request {doc['request_id']} dropped: {res[1]}")
+        code, out, wall = res
+        if code != 200:
+            fail(phase, f"{what}: request {doc['request_id']} answered {code}: {out}")
+        i = next(j for j, p in enumerate(prompts) if list(p) == doc["token_ids"])
+        stream, ref = out["token_ids"], refs[i][:doc["max_new_tokens"]]
+        if len(stream) != doc["max_new_tokens"]:
+            fail(phase, f"{what}: request {doc['request_id']} gave {len(stream)} tokens")
+        if stream != ref:
+            req = GenRequest(prompt=tuple(prompts[i]), max_new_tokens=len(stream))
+            partings.append({"request_id": doc["request_id"],
+                             **near_tie(sp, cfg, req, ref, stream, phase, what)})
+        walls.append(wall)
+    return {"partings": partings, "client_s": walls}
+
+
+def replica(eng, *, role: str = "both", tracer=None):
+    sched = Scheduler(eng, tracer=tracer, park_ttl_s=60.0)
+    srv = ServeServer(sched, port=0, host="127.0.0.1", max_new_tokens_cap=1024,
+                      role=role).start()
+    return sched, srv
+
+
+def wait_until(pred, phase: str, what: str, timeout: float = 60.0) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            fail(phase, f"timed out after {timeout} s waiting for {what}")
+        time.sleep(0.01)
+    return time.perf_counter() - t0
+
+
+def stop_loop(server: ServeServer, sched: Scheduler) -> None:
+    """The replica's engine loop dies (its next tick raises): /healthz
+    answers 503 from then on."""
+    def dead():
+        raise RuntimeError("engine loop stopped by the fleet drill")
+    sched.tick = dead
+    wait_until(lambda: not server.loop_alive(), "fleet_8b", "the engine loop to stop")
+
+
+def phase_fleet_8b(mem: Path, smi: str) -> dict:
+    """Serve's Llama-3-8B weights (32 layers, bf16, seed 0, made again on
+    the card) behind the port's fleet: two replicas (r0 paged, r1 dense,
+    4 slots x 1024 each) over one params tree, each behind the port's
+    HTTP server. (1) 16 greedy requests (prompts of 64-600 tokens, 64
+    new) straight to the replicas, then through the FleetRouter's front
+    door: every stream equals solo generate() or parts from it first at
+    a near-tie, each token is the training forward's argmax (through B1)
+    within the same tolerance, and both replicas serve; the router's
+    added latency from 8 sequential one-token requests each way, with
+    obs-watch scraping both replicas' /metrics throughout. (2) chaos:
+    DRILL_PLAN through a ChaosProxy in front of r1 (its slow drip and
+    500s), a lone long request hedged after 30% of its time alone, 8
+    requests in pairs under the same hedge delay:
+    no client connection drops, every stream solo's or a near-tie, the
+    breaker opens on r1, each losing hedge that reached a replica is
+    cancelled there and r0's block pool is whole again; then r1's engine
+    loop stops, r1 is ejected and the fleet answers on r0. (3) disagg:
+    a prefill and a decode replica behind the DisaggRouter: every stream
+    crosses the KV ship and is solo's or a near-tie; ship bytes per
+    prompt token, ship seconds, TTFT with and without the tiers. (4)
+    the router's and both tiers' trace shards through `report
+    merge-trace` and `report trace`: the critical path's segments sum to
+    the request's wall time; `report timeseries` and `report dashboard`
+    of obs-watch's series."""
+    from nanodiloco_tpu_torch.fleet import DisaggRouter, FleetRouter, Replica
+    from nanodiloco_tpu_torch.fleet.chaos import DRILL_PLAN, ChaosPlan, ChaosProxy
+    from nanodiloco_tpu_torch.obs.tracer import SpanTracer
+
+    phase, t_phase = "fleet_8b", time.perf_counter()
+    work = mem / "fleet"
+    work.mkdir()
+    cfg = LLAMA3_8B
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    sp = serve_weights(cfg)
+    prompts = random_prompts(cfg, SERVE_PROMPTS, seed=2)
+    t0 = time.perf_counter()
+    refs = [solo(sp, cfg, GenRequest(prompt=p, max_new_tokens=FLEET_NEW), "cuda")
+            for p in prompts]
+    solo_s = time.perf_counter() - t0
+    eng0 = InferenceEngine(sp, cfg, num_slots=FLEET_SLOTS, max_len=1024, chunk_size=512,
+                           kv_block_size=16, prefix_cache_tokens=0, device="cuda")
+    eng1 = InferenceEngine(sp, cfg, num_slots=FLEET_SLOTS, max_len=1024, chunk_size=512,
+                           prefix_cache_tokens=0, device="cuda")
+    (sched0, s0), (sched1, s1) = replica(eng0), replica(eng1)
+    url0, url1 = f"http://127.0.0.1:{s0.port}", f"http://127.0.0.1:{s1.port}"
+    series, alerts = work / "series.jsonl", work / "alerts.jsonl"
+    watch_log = open(work / "obs_watch.log", "w")
+    watch = subprocess.Popen(
+        [sys.executable, "-m", "nanodiloco_tpu_torch", "obs-watch", "--target", f"r0={url0}",
+         "--target", f"r1={url1}", "--interval-s", "0.5", "--series-jsonl", str(series),
+         "--alerts-jsonl", str(alerts), "--ttft-p95-max", "30", "--kv-blocks-free-min", "1",
+         "--quiet"], cwd=ROOT, stdout=watch_log, stderr=subprocess.STDOUT)
+    proxy = router = None
+    out: dict = {}
+    try:
+        load = fleet_docs(prompts, FLEET_NEW, "load", 16)
+        direct = fire([url0, url1], load, 2 * FLEET_SLOTS)
+        d_check = fleet_streams(sp, cfg, prompts, refs, load, direct, phase, "direct")
+        router = FleetRouter([Replica("r0", url0), Replica("r1", url1)], host="127.0.0.1",
+                             health_interval_s=0.2, hedge_after_s=0, quiet=True,
+                             events_jsonl=str(work / "router.jsonl")).start()
+        rurl = f"http://127.0.0.1:{router.port}"
+        wait_until(lambda: router.fleet_stats()["replicas_ready"] == 2, phase, "2 ready")
+        routed = fire(rurl, load, 2 * FLEET_SLOTS)
+        r_check = fleet_streams(sp, cfg, prompts, refs, load, routed, phase, "routed")
+        served = sorted({r[1]["served_by"] for r in routed})
+        if served != ["r0", "r1"]:
+            fail(phase, f"the router sent every request to {served}")
+        tf = [teacher_forcing(sp, cfg, GenRequest(prompt=p, max_new_tokens=FLEET_NEW),
+                              routed[i][1]["token_ids"]) for i, p in enumerate(prompts)]
+        if not all(t["ok"] for t in tf):
+            fail(phase, "a routed greedy token is not the training forward's argmax within "
+                        "the near-tie tolerance")
+        one = [{"token_ids": list(prompts[0]), "max_new_tokens": 1, "temperature": 0.0,
+                "stop": False, "prefix_cache": False}] * 8
+        hop = {name: [r[2] for r in fire(u, one, 1)] for name, u in (("direct", url0),
+                                                                       ("router", rurl))}
+        out["fleet"] = {
+            "requests": len(load), "served_by": served, "partings": r_check["partings"],
+            "direct_partings": d_check["partings"],
+            "teacher_forcing_exact_share": sum(t["exact"] for t in tf) / sum(t["n"] for t in tf),
+            "client_s_p50": {"direct": pctl(d_check["client_s"], 0.5),
+                             "router": pctl(r_check["client_s"], 0.5)},
+            "ttft_p50_s": {"direct": pctl([r[1]["timing"]["ttft_s"] for r in direct], 0.5),
+                           "router": pctl([r[1]["timing"]["ttft_s"] for r in routed], 0.5)},
+            "ttft_p95_s": {"direct": pctl([r[1]["timing"]["ttft_s"] for r in direct], 0.95),
+                           "router": pctl([r[1]["timing"]["ttft_s"] for r in routed], 0.95)},
+            "one_token_p50_s": {k: pctl(v, 0.5) for k, v in hop.items()},
+            "router_added_s_p50": pctl(hop["router"], 0.5) - pctl(hop["direct"], 0.5),
+        }
+        router.stop()
+
+        # (2) chaos: DRILL_PLAN on r1's wire. The hedge delay is 30% of
+        # the lone long request's own time, alone on r0
+        lone = fleet_docs([prompts[1]], FLEET_NEW, "hedge", 1)  # the 600-token prompt
+        lone_s = fire(url0, lone, 1)[0][2]
+        plan = ChaosPlan.from_dict(DRILL_PLAN)
+        proxy = ChaosProxy(url1, plan, "r1", host="127.0.0.1").start()
+        router = FleetRouter([Replica("r0", url0), Replica("r1", proxy.url)], host="127.0.0.1",
+                             health_interval_s=0.2, hedge_after_s=0.3 * lone_s,
+                             retry_budget_min=20.0,
+                             retry_budget_cap=40.0, breaker_window=4, breaker_min_samples=3,
+                             breaker_failure_rate=0.5, breaker_open_s=600.0, quiet=True,
+                             events_jsonl=str(work / "chaos.jsonl")).start()
+        rurl = f"http://127.0.0.1:{router.port}"
+        wait_until(lambda: router.fleet_stats()["replicas_ready"] == 2, phase, "2 ready")
+        cancelled0 = sched0.stats()["cancelled"] + sched1.stats()["cancelled"]
+        lone_res = fire(rurl, lone, 1)
+        fleet_streams(sp, cfg, prompts, refs, lone, lone_res, phase, "hedged")
+        if router.fleet_stats()["hedges"] != 1:
+            fail(phase, f"the lone long request was not hedged: {router.fleet_stats()}")
+        wait_until(lambda: sched0.stats()["cancelled"] + sched1.stats()["cancelled"]
+                   == cancelled0 + 1, phase, "the losing hedge's cancel")
+        drill = fleet_docs(prompts, FLEET_DRILL_NEW, "drill", 8)
+        drill_res = []
+        for k in range(0, len(drill), 2):
+            drill_res += fire(rurl, drill[k:k + 2], 2)
+        c_check = fleet_streams(sp, cfg, prompts, refs, drill, drill_res, phase, "chaos")
+        stats = router.fleet_stats()
+        events = [json.loads(line) for line in open(work / "chaos.jsonl")]
+        opened = [e["replica"] for e in events if e.get("deploy_event") == "breaker_open"]
+        if "r1" not in opened or stats["replicas_ejected"]:
+            fail(phase, f"chaos: hedges {stats['hedges']}, breaker opened on {opened}, "
+                        f"ejected {stats['replicas_ejected']}")
+        wait_until(lambda: sched0.stats()["slots_busy"] == 0
+                   and sched1.stats()["slots_busy"] == 0, phase, "idle slots")
+        wait_until(lambda: eng0.kv_stats()["blocks_free"] == eng0.kv_stats()["num_blocks"],
+                   phase, "r0's block pool to be whole")
+        cancels = sched0.stats()["cancelled"] + sched1.stats()["cancelled"] - cancelled0
+        stop_loop(s1, sched1)
+        eject_s = wait_until(lambda: router.state_of("r1")["status"] == "ejected", phase,
+                             "r1's ejection")
+        after = fleet_docs(prompts, FLEET_DRILL_NEW, "ejected", 2)
+        after_res = fire(rurl, after, 2)
+        fleet_streams(sp, cfg, prompts, refs, after, after_res, phase, "after the ejection")
+        if {r[1]["served_by"] for r in after_res} != {"r0"}:
+            fail(phase, "requests after r1's ejection were not all served by r0")
+        stats = router.fleet_stats()
+        out["chaos"] = {
+            "plan": "DRILL_PLAN on r1's wire", "injected": plan.counts(),
+            "lone_request_s": lone_s, "hedge_after_s": 0.3 * lone_s,
+            "requests": len(drill) + 1 + len(after), "dropped": 0,
+            "partings": c_check["partings"], "hedges": stats["hedges"],
+            "hedge_wins": stats["hedge_wins"], "replica_cancels": cancels,
+            "retries": stats["retries"], "breaker_opened_on": opened,
+            "breaker_state": stats["breaker_state"], "eject_seconds": eject_s,
+            "blocks_free_r0": eng0.kv_stats()["blocks_free"],
+            "num_blocks_r0": eng0.kv_stats()["num_blocks"],
+            "fleet_goodput_fraction": stats["fleet_goodput_fraction"],
+        }
+    finally:
+        if router is not None:
+            router.stop()
+        if proxy is not None:
+            proxy.stop()
+        s0.stop()
+        s1.stop()
+        watch.send_signal(signal.SIGTERM)
+        try:
+            watch.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            watch.kill()
+        watch_log.close()
+    if watch.returncode != 0:
+        fail(phase, f"obs-watch exited {watch.returncode}: "
+                    f"{(work / 'obs_watch.log').read_text()[-2000:]}")
+    del eng0, eng1
+    torch.cuda.empty_cache()
+
+    # (3) disaggregated prefill/decode with traces on every tier
+    tr = {name: SpanTracer(clock=time.monotonic, process_name=name)
+          for name in ("router", "serve prefill", "serve decode")}
+    pf_eng = InferenceEngine(sp, cfg, num_slots=FLEET_SLOTS, max_len=1024, chunk_size=512,
+                             kv_block_size=16, prefix_cache_tokens=0, device="cuda")
+    de_eng = InferenceEngine(sp, cfg, num_slots=FLEET_SLOTS, max_len=1024, chunk_size=512,
+                             kv_block_size=16, prefix_cache_tokens=0, device="cuda")
+    (_, pf), (_, de) = (replica(pf_eng, role="prefill", tracer=tr["serve prefill"]),
+                        replica(de_eng, role="decode", tracer=tr["serve decode"]))
+    router = DisaggRouter([Replica("pf", f"http://127.0.0.1:{pf.port}"),
+                           Replica("d0", f"http://127.0.0.1:{de.port}")], host="127.0.0.1",
+                          health_interval_s=0.2, tracer=tr["router"], quiet=True)
+    router.start()
+    try:
+        rurl = f"http://127.0.0.1:{router.port}"
+        wait_until(lambda: router.fleet_stats()["replicas_ready"] == 2, phase, "the tiers")
+        docs = fleet_docs(prompts, FLEET_NEW, "disagg", len(prompts))
+        res = fire(rurl, docs, FLEET_SLOTS)
+        g_check = fleet_streams(sp, cfg, prompts, refs, docs, res, phase, "disagg")
+        if any(r[1].get("disagg") != "handoff" for r in res):
+            fail(phase, f"not every request was handed off: {[r[1].get('disagg') for r in res]}")
+        d = router.fleet_stats()["disagg"]
+        prompt_tokens = sum(len(p) for p in prompts)
+        ship = [r[1]["handoff_phases"]["ship_s"] for r in res]
+        out["disagg"] = {
+            "requests": len(docs), "handoffs": d["handoffs"], "fallbacks": d["fallbacks"],
+            "partings": g_check["partings"], "ship_bytes": d["ship_bytes"],
+            "ship_bytes_per_prompt_token": d["ship_bytes"] / prompt_tokens,
+            "kv_bytes_per_token": kv_bytes_per_token(cfg),
+            "ship_bytes_600_token_prompt": d["ship_bytes"] / prompt_tokens * 600,
+            "ship_s_p50": pctl(ship, 0.5), "ship_s_max": max(ship),
+            "handoff_ttft_p50_s": pctl([r[1]["handoff_ttft_s"] for r in res], 0.5),
+            "handoff_ttft_p95_s": pctl([r[1]["handoff_ttft_s"] for r in res], 0.95),
+            "client_s_p50": pctl(g_check["client_s"], 0.5),
+        }
+        if d["handoffs"] != len(docs) or d["fallbacks"]:
+            fail(phase, f"disagg accounting {d}")
+        for eng in (pf_eng, de_eng):
+            wait_until(lambda: eng.kv_stats()["blocks_free"] == eng.kv_stats()["num_blocks"],
+                       phase, "the tiers' block pools to be whole")
+    finally:
+        router.stop()
+        pf.stop()
+        de.stop()
+
+    # (4) the trace shards and the series through the report verbs
+    shards = []
+    for name, t in tr.items():
+        path = work / f"{name.replace(' ', '_')}.json"
+        t.export_chrome(str(path))
+        shards.append(str(path))
+    rid = max(docs, key=lambda doc: len(doc["token_ids"]))["request_id"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["report", "merge-trace", *shards, "-o", str(work / "merged.json")])
+        cli.main(["report", "trace", rid, *shards, "--json"])
+    merged_line, trace_json = buf.getvalue().splitlines()[0], buf.getvalue().splitlines()[-1]
+    stitched = json.loads(trace_json)
+    root, segs = stitched["root"], stitched["critical_path"]
+    wall = root["end_s"] - root["start_s"]
+    if (abs(sum(s["seconds"] for s in segs) - wall) > 1e-6 * max(wall, 1.0)
+            or {n["process"] for n in stitched["spans"]} != set(tr)
+            or root["name"] != "route"):
+        fail(phase, f"report trace {rid}: {stitched['root']['name']}, segments "
+                    f"{sum(s['seconds'] for s in segs)} s against {wall} s")
+    by_kind: dict = {}
+    for s in segs:
+        by_kind[s["kind"]] = by_kind.get(s["kind"], 0.0) + s["seconds"]
+    out["trace"] = {
+        "request_id": rid, "merge": merged_line, "spans": len(stitched["spans"]),
+        "processes": sorted({n["process"] for n in stitched["spans"]}),
+        "wall_s": wall, "segments_sum_s": sum(s["seconds"] for s in segs),
+        "seconds_by_kind": by_kind, "client_s": next(
+            r[2] for doc, r in zip(docs, res) if doc["request_id"] == rid),
+        "critical_path": [(s["span"], s["process"], s["kind"], s["seconds"]) for s in segs],
+    }
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["report", "timeseries", str(series), "--json"])
+        cli.main(["report", "dashboard", str(series), "-o", str(work / "fleet.html")])
+    ts = json.loads(buf.getvalue().splitlines()[0])
+    scraped = {k.split(":", 1)[0] for k in ts}
+    if scraped != {"r0", "r1"} or not (work / "fleet.html").stat().st_size:
+        fail(phase, f"obs-watch series cover {scraped}; dashboard "
+                    f"{(work / 'fleet.html').stat().st_size} bytes")
+    out["observability"] = {"series_records": sum(1 for _ in open(series)),
+                            "moving_series": len(ts), "dashboard_bytes":
+                            (work / "fleet.html").stat().st_size,
+                            "alert_records": sum(1 for _ in open(alerts))}
+    launches = fa.launch_counts()
+    if launches["flash_fwd"] <= 0:
+        fail(phase, f"B1 never launched in this phase: {launches}")
+    peak = torch.cuda.max_memory_allocated()
+    del sp
+    torch.cuda.empty_cache()
+    shutil.rmtree(work)
+    emit(phase=phase, ok=True, nvidia_smi=smi, layers=cfg.num_hidden_layers,
+         prompt_lens=list(SERVE_PROMPTS), new_tokens=FLEET_NEW, solo_seconds=solo_s,
+         near_tie_rule=NEAR_TIE, b1_launches=launches["flash_fwd"],
+         peak_memory_bytes=peak, seconds=time.perf_counter() - t_phase, **out)
+    return launches
+
+
+DEPLOY_RUN = dict(RESUME_RUN, total_steps=6, checkpoint_every=1, log_dir=None)
+
+
+def serve_cmd(watch: Path, step: int) -> str:
+    return (f"{sys.executable} -m nanodiloco_tpu_torch serve --checkpoint-dir {watch} "
+            f"--step {step} --device cuda --host 127.0.0.1 --port {{port}} --slots 2 "
+            "--max-len 512")
+
+
+def fleet_events(path: Path) -> list[dict]:
+    return read_jsonl_records(str(path))[0] if path.exists() else []
+
+
+def phase_deploy_small(mem: Path, smi: str) -> dict:
+    """The train -> serve loop through the CLI at the resume size (a
+    checkpoint at 8B width is 40.6 GB). train() writes a checkpoint every
+    round (steps 2, 4, 6) into this run's /dev/shm directory; two `serve`
+    replicas of step 2 on the card; `fleet --watch-checkpoint-dir` over
+    them canaries step 4 (its held-out loss on the card through B1) and
+    promotes it; then a step 6 whose snapshot is NaN, written through the
+    CheckpointManager, is rolled back and never canaried again; `report
+    faults` of the events JSONL lists the promotion then the rollback;
+    the fleet-goodput record's state seconds sum to the tracked
+    replica-seconds within 1%; the CLI's canary losses equal the same
+    function's in this process. Then `fleet --autoscale-template` over
+    one `serve` replica: a burst of clients takes the fleet from 1 to 2
+    replicas (the child serves), and idle drains it back to 1."""
+    from nanodiloco_tpu_torch.fleet.autoscaler import ProcessReplicaProvider
+    from nanodiloco_tpu_torch.fleet.deploy import canary_eval_loss
+
+    phase, t_phase = "deploy_small", time.perf_counter()
+    work = mem / "deploy"
+    watch = work / "watch"
+    watch.mkdir(parents=True)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train(TrainConfig(**{**DEPLOY_RUN, "checkpoint_dir": str(work / "ck")}),
+                    device="cuda")
+    train_s = time.perf_counter() - t0
+    state = summary.pop("state")
+    shutil.copy(work / "ck" / "model_config.json", watch)
+    for s in (2, 4):
+        shutil.copy(work / "ck" / f"step_{s}.pt", watch)
+    log = open(work / "children.log", "w")
+    # the children import the package from this checkout wherever they run
+    env = {"PYTHONPATH": os.pathsep.join([str(ROOT)] + [p for p in os.environ.get(
+        "PYTHONPATH", "").split(os.pathsep) if p])}
+    provider = ProcessReplicaProvider(serve_cmd(watch, 2), stdout=log, env=env)
+    procs: list[subprocess.Popen] = []
+    out: dict = {}
+    try:
+        reps = [provider.launch(), provider.launch()]
+        for r in reps:
+            wait_until(lambda: _healthy(r.url), phase, f"replica {r.name}", timeout=180)
+        events = work / "events.jsonl"
+        port = free_port()
+        fleet = subprocess.Popen(
+            [sys.executable, "-m", "nanodiloco_tpu_torch", "fleet", "--host", "127.0.0.1",
+             "--port", str(port), *[a for r in reps for a in ("--replica", r.url)],
+             "--watch-checkpoint-dir", str(watch), "--initial-step", "2", "--device", "cuda",
+             "--poll-interval-s", "0.5", "--health-interval-s", "0.2",
+             "--drain-timeout-s", "10", "--canary-clients", "2", "--canary-requests", "2",
+             "--max-tps-drop", "0.5", "--max-latency-increase", "2.0",
+             "--events-jsonl", str(events), "--quiet"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+        procs.append(fleet)
+
+        def kinds():
+            return [e.get("deploy_event") for e in fleet_events(events)]
+        wait_until(lambda: "promote" in kinds() or fleet.poll() is not None, phase,
+                   "the promotion of step 4", timeout=300)
+        for t in tree_leaves(state.snapshot):
+            t.fill_(float("nan"))
+        CheckpointManager(str(watch), max_to_keep=10).save(6, state)
+        wait_until(lambda: "rollback" in kinds() or "rollback_failed" in kinds()
+                   or fleet.poll() is not None, phase, "the rollback of step 6", timeout=300)
+        time.sleep(2.0)  # four more polls of the watch dir: step 6 must not be canaried again
+        fleet.send_signal(signal.SIGTERM)
+        rc = fleet.wait(timeout=120)
+        recs = fleet_events(events)
+        deploys = [e for e in recs if "deploy_event" in e]
+        starts = [e for e in deploys if e["deploy_event"] == "canary_start"]
+        verdicts = [e for e in deploys if e["deploy_event"] == "canary_verdict"]
+        order = [e["deploy_event"] for e in deploys
+                 if e["deploy_event"] in ("promote", "rollback", "rollback_failed")]
+        if (rc != 0 or order != ["promote", "rollback"]
+                or [e["step"] for e in starts] != [4, 6]
+                or [v["ok"] for v in verdicts] != [True, False]
+                or verdicts[1]["regressions"] != ["canary_eval_loss_nonfinite"]):
+            fail(phase, f"fleet exited {rc}; deploy events {deploys}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["report", "faults", str(events), "--json"])
+        listed = [(e["event"], e.get("step")) for e in json.loads(buf.getvalue())]
+        if listed != [("promote", 4), ("rollback", 6)]:
+            fail(phase, f"report faults lists {listed}")
+        good = recs[-1].get("fleet_goodput") or {}
+        tracked = sum(sum(v.values()) for v in good.get("replica_seconds", {}).values())
+        by_state = sum(good.get("seconds_by_state", {}).values())
+        if not tracked or abs(by_state - tracked) > 0.01 * tracked:
+            fail(phase, f"fleet goodput: states {by_state} s against {tracked} s tracked")
+        ours = {s: canary_eval_loss(str(watch), s, device="cuda") for s in (2, 4, 6)}
+        cli_loss = {e["step"]: e["record"]["canary_eval_loss"] for e in deploys
+                    if e["deploy_event"] in ("canary_baseline", "canary_verdict")}
+        # the record keeps 6 decimals; the same kernels on the same card
+        if (any(abs(cli_loss[s] - ours[s]) > 2e-6 + 1e-5 * abs(ours[s]) for s in (2, 4))
+                or not math.isnan(ours[6]) or not math.isnan(cli_loss[6])):
+            fail(phase, f"canary losses: the CLI's {cli_loss}, in process {ours}")
+
+        def at(kind, step):
+            return next(e["t_unix"] for e in deploys
+                        if e["deploy_event"] == kind and e.get("step") == step)
+        out["deploy"] = {
+            "train_s": train_s, "steps": [2, 4, 6],
+            "checkpoint_bytes": os.path.getsize(watch / "step_4.pt"),
+            "canary_losses": ours, "cli_canary_losses": cli_loss,
+            "canary_s": at("promote", 4) - at("canary_start", 4),
+            "rollback_s": at("rollback", 6) - at("canary_start", 6),
+            "report_faults": listed, "fleet_goodput_fraction": good["fleet_goodput_fraction"],
+            "goodput_state_s": by_state, "goodput_tracked_s": tracked,
+            "seconds_by_state": good["seconds_by_state"],
+        }
+        provider.stop_all()
+        del state, summary
+        torch.cuda.empty_cache()
+
+        # autoscale: 1 -> 2 under a burst, back to 1 when idle
+        seed = ProcessReplicaProvider(serve_cmd(watch, 4), name_prefix="seed", stdout=log,
+                                      env=env)
+        provider = seed
+        r0 = seed.launch()
+        wait_until(lambda: _healthy(r0.url), phase, "the seed replica", timeout=180)
+        events2 = work / "autoscale.jsonl"
+        port = free_port()
+        scaler = subprocess.Popen(
+            [sys.executable, "-m", "nanodiloco_tpu_torch", "fleet", "--host", "127.0.0.1",
+             "--port", str(port), "--replica", r0.url, "--health-interval-s", "0.2",
+             "--autoscale-template", serve_cmd(watch, 4), "--autoscale-min", "1",
+             "--autoscale-max", "2", "--autoscale-interval-s", "0.5",
+             "--autoscale-cooldown-s", "2", "--autoscale-hysteresis", "2",
+             "--autoscale-idle-ticks", "4", "--autoscale-window-s", "10",
+             "--autoscale-horizon-s", "60", "--events-jsonl", str(events2), "--quiet"],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        procs.append(scaler)
+        furl = f"http://127.0.0.1:{port}"
+        wait_until(lambda: _healthy(furl), phase, "the autoscaling fleet", timeout=120)
+        stop_burst = threading.Event()
+        served: dict = {}
+
+        def client(k):
+            # class 0: the shed ladder never sheds it
+            doc = {"token_ids": [(7 * k + j) % 300 + 2 for j in range(128)],
+                   "max_new_tokens": 96, "temperature": 0.0, "stop": False, "priority": 0}
+            while not stop_burst.is_set():
+                try:
+                    code, rep = http_post_json(furl + "/v1/generate", doc, timeout=120)
+                except OSError:
+                    continue
+                if code == 200:
+                    served[rep["served_by"]] = served.get(rep["served_by"], 0) + 1
+
+        t_burst = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(k,), daemon=True) for k in range(8)]
+        for c in clients:
+            c.start()
+        try:
+            wait_until(lambda: any(n.startswith("auto") for n in served) or
+                       scaler.poll() is not None, phase, "a request served by the scaled-out "
+                       "replica", timeout=180)
+        finally:
+            stop_burst.set()
+            for c in clients:
+                c.join(timeout=180)
+        burst_s = time.perf_counter() - t_burst
+        wait_until(lambda: any(e.get("deploy_event") == "scale_down"
+                               for e in fleet_events(events2)) or scaler.poll() is not None,
+                   phase, "the scale-in when idle", timeout=180)
+        wait_until(lambda: any(e.get("deploy_event") == "replica_removed"
+                               for e in fleet_events(events2)), phase, "the drained replica",
+                   timeout=120)
+        scaler.send_signal(signal.SIGTERM)
+        rc = scaler.wait(timeout=120)
+        recs = fleet_events(events2)
+        kinds2 = [e.get("deploy_event") for e in recs if "deploy_event" in e]
+        removed = next(e for e in recs if e.get("deploy_event") == "replica_removed")
+        good = recs[-1].get("fleet_goodput") or {}
+        tracked = (sum(sum(v.values()) for v in good.get("replica_seconds", {}).values())
+                   + sum(e["seconds"][k] for e in recs if e.get("deploy_event")
+                         == "replica_removed" for k in e["seconds"]))
+        by_state = sum(good.get("seconds_by_state", {}).values())
+        if (rc != 0 or kinds2.count("scale_up") != 1 or kinds2.count("scale_down") != 1
+                or good.get("replicas_total") != 1
+                or abs(by_state - tracked) > 0.01 * tracked):
+            fail(phase, f"autoscale: exit {rc}, events {kinds2}, goodput {good}, "
+                        f"tracked {tracked} s")
+        scale_up = next(e for e in recs if e.get("deploy_event") == "scale_up")
+        scale_down = next(e for e in recs if e.get("deploy_event") == "scale_down")
+        out["autoscale"] = {
+            "burst_s": burst_s, "served_by": served, "events": kinds2,
+            "scale_up_reason": scale_up.get("reason"),
+            "scaling_up_s": removed["seconds"]["scaling_up"],
+            "scaling_down_s": removed["seconds"]["scaling_down"],
+            "scale_up_to_down_s": scale_down["t_unix"] - scale_up["t_unix"],
+            "fleet_goodput_fraction": good["fleet_goodput_fraction"],
+            "goodput_state_s": by_state, "goodput_tracked_s": tracked,
+        }
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                # the fleet stops the replicas it launched on SIGTERM; the
+                # ones a killed fleet leaves behind are killed here
+                kids = child_pids(p.pid)
+                p.send_signal(signal.SIGTERM)
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=30)
+                for pid in kids:
+                    with contextlib.suppress(OSError):
+                        os.kill(pid, signal.SIGKILL)
+        provider.stop_all()
+        log.close()
+    launches = fa.launch_counts()
+    if launches["flash_fwd"] <= 0:
+        fail(phase, f"B1 never launched in this phase: {launches}")
+    shutil.rmtree(work)
+    emit(phase=phase, ok=True, nvidia_smi=smi, model=RESUME_MODEL.to_dict(),
+         b1_launches=launches["flash_fwd"], seconds=time.perf_counter() - t_phase, **out)
+    return launches
+
+
+def _healthy(url: str) -> bool:
+    try:
+        return http_get(url + "/healthz", timeout=2.0)[0] == 200
+    except OSError:
+        return False
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("device", "torch.cuda.is_available() is false: this script needs a CUDA card")
@@ -2417,6 +3065,8 @@ def main() -> None:
         del fixture
         torch.cuda.empty_cache()
         phase_supervise_small(mem, smi)
+        fleet_launches = phase_fleet_8b(mem, smi)
+        deploy_launches = phase_deploy_small(mem, smi)
     finally:
         shutil.rmtree(mem, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -2427,7 +3077,9 @@ def main() -> None:
          "launches_diloco_options_small": options_small[name],
          "launches_diloco_options_8b": options_8b[name],
          "launches_serve": serve_launches[name],
-         "launches_faults_8b": faults_launches[name], **kernels[name]}
+         "launches_faults_8b": faults_launches[name],
+         "launches_fleet_8b": fleet_launches[name],
+         "launches_deploy_small": deploy_launches[name], **kernels[name]}
         for name in REPLACES
     ])
     print(smi, flush=True)

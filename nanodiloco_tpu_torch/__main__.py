@@ -32,9 +32,17 @@ cost|faults|goodput|drift RUN.jsonl`` and ``report blackbox DUMP.json``
 print the cost reconciliation, the resilience timeline, the goodput
 budget stitched across restarts, the dynamics timeline and a
 flight-recorder dump. All give the JAX CLI's output, for a run of either
-package. The serving fleet's commands and report verbs (``fleet``,
-``obs-watch``, ``report trace|merge-trace|timeseries|dashboard``) are not
-ported (ROADMAP.md, Queue A item 5b) and say so.
+package. ``report merge-trace|trace`` fold a fleet's trace shards into
+one timeline or one request's causal tree and critical path; ``report
+timeseries|dashboard`` render an ``obs-watch`` series JSONL.
+
+``fleet --replica URL ...`` runs the fleet router over serve replicas:
+least-loaded routing, ejection, hedging, retry budget and breakers,
+``--chaos-plan`` wire faults, ``--disagg`` prefill/decode tiers with KV
+shipping, ``--autoscale-template`` predictive autoscaling, and with
+``--watch-checkpoint-dir`` the canary deploy controller (its held-out
+loss on ``--device``). ``obs-watch --target NAME=URL ...`` scrapes
+``/metrics`` into series and evaluates multi-window SLO burn rates.
 
 ``python -m nanodiloco_tpu_torch generate --checkpoint-dir DIR`` samples
 text from a checkpoint's merged snapshot; ``serve --checkpoint-dir DIR``
@@ -272,12 +280,6 @@ def config_from_args(a: argparse.Namespace) -> TrainConfig:
     )
 
 
-# the JAX CLI's report verbs and subcommands that belong to the serving
-# fleet (ROADMAP.md, Queue A item 5b)
-NOT_PORTED_REPORTS = ("trace", "merge-trace", "timeseries", "dashboard")
-NOT_PORTED_COMMANDS = ("fleet", "obs-watch")
-
-
 def report_main(argv: list[str]) -> None:
     """``report RUN.jsonl``: one-screen summary of a run's JSONL.
     ``report compare BASELINE CANDIDATE``: exit 1 when the candidate
@@ -285,16 +287,22 @@ def report_main(argv: list[str]) -> None:
     RUN.jsonl`` and ``report blackbox DUMP.json``: the cost
     reconciliation, the resilience timeline, the stitched goodput
     budget, the dynamics timeline and a flight-recorder dump, as the JAX
-    CLI prints them."""
+    CLI prints them. ``report merge-trace SHARD... -o MERGED`` and
+    ``report trace NEEDLE SHARD...``: one timeline of a fleet's trace
+    shards, and one request's causal tree with its critical path.
+    ``report timeseries SERIES.jsonl`` and ``report dashboard
+    ARTIFACT.jsonl -o PAGE.html``: the sparkline timeline and the
+    offline HTML dashboard of an ``obs-watch --series-jsonl`` artifact
+    (or a serve stats JSONL)."""
     verbs = {"compare": report_compare_main, "cost": report_cost_main,
              "faults": report_faults_main, "goodput": report_goodput_main,
-             "blackbox": report_blackbox_main, "drift": report_drift_main}
+             "blackbox": report_blackbox_main, "drift": report_drift_main,
+             "merge-trace": report_merge_trace_main, "trace": report_trace_main,
+             "timeseries": report_timeseries_main,
+             "dashboard": report_dashboard_main}
     if argv[:1] and argv[0] in verbs:
         verbs[argv[0]](argv[1:])
         return
-    if argv[:1] and argv[0] in NOT_PORTED_REPORTS:
-        raise SystemExit(f"report {argv[0]} is not ported yet (ROADMAP.md, Queue A "
-                         "item 5b: the fleet's observability)")
     p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report")
     p.add_argument("jsonl", help="metrics JSONL written by training")
     p.add_argument("--json", action="store_true",
@@ -430,7 +438,11 @@ def report_cost_main(argv: list[str]) -> None:
 def report_faults_main(argv: list[str]) -> None:
     """``report faults RUN.jsonl``: one line per resilience event, in
     record order (the JSONL is append-only, so record order IS time
-    order — even across restarts, which append to the same file)."""
+    order — even across restarts, which append to the same file). Of a
+    fleet's ``--events-jsonl`` it also lists the deploy verdicts
+    (``promote``, ``rollback``, ``rollback_failed``), which the JAX CLI
+    leaves to ``report``'s counts, so one timeline shows what the
+    canary did to the fleet."""
     p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report faults")
     p.add_argument("jsonl", help="metrics JSONL written by training")
     p.add_argument("--json", action="store_true",
@@ -470,8 +482,8 @@ def report_faults_main(argv: list[str]) -> None:
                            **{("direction" if k == "kind" else k): v
                               for k, v in r.items()
                               if k != "slo_alert"}})
-        elif r.get("deploy_event") in ("slo_burn", "slo_clear",
-                                       "canary_deferred"):
+        elif r.get("deploy_event") in ("slo_burn", "slo_clear", "canary_deferred",
+                                       "promote", "rollback", "rollback_failed"):
             # the router's side of the same incident: route-around
             # marks and deferred canaries, from a deploy JSONL passed
             # here directly
@@ -991,6 +1003,851 @@ def _append_serve_stats(path: str, scheduler) -> None:
         f.write(json.dumps(rec) + "\n")
 
 
+def build_fleet_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nanodiloco_tpu_torch fleet",
+        description="Fleet router + canary deploy controller over N "
+                    "serve replicas (nanodiloco_tpu_torch/fleet): POST "
+                    "/v1/generate spreads load on queue-depth + "
+                    "kv_blocks_free, /healthz-503 replicas are ejected "
+                    "(blackbox attached), and --watch-checkpoint-dir "
+                    "canaries every fresh training checkpoint with "
+                    "promote-on-passing-compare-verdict / rollback.",
+    )
+    p.add_argument("--replica", action="append", required=True,
+                   metavar="URL[,BLACKBOX]",
+                   help="a serve replica's base URL, e.g. "
+                        "http://127.0.0.1:8101 — repeat per replica. An "
+                        "optional ,PATH names the replica's `serve "
+                        "--blackbox` dump file, attached to its "
+                        "ejection event")
+    p.add_argument("--port", type=int, default=0,
+                   help="router HTTP port; 0 (default) picks a free "
+                        "port, printed at startup")
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--events-jsonl", type=str, default=None,
+                   metavar="JSONL",
+                   help="append every deploy event (promote/rollback/"
+                        "eject/drain/swap/canary) plus the final fleet-"
+                        "goodput record here — readable by `report` / "
+                        "summarize_run")
+    p.add_argument("--health-interval-s", type=float, default=1.0,
+                   help="replica probe cadence")
+    p.add_argument("--eject-after", type=int, default=3,
+                   help="consecutive UNREACHABLE probes before ejection "
+                        "(an explicit /healthz 503 — a dead engine loop "
+                        "— ejects immediately)")
+    p.add_argument("--drain-timeout-s", type=float, default=30.0,
+                   help="bounded wait for a draining replica's in-flight "
+                        "streams before its weight swap proceeds (the "
+                        "swap is safe under stragglers either way — "
+                        "they finish on the old weights)")
+    p.add_argument("--watch-checkpoint-dir", type=str, default=None,
+                   metavar="DIR",
+                   help="training --checkpoint-dir to watch: every "
+                        "fresh checkpoint is canaried and promoted/"
+                        "rolled back (unset = routing only)")
+    p.add_argument("--initial-step", type=int, default=None,
+                   help="checkpoint step the replicas booted with (the "
+                        "first canary baseline; without it the first "
+                        "discovered checkpoint promotes against no "
+                        "baseline)")
+    p.add_argument("--canary", type=str, default=None,
+                   help="replica name (r0, r1, ...) to canary on; "
+                        "default the first replica")
+    p.add_argument("--poll-interval-s", type=float, default=2.0,
+                   help="checkpoint-dir watch cadence")
+    p.add_argument("--canary-clients", type=int, default=2,
+                   help="closed-loop clients in the canary bench")
+    p.add_argument("--canary-requests", type=int, default=2,
+                   help="requests per canary client")
+    p.add_argument("--canary-max-new-tokens", type=int, default=16)
+    p.add_argument("--canary-prompt-len", type=int, default=12)
+    p.add_argument("--max-loss-increase", type=float, default=0.02,
+                   help="relative canary eval-loss increase that blocks "
+                        "promotion (the `report compare` loss gate)")
+    p.add_argument("--max-tps-drop", type=float, default=0.2,
+                   help="relative canary tokens/s drop that blocks "
+                        "promotion")
+    p.add_argument("--max-latency-increase", type=float, default=0.5,
+                   help="relative canary TTFT increase that blocks "
+                        "promotion")
+    p.add_argument("--trace-out", type=str, default=None, metavar="JSON",
+                   help="export the router's per-request route/forward "
+                        "spans (tagged with the request_id join key) as "
+                        "a Chrome trace-event JSON at shutdown — `report "
+                        "merge-trace` folds it with the replicas' serve "
+                        "shards so one Perfetto timeline shows client "
+                        "wait vs router hop vs queue vs prefill vs "
+                        "decode per request")
+    p.add_argument("--trace-sample-rate", type=float, default=1.0,
+                   metavar="RATE",
+                   help="head-sampling rate for causal trace contexts "
+                        "minted at this router (the fleet edge decides "
+                        "once; replicas inherit the decision off the "
+                        "wire). 1.0 (default) samples everything")
+    p.add_argument("--trace-reservoir", type=int, default=2, metavar="N",
+                   help="always-on reservoir: up to N unsampled traces "
+                        "per window are promoted anyway (default 2)")
+    # predictive autoscaling (fleet/autoscaler.py): an embedded
+    # collector scrapes the replicas, obs/forecast's CapacityModel
+    # turns the series into exhaustion forecasts, and the control loop
+    # launches/retires serve subprocesses through the router's drain
+    # discipline — never from raw point gauges
+    p.add_argument("--autoscale-template", type=str, default=None,
+                   metavar="CMD",
+                   help="enable the predictive autoscaler: a shell "
+                        "command with a {port} placeholder that launches "
+                        "one serve replica, e.g. 'python -m "
+                        "nanodiloco_tpu_torch serve --checkpoint-dir C --port "
+                        "{port}'. Children exiting with code 75 or by "
+                        "SIGTERM are treated as spot preemptions and "
+                        "relaunched immediately")
+    p.add_argument("--autoscale-min", type=int, default=1,
+                   help="fleet size floor (the seed --replica set "
+                        "counts toward it)")
+    p.add_argument("--autoscale-max", type=int, default=4,
+                   help="fleet size ceiling")
+    p.add_argument("--autoscale-interval-s", type=float, default=2.0,
+                   help="observe->decide->act cadence (also the "
+                        "embedded scrape cadence)")
+    p.add_argument("--autoscale-cooldown-s", type=float, default=20.0,
+                   help="minimum seconds between scale actions")
+    p.add_argument("--autoscale-max-step", type=int, default=1,
+                   help="replicas added/removed per action")
+    p.add_argument("--autoscale-hysteresis", type=int, default=2,
+                   help="consecutive agreeing ticks before a scale "
+                        "action (forecast noise must not flap the "
+                        "fleet)")
+    p.add_argument("--autoscale-horizon-s", type=float, default=60.0,
+                   help="scale out when a resource (kv_blocks_free, "
+                        "queue depth vs slots) is forecast to exhaust "
+                        "within this many seconds")
+    p.add_argument("--autoscale-idle-ticks", type=int, default=5,
+                   help="consecutive headroom ticks before scale-in")
+    p.add_argument("--autoscale-window-s", type=float, default=60.0,
+                   help="trend window for the capacity model's slope/"
+                        "exhaustion queries")
+    p.add_argument("--shed-horizon-s", type=float, default=10.0,
+                   help="with the fleet at --autoscale-max, forecasted "
+                        "exhaustion inside this horizon starts class-"
+                        "aware shedding (lowest class first, one class "
+                        "per tick)")
+    p.add_argument("--admission-max-priority", type=int, default=9,
+                   metavar="N",
+                   help="initial admission ceiling: requests with "
+                        "priority > N get a terminal shed 429 "
+                        "({\"shed\": true}); 9 (default) admits every "
+                        "class. The autoscaler moves this under "
+                        "pressure")
+    p.add_argument("--hedge-after-s", type=float, default=None,
+                   metavar="S",
+                   help="launch a hedge attempt on a second replica "
+                        "when the first is this slow; unset = adaptive "
+                        "(p95 of recent winner latencies once enough "
+                        "samples exist); 0 disables hedging. First "
+                        "answer wins, the loser is cancelled via "
+                        "/v1/cancel")
+    p.add_argument("--retry-budget-ratio", type=float, default=0.2,
+                   help="retry-budget token-bucket refill per success "
+                        "(retries admitted as a fraction of recent "
+                        "successes; an empty bucket returns the "
+                        "replica's honest error instead of amplifying "
+                        "overload)")
+    p.add_argument("--retry-budget-min", type=float, default=3.0,
+                   help="retry-budget floor: failovers that never wait "
+                        "on prior successes")
+    p.add_argument("--breaker-window", type=int, default=20,
+                   help="per-replica circuit-breaker rolling sample "
+                        "window")
+    p.add_argument("--breaker-min-samples", type=int, default=5,
+                   help="samples in window before the breaker may trip")
+    p.add_argument("--breaker-failure-rate", type=float, default=0.5,
+                   help="bad fraction of the window that trips the "
+                        "breaker (route-around, never ejection)")
+    p.add_argument("--breaker-open-s", type=float, default=10.0,
+                   help="seconds a tripped breaker stays open before "
+                        "the half-open single-probe request")
+    p.add_argument("--breaker-slow-s", type=float, default=None,
+                   metavar="S",
+                   help="count 200s slower than this as breaker "
+                        "failures (a replica can be sick without "
+                        "erroring); unset = errors only")
+    p.add_argument("--chaos-plan", type=str, default=None,
+                   metavar="JSON",
+                   help="chaos drill: a fleet/chaos.py fault-plan file; "
+                        "every replica is fronted by an in-process "
+                        "ChaosProxy realizing the plan's wire faults "
+                        "(latency, reset, blackhole, 500s, flapping "
+                        "healthz, kill) keyed by per-replica request/"
+                        "probe ordinals. Injections append {\"chaos\": "
+                        "kind} records to --events-jsonl. kill faults "
+                        "are record-only here (the CLI does not own the "
+                        "replica processes) plus the wire abort")
+    # disaggregated prefill/decode serving (fleet/disagg.py): replicas
+    # declare a tier with `serve --role`, the router prefills on one
+    # tier, ships the parked KV (serve/kvship.py), and resumes the
+    # stream on the decode tier — streams stay bit-identical to solo
+    # generate, and any handoff failure degrades to one honest
+    # re-prefill on the decode tier
+    p.add_argument("--disagg", action="store_true",
+                   help="route each request through the prefill tier "
+                        "then hand the KV off to the decode tier "
+                        "(replicas declare tiers via `serve --role`); "
+                        "with no prefill-tier replica ready the fleet "
+                        "behaves exactly like a monolithic router")
+    p.add_argument("--handoff-timeout-s", type=float, default=60.0,
+                   help="bound on the prefill and KV-export legs of a "
+                        "disaggregated handoff (the decode leg runs "
+                        "under the normal request timeout)")
+    p.add_argument("--autoscale-template-decode", type=str, default=None,
+                   metavar="CMD",
+                   help="with --disagg and --autoscale-template: the "
+                        "launch command for DECODE-tier replicas "
+                        "(--autoscale-template then launches the "
+                        "prefill tier; both should pass `serve "
+                        "--role ...`). Enables the two-loop tier "
+                        "autoscaler — each tier sized off its own "
+                        "pinned capacity model")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="device of the canary's held-out loss (the "
+                        "replicas choose their own with `serve --device`)")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def fleet_main(argv: list[str]) -> None:
+    args = build_fleet_parser().parse_args(argv)
+    import signal
+    import threading
+
+    from nanodiloco_tpu_torch.fleet import DeployController, FleetRouter, Replica
+
+    replicas = []
+    for i, spec in enumerate(args.replica):
+        url, _, blackbox = spec.partition(",")
+        replicas.append(Replica(
+            name=f"r{i}", url=url.rstrip("/"),
+            blackbox=blackbox or None,
+        ))
+    chaos_plan = None
+    chaos_proxies = []
+    if args.chaos_plan:
+        from nanodiloco_tpu_torch.fleet.chaos import ChaosPlan, proxy_fleet
+
+        chaos_plan = ChaosPlan.load(args.chaos_plan)
+        # the router is pointed at the proxies, not the replicas: every
+        # fault crosses a real socket, exactly as production would see
+        # it. No on_kill — the CLI fronts replicas it does not own, so
+        # kill faults are record-only plus the wire abort.
+        replicas, chaos_proxies = proxy_fleet(replicas, chaos_plan)
+        print(
+            f"chaos drill: {len(chaos_plan.faults)} fault(s) from "
+            f"{args.chaos_plan} on the wire in front of "
+            f"{len(replicas)} replica(s)",
+            flush=True,
+        )
+    tracer = None
+    if args.trace_out:
+        from nanodiloco_tpu_torch.obs.tracer import SpanTracer
+
+        # SAME clock as the router (time.monotonic, its default); a
+        # distinct process name keeps the router lane labeled when
+        # merged with the replicas' serve shards
+        tracer = SpanTracer(clock=time.monotonic,
+                            process_name="nanodiloco router",
+                            sample_rate=args.trace_sample_rate,
+                            reservoir_per_window=args.trace_reservoir)
+    router_cls = FleetRouter
+    router_kw = {}
+    if args.disagg:
+        from nanodiloco_tpu_torch.fleet import DisaggRouter
+
+        router_cls = DisaggRouter
+        router_kw["handoff_timeout_s"] = args.handoff_timeout_s
+    router = router_cls(
+        replicas,
+        port=args.port, host=args.host,
+        **router_kw,
+        events_jsonl=args.events_jsonl,
+        health_interval_s=args.health_interval_s,
+        eject_after_failures=args.eject_after,
+        drain_timeout_s=args.drain_timeout_s,
+        hedge_after_s=args.hedge_after_s,
+        retry_budget_ratio=args.retry_budget_ratio,
+        retry_budget_min=args.retry_budget_min,
+        breaker_window=args.breaker_window,
+        breaker_min_samples=args.breaker_min_samples,
+        breaker_failure_rate=args.breaker_failure_rate,
+        breaker_open_s=args.breaker_open_s,
+        breaker_slow_s=args.breaker_slow_s,
+        tracer=tracer,
+        quiet=args.quiet,
+    ).start()
+    print(
+        f"fleet router{' (disaggregated)' if args.disagg else ''} on "
+        f"{args.host}:{router.port} over "
+        f"{len(replicas)} replica(s): "
+        + ", ".join(f"{r.name}={r.url}" for r in replicas),
+        flush=True,
+    )
+    stop = threading.Event()
+    controller_thread = None
+    if args.watch_checkpoint_dir:
+        controller = DeployController(
+            router, args.watch_checkpoint_dir,
+            initial_step=args.initial_step,
+            canary=args.canary,
+            poll_interval_s=args.poll_interval_s,
+            max_loss_increase=args.max_loss_increase,
+            max_tps_drop=args.max_tps_drop,
+            max_latency_increase=args.max_latency_increase,
+            bench_kwargs={
+                "clients": args.canary_clients,
+                "requests_per_client": args.canary_requests,
+                "max_new_tokens": args.canary_max_new_tokens,
+                "prompt_len": args.canary_prompt_len,
+                "device": args.device,
+            },
+        )
+        controller_thread = threading.Thread(
+            target=controller.run, args=(stop,),
+            name="nanodiloco-fleet-deploy", daemon=True,
+        )
+        controller_thread.start()
+        print(
+            f"watching {args.watch_checkpoint_dir} for checkpoints "
+            f"(canary={controller.canary}, "
+            f"deployed_step={controller.deployed_step})",
+            flush=True,
+        )
+    if args.admission_max_priority != 9:
+        router.set_admission(args.admission_max_priority,
+                             reason="cli --admission-max-priority")
+    scaler_thread = None
+    provider = None
+    decode_provider = None
+    if args.autoscale_template:
+        from nanodiloco_tpu_torch.fleet.autoscaler import (
+            Autoscaler,
+            ProcessReplicaProvider,
+        )
+        from nanodiloco_tpu_torch.obs.collector import Collector
+        from nanodiloco_tpu_torch.obs.forecast import CapacityModel
+
+        # the autoscaler never reads raw point gauges: an embedded
+        # collector turns replica /metrics scrapes into time series,
+        # and the capacity model turns those into slopes and
+        # exhaustion forecasts the control loop acts on
+        scrape_targets = [(r.name, r.url) for r in replicas]
+        collector = Collector(
+            scrape_targets, interval_s=args.autoscale_interval_s,
+        )
+        model = CapacityModel(
+            collector.store, window_s=args.autoscale_window_s,
+        )
+        provider = ProcessReplicaProvider(
+            args.autoscale_template, host=args.host,
+        )
+        scaler_kw = dict(
+            min_replicas=args.autoscale_min,
+            max_replicas=args.autoscale_max,
+            interval_s=args.autoscale_interval_s,
+            cooldown_s=args.autoscale_cooldown_s,
+            max_step=args.autoscale_max_step,
+            hysteresis_ticks=args.autoscale_hysteresis,
+            scale_out_horizon_s=args.autoscale_horizon_s,
+            scale_in_idle_ticks=args.autoscale_idle_ticks,
+            shed_horizon_s=args.shed_horizon_s,
+        )
+        if args.disagg and args.autoscale_template_decode:
+            # two tier-scoped loops over one fleet: each tier gets its
+            # own provider (role-carrying launch template) and its own
+            # capacity model pinned to that tier's usable replicas; the
+            # decode loop owns the admission ceiling
+            from nanodiloco_tpu_torch.fleet import DisaggAutoscaler, TierAutoscaler
+
+            decode_provider = ProcessReplicaProvider(
+                args.autoscale_template_decode, host=args.host,
+            )
+            decode_model = CapacityModel(
+                collector.store, window_s=args.autoscale_window_s,
+            )
+            scaler = DisaggAutoscaler(
+                TierAutoscaler(router, model, provider,
+                               tier="prefill", **scaler_kw),
+                TierAutoscaler(router, decode_model, decode_provider,
+                               tier="decode", manage_admission=True,
+                               **scaler_kw),
+            )
+        else:
+            scaler = Autoscaler(router, model, provider, **scaler_kw)
+
+        def _autoscale_loop() -> None:
+            while not stop.is_set():
+                # follow elastic membership: scrape exactly the
+                # replicas the router currently tracks
+                targets = []
+                for n in router.replica_names():
+                    try:
+                        targets.append((n, router.url_of(n)))
+                    except KeyError:
+                        continue  # removed between calls
+                if targets:
+                    try:
+                        collector.set_targets(targets)
+                        collector.scrape_once()
+                    except Exception:
+                        pass  # a bad scrape must not kill the loop
+                try:
+                    scaler.tick()
+                except Exception:
+                    pass
+                stop.wait(args.autoscale_interval_s)
+
+        scaler_thread = threading.Thread(
+            target=_autoscale_loop,
+            name="nanodiloco-fleet-autoscale", daemon=True,
+        )
+        scaler_thread.start()
+        print(
+            f"autoscaler on ({args.autoscale_min}..{args.autoscale_max} "
+            f"replicas, horizon {args.autoscale_horizon_s:g}s, "
+            f"shed horizon {args.shed_horizon_s:g}s)",
+            flush=True,
+        )
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, lambda *_: stop.set())
+        except ValueError:  # not the main thread (embedded use)
+            break
+    def _drain_chaos() -> None:
+        # fired-fault records -> the events JSONL ({"chaos": kind, ...}
+        # timeline summarize_run reads); without a JSONL the record
+        # still printed once per injection for the operator
+        if chaos_plan is None:
+            return
+        for rec in chaos_plan.drain_fired():
+            if args.events_jsonl:
+                try:
+                    with open(args.events_jsonl, "a") as f:
+                        f.write(json.dumps(rec) + "\n")
+                except OSError:
+                    pass  # a full disk must not kill the drill
+            if not args.quiet:
+                print(f"chaos injected: {json.dumps(rec)}", flush=True)
+
+    try:
+        while not stop.is_set():
+            _drain_chaos()
+            time.sleep(0.2)
+    finally:
+        stop.set()
+        if controller_thread is not None:
+            controller_thread.join(timeout=10)
+        if scaler_thread is not None:
+            scaler_thread.join(timeout=10)
+        if provider is not None:
+            provider.stop_all()
+        if decode_provider is not None:
+            decode_provider.stop_all()
+        router.stop()
+        for proxy in chaos_proxies:
+            proxy.stop()
+        _drain_chaos()
+        if tracer is not None:
+            try:
+                tracer.export_chrome(args.trace_out)
+                print(f"router span trace -> {args.trace_out}", flush=True)
+            except OSError:
+                pass  # a full disk must not mask the shutdown
+        if args.events_jsonl:
+            print(f"deploy events -> {args.events_jsonl}", flush=True)
+
+
+def build_obs_watch_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="nanodiloco_tpu_torch obs-watch",
+        description="Fleet observability plane (nanodiloco_tpu_torch/obs): "
+                    "scrape a set of /metrics endpoints into bounded "
+                    "time series, evaluate multi-window SLO burn rates, "
+                    "emit slo_alert JSONL records, and post burn "
+                    "transitions to the fleet router (route-around + "
+                    "canary gate).",
+    )
+    p.add_argument("--target", action="append", required=True,
+                   metavar="NAME=URL",
+                   help="a scrape target's name and base URL, e.g. "
+                        "r0=http://127.0.0.1:8101 — repeat per target "
+                        "(replicas, the router, the trainer's "
+                        "--metrics-port). Replica names must match the "
+                        "router's (r0, r1, ...) for route-around to "
+                        "land on the right replica")
+    p.add_argument("--interval-s", type=float, default=1.0,
+                   help="scrape + evaluation cadence")
+    p.add_argument("--duration-s", type=float, default=0.0,
+                   help="stop after this long (0 = run until SIGTERM)")
+    p.add_argument("--series-jsonl", type=str, default=None, metavar="JSONL",
+                   help="append one snapshot record per scrape per "
+                        "target — `report timeseries` renders the "
+                        "incident timeline from it after the fact")
+    p.add_argument("--alerts-jsonl", type=str, default=None, metavar="JSONL",
+                   help="append slo_alert firing/resolved records plus "
+                        "the final slo_summary — readable by `report "
+                        "faults` / summarize_run / `report compare`")
+    p.add_argument("--router-url", type=str, default=None, metavar="URL",
+                   help="fleet router base URL: burn transitions POST to "
+                        "its /fleet/slo endpoint (replica-scope rules "
+                        "mark the replica not-preferred; fleet-scope "
+                        "rules defer canaries). Unset = observe only")
+    p.add_argument("--port", type=int, default=None,
+                   help="serve the watcher's OWN /metrics "
+                        "(nanodiloco_slo_alerts_total{rule}, burn "
+                        "seconds, scrape counters) on this port; 0 "
+                        "picks a free port; unset = no endpoint")
+    p.add_argument("--host", type=str, default="0.0.0.0")
+    p.add_argument("--maxlen", type=int, default=2048,
+                   help="ring-buffer bound per series (oldest evicted)")
+    # rule thresholds (unset = that rule is off)
+    p.add_argument("--ttft-p95-max", type=float, default=None, metavar="S",
+                   help="TTFT p95 ceiling per replica (seconds)")
+    p.add_argument("--class0-ttft-p95-max", type=float, default=None,
+                   metavar="S",
+                   help="TTFT p95 ceiling for priority class 0 only "
+                        "(seconds) — the SLO that class-aware shedding "
+                        "exists to protect: it must hold even while "
+                        "lower classes are shed with terminal 429s")
+    p.add_argument("--decode-tps-min", type=float, default=None,
+                   help="decode tokens/s floor per replica")
+    p.add_argument("--error-rate-max", type=float, default=None,
+                   help="error-outcome share ceiling over the window, "
+                        "from requests_by_outcome counter increases")
+    p.add_argument("--kv-blocks-free-min", type=float, default=None,
+                   help="KV block headroom floor per replica")
+    p.add_argument("--fleet-goodput-min", type=float, default=None,
+                   help="fleet goodput fraction floor (fleet scope: "
+                        "gates canaries)")
+    p.add_argument("--outer-staleness-max", type=float, default=None,
+                   help="trainer outer-staleness ceiling (fleet scope)")
+    # burn-rate windows
+    p.add_argument("--fast-window-s", type=float, default=5.0,
+                   help="fast burn window: trips quickly on a live burn")
+    p.add_argument("--slow-window-s", type=float, default=30.0,
+                   help="slow burn window: confirms it is not a blip")
+    p.add_argument("--fast-burn", type=float, default=0.5,
+                   help="breach fraction of the fast window that trips")
+    p.add_argument("--slow-burn", type=float, default=0.25,
+                   help="breach fraction of the slow window that confirms")
+    p.add_argument("--clear-debounce-s", type=float, default=5.0,
+                   help="the fast window must stay clean this long "
+                        "before an alert resolves (flap protection)")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def obs_watch_main(argv: list[str]) -> None:
+    args = build_obs_watch_parser().parse_args(argv)
+    import signal
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from nanodiloco_tpu_torch.obs.collector import Collector
+    from nanodiloco_tpu_torch.obs.slo import (
+        SLOMonitor,
+        router_action_hook,
+        standard_rules,
+    )
+    from nanodiloco_tpu_torch.obs.telemetry import OPENMETRICS_CONTENT_TYPE
+
+    targets = []
+    for spec in args.target:
+        name, sep, url = spec.partition("=")
+        if not sep or not name or not url:
+            raise SystemExit(f"--target must be NAME=URL; got {spec!r}")
+        targets.append((name, url))
+    rules = standard_rules(
+        ttft_p95_max_s=args.ttft_p95_max,
+        class0_ttft_p95_max_s=args.class0_ttft_p95_max,
+        decode_tps_min=args.decode_tps_min,
+        error_rate_max=args.error_rate_max,
+        kv_blocks_free_min=args.kv_blocks_free_min,
+        fleet_goodput_min=args.fleet_goodput_min,
+        outer_staleness_max=args.outer_staleness_max,
+        fast_window_s=args.fast_window_s,
+        slow_window_s=args.slow_window_s,
+        fast_burn=args.fast_burn,
+        slow_burn=args.slow_burn,
+        clear_debounce_s=args.clear_debounce_s,
+    )
+    if not rules:
+        raise SystemExit(
+            "no SLO rule configured — pass at least one threshold "
+            "(--ttft-p95-max, --error-rate-max, ...)"
+        )
+    collector = Collector(
+        targets, interval_s=args.interval_s, maxlen=args.maxlen,
+        series_jsonl=args.series_jsonl,
+    )
+    on_alert = None
+    if args.router_url:
+        from nanodiloco_tpu_torch.serve.client import http_post_json
+
+        on_alert = router_action_hook(
+            lambda url, doc: http_post_json(url, doc, timeout=10.0),
+            args.router_url,
+        )
+    monitor = SLOMonitor(
+        collector.store, rules, [n for n, _ in targets],
+        alerts_jsonl=args.alerts_jsonl, on_alert=on_alert,
+        quiet=args.quiet,
+    )
+
+    httpd = None
+    if args.port is not None:
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # scrapes must not spam stdout
+                pass
+
+            def do_GET(self):
+                if self.path.split("?", 1)[0] != "/metrics":
+                    body, code, ctype = b"not found\n", 404, "text/plain"
+                else:
+                    body = (collector.render_metrics().rstrip("\n")
+                            .rsplit("# EOF", 1)[0]
+                            + monitor.render_metrics()).encode()
+                    code, ctype = 200, OPENMETRICS_CONTENT_TYPE
+                self.send_response(code)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        httpd = ThreadingHTTPServer((args.host, args.port), Handler)
+        httpd.daemon_threads = True
+        threading.Thread(target=httpd.serve_forever,
+                         name="nanodiloco-obs-watch-http",
+                         daemon=True).start()
+        print(f"obs-watch /metrics on {args.host}:"
+              f"{httpd.server_address[1]}", flush=True)
+
+    print(
+        f"obs-watch: {len(targets)} target(s), {len(rules)} rule(s) "
+        f"[{', '.join(r.name for r in rules)}], "
+        f"windows {args.fast_window_s:g}s/{args.slow_window_s:g}s",
+        flush=True,
+    )
+    stop = threading.Event()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            signal.signal(sig, lambda *_: stop.set())
+        except ValueError:  # not the main thread (embedded use)
+            break
+    deadline = (time.monotonic() + args.duration_s
+                if args.duration_s > 0 else None)
+
+    def on_scrape(_result):
+        monitor.evaluate()
+        if deadline is not None and time.monotonic() >= deadline:
+            stop.set()
+
+    try:
+        collector.run(stop, on_scrape=on_scrape)
+    finally:
+        summary = monitor.finalize()
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        if not args.quiet:
+            print(f"obs-watch summary: "
+                  f"{json.dumps(summary['slo_summary'])}", flush=True)
+        if args.alerts_jsonl:
+            print(f"slo alerts -> {args.alerts_jsonl}", flush=True)
+        if args.series_jsonl:
+            print(f"series -> {args.series_jsonl}", flush=True)
+
+
+def report_merge_trace_main(argv: list[str]) -> None:
+    p = argparse.ArgumentParser(
+        prog="nanodiloco_tpu_torch report merge-trace",
+        description="Fold per-process Chrome trace shards into one "
+                    "timeline. Shards from causal tracing (spans "
+                    "carrying trace_id/span_id in args) remain "
+                    "backward-compatible: the ids merge through "
+                    "untouched, and shards WITHOUT ids still join by "
+                    "request_id — mix old and new freely.")
+    p.add_argument("shards", nargs="+",
+                   help="per-process Chrome trace shards: rank 0's "
+                        "--trace-out file plus the trace.rank{k}.json "
+                        "files the other hosts wrote next to it")
+    p.add_argument("-o", "--out", required=True,
+                   help="merged Chrome trace output path (open in "
+                        "Perfetto / chrome://tracing)")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.obs.tracer import merge_chrome_traces
+
+    docs = []
+    for path in args.shards:
+        with open(path) as f:
+            docs.append(json.load(f))
+    merged = merge_chrome_traces(docs)
+    d = os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(d, exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(merged, f)
+    spans = sum(1 for e in merged["traceEvents"] if e.get("ph") == "X")
+    pids = {e["pid"] for e in merged["traceEvents"]}
+    print(
+        f"merged {len(docs)} shard(s) -> {args.out} "
+        f"({spans} spans across {len(pids)} process(es))"
+    )
+
+
+def report_trace_main(argv: list[str]) -> None:
+    """``report trace NEEDLE SHARD...``: the hop-by-hop answer to
+    "where did this request's latency go" — stitch per-process trace
+    shards into one causal tree (parent links where the spans carry
+    ids, request_id fallback where they don't), render the waterfall,
+    and walk the critical path with the un-attributed remainder
+    (network + stitch slack) reported as its own ``residual`` segment
+    instead of silently dropped."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report trace")
+    p.add_argument("needle",
+                   help="request_id or 32-hex trace_id to reconstruct")
+    p.add_argument("shards", nargs="+",
+                   help="per-process Chrome trace shards (tracer "
+                        "export_chrome / --trace-out files) — router + "
+                        "each tier's shard for a fleet request")
+    p.add_argument("--width", type=int, default=56,
+                   help="waterfall bar width in characters (default 56)")
+    p.add_argument("--json", action="store_true",
+                   help="print the stitched tree + critical path as one "
+                        "JSON object instead of the rendered waterfall")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.obs.tracer import (
+        critical_path,
+        render_waterfall,
+        stitch_trace,
+    )
+
+    docs = []
+    for path in args.shards:
+        with open(path) as f:
+            docs.append(json.load(f))
+    try:
+        stitched = stitch_trace(docs, args.needle)
+    except ValueError as e:
+        print(f"error: {e}")
+        raise SystemExit(1)
+    segments = critical_path(stitched["root"])
+    if args.json:
+        print(json.dumps({**stitched, "critical_path": segments}))
+        return
+    print(render_waterfall(stitched, width=args.width))
+    root = stitched["root"]
+    total = root["end_s"] - root["start_s"]
+    print(f"\ncritical path ({total * 1e3:.1f} ms total):")
+    for seg in segments:
+        share = seg["seconds"] / total if total > 0 else 0.0
+        tail = f" [{seg['outcome']}]" if seg.get("outcome") else ""
+        kind = "" if seg["kind"] == "span" else f" ({seg['kind']})"
+        print(
+            f"  {seg['seconds'] * 1e3:9.2f} ms {share:6.1%}  "
+            f"{seg['span']}{kind}  @{seg['process']}{tail}"
+        )
+
+
+def report_timeseries_main(argv: list[str]) -> None:
+    """``report timeseries SERIES.jsonl``: one sparkline per scraped
+    series from the collector's snapshot JSONL — the operator's
+    after-the-fact incident timeline (what did TTFT, the queue, and
+    the KV pool do while the alert burned), no plotting stack needed."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report timeseries")
+    p.add_argument("jsonl", help="series JSONL written by `obs-watch "
+                                 "--series-jsonl` (obs/collector "
+                                 "snapshot records)")
+    p.add_argument("--key", type=str, default=None, metavar="SUBSTR",
+                   help="only series whose key contains this substring "
+                        "(e.g. ttft, r1:, _total)")
+    p.add_argument("--width", type=int, default=60,
+                   help="sparkline width in characters")
+    p.add_argument("--all", action="store_true",
+                   help="include constant series (hidden by default — "
+                        "a flat gauge is rarely the incident)")
+    p.add_argument("--json", action="store_true",
+                   help="print {key: {n, first, last, min, max}} as one "
+                        "JSON object")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.obs.collector import read_series_jsonl, sparkline
+
+    series = read_series_jsonl(args.jsonl)
+    if args.key:
+        series = {k: v for k, v in series.items() if args.key in k}
+    if not series:
+        raise SystemExit(
+            f"no matching series in {args.jsonl}"
+            + (f" for key substring {args.key!r}" if args.key else "")
+        )
+    out = {}
+    for key in sorted(series):
+        vals = [v for _, v in series[key]]
+        if not args.all and min(vals) == max(vals):
+            continue
+        out[key] = {
+            "n": len(vals),
+            "first": vals[0], "last": vals[-1],
+            "min": min(vals), "max": max(vals),
+        }
+    if args.json:
+        print(json.dumps(out))
+        return
+    if not out:
+        print("every series is constant (pass --all to show them)")
+        return
+    span = max(len(k) for k in out)
+    for key, st in out.items():
+        spark = sparkline([v for _, v in series[key]], width=args.width)
+        print(f"{key:>{span}} |{spark}| "
+              f"min={st['min']:.4g} max={st['max']:.4g} "
+              f"last={st['last']:.4g} n={st['n']}")
+
+
+def report_dashboard_main(argv: list[str]) -> None:
+    """``report dashboard ARTIFACT.jsonl -o PAGE.html``: render the
+    offline incident dashboard (obs/dashboard) — one self-contained
+    HTML file, no scripts, no network, from a collector series JSONL
+    (`obs-watch --series-jsonl`) or a serve stats JSONL."""
+    p = argparse.ArgumentParser(prog="nanodiloco_tpu_torch report dashboard")
+    p.add_argument("jsonl",
+                   help="collector series JSONL (obs-watch "
+                        "--series-jsonl) or serve stats JSONL "
+                        "(serve --stats-jsonl)")
+    p.add_argument("-o", "--out", required=True,
+                   help="output HTML path")
+    p.add_argument("--title", type=str, default="nanodiloco fleet",
+                   help="page title")
+    p.add_argument("--width", type=int, default=60,
+                   help="sparkline width in characters")
+    args = p.parse_args(argv)
+
+    from nanodiloco_tpu_torch.obs.dashboard import (
+        load_dashboard_series,
+        render_dashboard,
+    )
+
+    series = load_dashboard_series(args.jsonl)
+    page = render_dashboard(series, title=args.title, width=args.width)
+    d = os.path.dirname(os.path.abspath(args.out))
+    os.makedirs(d, exist_ok=True)
+    with open(args.out, "w") as f:
+        f.write(page)
+    n_samples = sum(len(v) for v in series.values())
+    print(f"rendered {len(series)} series ({n_samples} samples) "
+          f"-> {args.out}")
+
+
 def main(argv=None) -> dict | None:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["supervise"]:
@@ -1001,9 +1858,12 @@ def main(argv=None) -> dict | None:
     if argv[:1] == ["export-hf"]:
         export_hf_main(argv[1:])
         return None
-    if argv[:1] and argv[0] in NOT_PORTED_COMMANDS:
-        raise SystemExit(f"{argv[0]} is not ported yet (ROADMAP.md, Queue A item 5b: "
-                         "the serving fleet)")
+    if argv[:1] == ["fleet"]:
+        fleet_main(argv[1:])
+        return None
+    if argv[:1] == ["obs-watch"]:
+        obs_watch_main(argv[1:])
+        return None
     if argv[:1] == ["report"]:
         report_main(argv[1:])
         return None

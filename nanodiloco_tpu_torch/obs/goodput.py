@@ -6,8 +6,9 @@ closed cause set, ``GoodputLedger``, which the train loop opens first
 and snapshots into the JSONL once per round and once at teardown, and
 ``stitch_goodput_records``, which ``report goodput`` and
 ``summarize_run`` use to fold the per-lifetime snapshots of a
-(restart-appended) JSONL into one run-level ledger. The fleet's state
-set (``FLEET_STATE_CAUSES``) belongs to the serving fleet, not ported.
+(restart-appended) JSONL into one run-level ledger; and the fleet's
+state set (``FLEET_STATE_CAUSES``), the bucket names of the fleet
+router's replica-second ledger.
 
 Accounting contract: ``sum(cause seconds) == elapsed wall-clock``
 exactly, by construction (attributed phase seconds are clamped to the
@@ -39,6 +40,23 @@ CAUSES = (
     "straggler_wait",     # measured wait on a slow worker (elastic DiLoCo)
     "restart_downtime",   # supervisor relaunch gap (no process existed)
     "other",              # startup/logging/unattributed residual
+)
+
+#: The closed cause set for FLEET goodput (the serving twin of
+#: ``CAUSES``): every replica-second the fleet router tracks lands in
+#: exactly one of these buckets (``fleet/router.py`` imports this tuple
+#: as its bucket names — one source of truth, so the autoscaler cannot
+#: invent a state the accounting silently drops). ``serving_ready`` is
+#: the only goodput bucket; ``scaling_up``/``scaling_down`` book the
+#: autoscaler's transition seconds explicitly.
+FLEET_STATE_CAUSES = (
+    "serving_ready",      # probed ready: usable serving capacity
+    "serving_unready",    # alive but failing probes (compile, overload)
+    "draining",           # admission stopped for a weight push
+    "ejected",            # ejected after repeated probe failures
+    "scaling_up",         # launched by the autoscaler, not yet ready
+    "scaling_down",       # retiring: drain -> remove in progress
+    "breaker_open",       # circuit breaker open/half-open: gray failure
 )
 
 

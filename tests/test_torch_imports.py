@@ -75,3 +75,31 @@ def test_optional_scan_sees_module_level_only(tmp_path):
 def test_no_module_level_hf_import(path):
     bad = [n for n in module_level_imports(path) if n.split(".")[0] in OPTIONAL]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad} at module level"
+
+
+FLEET_MODULES = ["fleet/__init__.py", "fleet/router.py", "fleet/chaos.py", "fleet/autoscaler.py",
+                 "fleet/disagg.py", "fleet/deploy.py", "obs/collector.py", "obs/slo.py",
+                 "obs/forecast.py", "obs/dashboard.py", "obs/tracer.py", "obs/goodput.py"]
+
+
+@pytest.mark.parametrize("rel", FLEET_MODULES)
+def test_fleet_and_obs_plane_are_scanned_and_jax_free(rel):
+    path = ROOT / "nanodiloco_tpu_torch" / rel
+    assert path in FILES
+    assert not [n for n in imported_modules(path) if forbidden(n)]
+
+
+@pytest.mark.parametrize("argv", [["fleet"], ["obs-watch"], ["report", "merge-trace"],
+                                  ["report", "trace"], ["report", "timeseries"],
+                                  ["report", "dashboard"]], ids=" ".join)
+def test_fleet_commands_are_ported(argv, capsys):
+    """Each fleet command parses its flags (``--help`` exits 0) instead
+    of refusing as not ported."""
+    from nanodiloco_tpu_torch.__main__ import main
+
+    with pytest.raises(SystemExit) as e:
+        main([*argv, "--help"])
+    assert e.value.code == 0
+    assert "usage: nanodiloco_tpu_torch" in capsys.readouterr().out
+    cli = (ROOT / "nanodiloco_tpu_torch" / "__main__.py").read_text()
+    assert "NOT_PORTED" not in cli and "item 5b" not in cli
