@@ -2508,6 +2508,61 @@ def stop_loop(server: ServeServer, sched: Scheduler) -> None:
     wait_until(lambda: not server.loop_alive(), "fleet_8b", "the engine loop to stop")
 
 
+def hedged(router_tr) -> set:
+    """Request ids with a hedge attempt among the router's forward spans
+    (a forward span is recorded when its attempt's answer comes back)."""
+    return {e["args"]["request_id"] for e in router_tr.events
+            if e["name"] == "forward" and e.get("args", {}).get("hedge")}
+
+
+def hedge_fates(router_tr, replica_tr: dict, cancels: dict) -> dict:
+    """What became of each hedged request's losing attempt on its
+    replica, by request id. "cancelled": the replica's own outcome, or
+    the replica took the router's cancel while the attempt was in flight
+    (it then stops at its next tick, or has just produced its last
+    token). "done first": its run ended before the cancel reached the
+    replica, or, where the router sent none, before the winner's answer.
+    "never ran": the replica has no run of it (the chaos proxy answered
+    in its place). "ran on": its run ended after that, the fault. The
+    spans of the router and the replicas and the cancels' arrival times
+    are on one clock, time.monotonic."""
+    route = {e["args"]["request_id"]: e for e in router_tr.events if e["name"] == "route"}
+    fates = {}
+    for rid in hedged(router_tr):
+        winner = route[rid]["args"].get("served_by") if rid in route else None
+        if winner not in replica_tr:
+            fates[rid] = "no winner"
+            continue
+        loser = next(n for n in replica_tr if n != winner)
+        runs = [e for e in replica_tr[loser].events
+                if e.get("args", {}).get("request_id") == rid and "outcome" in e["args"]]
+        t_cancel, code = cancels[loser].get(rid, (None, None))
+        t_stop = t_cancel if t_cancel is not None else route[rid]["t0"] + route[rid]["dur"]
+        if not runs:
+            fates[rid] = "never ran"
+        elif runs[-1]["args"]["outcome"] == "cancelled" or code == 200:
+            fates[rid] = "cancelled"
+        elif runs[-1]["t0"] + runs[-1]["dur"] <= t_stop:
+            fates[rid] = "done first"
+        else:
+            fates[rid] = "ran on"
+    return fates
+
+
+def log_cancels(server: ServeServer) -> dict:
+    """Record when each POST /v1/cancel reached ``server`` and its answer
+    code, by request id."""
+    log: dict = {}
+    handle = server.handle_cancel
+
+    def logged(doc):
+        code, body = handle(doc)
+        log[doc.get("request_id")] = (time.monotonic(), code)
+        return code, body
+    server.handle_cancel = logged
+    return log
+
+
 def phase_fleet_8b(mem: Path, smi: str) -> dict:
     """Serve's Llama-3-8B weights (32 layers, bf16, seed 0, made again on
     the card) behind the port's fleet: two replicas (r0 paged, r1 dense,
@@ -2523,8 +2578,10 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
     500s), a lone long request hedged after 30% of its time alone, 8
     requests in pairs under the same hedge delay:
     no client connection drops, every stream solo's or a near-tie, the
-    breaker opens on r1, each losing hedge that reached a replica is
-    cancelled there and r0's block pool is whole again; then r1's engine
+    breaker opens on r1, each hedge's loser is cancelled on its replica,
+    or ended there before the cancel came, or never reached it (from the
+    router's and the replicas' spans and the cancels' arrival times:
+    `hedge_fates`), and r0's block pool is whole again; then r1's engine
     loop stops, r1 is ejected and the fleet answers on r0. (3) disagg:
     a prefill and a decode replica behind the DisaggRouter: every stream
     crosses the KV ship and is solo's or a near-tie; ship bytes per
@@ -2554,7 +2611,13 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
                            kv_block_size=16, prefix_cache_tokens=0, device="cuda")
     eng1 = InferenceEngine(sp, cfg, num_slots=FLEET_SLOTS, max_len=1024, chunk_size=512,
                            prefix_cache_tokens=0, device="cuda")
-    (sched0, s0), (sched1, s1) = replica(eng0), replica(eng1)
+    # the replicas' spans (time.monotonic, the schedulers' clock) say
+    # what became of each hedge loser
+    rep_tr = {name: SpanTracer(clock=time.monotonic, process_name=f"serve {name}")
+              for name in ("r0", "r1")}
+    (sched0, s0), (sched1, s1) = (replica(eng0, tracer=rep_tr["r0"]),
+                                  replica(eng1, tracer=rep_tr["r1"]))
+    cancels = {"r0": log_cancels(s0), "r1": log_cancels(s1)}
     url0, url1 = f"http://127.0.0.1:{s0.port}", f"http://127.0.0.1:{s1.port}"
     series, alerts = work / "series.jsonl", work / "alerts.jsonl"
     watch_log = open(work / "obs_watch.log", "w")
@@ -2609,7 +2672,9 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
         lone_s = fire(url0, lone, 1)[0][2]
         plan = ChaosPlan.from_dict(DRILL_PLAN)
         proxy = ChaosProxy(url1, plan, "r1", host="127.0.0.1").start()
+        router_tr = SpanTracer(clock=time.monotonic, process_name="router")
         router = FleetRouter([Replica("r0", url0), Replica("r1", proxy.url)], host="127.0.0.1",
+                             tracer=router_tr,
                              health_interval_s=0.2, hedge_after_s=0.3 * lone_s,
                              retry_budget_min=20.0,
                              retry_budget_cap=40.0, breaker_window=4, breaker_min_samples=3,
@@ -2639,7 +2704,14 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
                    and sched1.stats()["slots_busy"] == 0, phase, "idle slots")
         wait_until(lambda: eng0.kv_stats()["blocks_free"] == eng0.kv_stats()["num_blocks"],
                    phase, "r0's block pool to be whole")
-        cancels = sched0.stats()["cancelled"] + sched1.stats()["cancelled"] - cancelled0
+        replica_cancels = (sched0.stats()["cancelled"] + sched1.stats()["cancelled"]
+                           - cancelled0)
+        wait_until(lambda: len(hedged(router_tr)) == router.fleet_stats()["hedges"], phase,
+                   "every hedge attempt's answer")
+        fates = hedge_fates(router_tr, rep_tr, cancels)
+        if (len(fates) != router.fleet_stats()["hedges"]
+                or any(f in ("ran on", "no winner") for f in fates.values())):
+            fail(phase, f"hedge losers: {fates}")
         stop_loop(s1, sched1)
         eject_s = wait_until(lambda: router.state_of("r1")["status"] == "ejected", phase,
                              "r1's ejection")
@@ -2654,7 +2726,9 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
             "lone_request_s": lone_s, "hedge_after_s": 0.3 * lone_s,
             "requests": len(drill) + 1 + len(after), "dropped": 0,
             "partings": c_check["partings"], "hedges": stats["hedges"],
-            "hedge_wins": stats["hedge_wins"], "replica_cancels": cancels,
+            "hedge_wins": stats["hedge_wins"], "replica_cancels": replica_cancels,
+            "hedge_losers": {f: sum(v == f for v in fates.values())
+                             for f in sorted(set(fates.values()))},
             "retries": stats["retries"], "breaker_opened_on": opened,
             "breaker_state": stats["breaker_state"], "eject_seconds": eject_s,
             "blocks_free_r0": eng0.kv_stats()["blocks_free"],
@@ -2784,6 +2858,9 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
 
 
 DEPLOY_RUN = dict(RESUME_RUN, total_steps=6, checkpoint_every=1, log_dir=None)
+# the shape of the canary bench's own requests (fleet/deploy.py canary_bench)
+WARM_DOC = {"token_ids": list(range(2, 14)), "max_new_tokens": 16, "temperature": 0.0,
+            "stop": False, "prefix_cache": False}
 
 
 def serve_cmd(watch: Path, step: int) -> str:
@@ -2800,14 +2877,18 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
     """The train -> serve loop through the CLI at the resume size (a
     checkpoint at 8B width is 40.6 GB). train() writes a checkpoint every
     round (steps 2, 4, 6) into this run's /dev/shm directory; two `serve`
-    replicas of step 2 on the card; `fleet --watch-checkpoint-dir` over
-    them canaries step 4 (its held-out loss on the card through B1) and
-    promotes it; then a step 6 whose snapshot is NaN, written through the
-    CheckpointManager, is rolled back and never canaried again; `report
-    faults` of the events JSONL lists the promotion then the rollback;
-    the fleet-goodput record's state seconds sum to the tracked
-    replica-seconds within 1%; the CLI's canary losses equal the same
-    function's in this process. Then `fleet --autoscale-template` over
+    replicas of step 2 on the card, each warmed by one request;
+    `fleet --watch-checkpoint-dir` over them, its canary gate at the
+    CLI's defaults, canaries step 4 (its held-out loss on the card
+    through B1) and promotes it; then a step 6 whose snapshot is NaN,
+    written through the CheckpointManager, is rolled back and never
+    canaried again; `report faults` of the events JSONL lists the
+    promotion then the rollback; the fleet-goodput record's state
+    seconds sum to the tracked replica-seconds within 1%; the CLI's
+    canary losses equal the same function's in this process. The
+    phase's launches are the fleet process's own: the `kernel_launches`
+    of its three canary records, each with B1 above 0. Then
+    `fleet --autoscale-template` over
     one `serve` replica: a burst of clients takes the fleet from 1 to 2
     replicas (the child serves), and idle drains it back to 1."""
     from nanodiloco_tpu_torch.fleet.autoscaler import ProcessReplicaProvider
@@ -2817,7 +2898,6 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
     work = mem / "deploy"
     watch = work / "watch"
     watch.mkdir(parents=True)
-    fa.reset_launch_counts()
     t0 = time.perf_counter()
     summary = train(TrainConfig(**{**DEPLOY_RUN, "checkpoint_dir": str(work / "ck")}),
                     device="cuda")
@@ -2837,6 +2917,13 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
         reps = [provider.launch(), provider.launch()]
         for r in reps:
             wait_until(lambda: _healthy(r.url), phase, f"replica {r.name}", timeout=180)
+            # one throwaway request, so that the canary's baseline bench
+            # is not the replica's first traffic: the gate runs at the
+            # CLI's defaults (its benches at 2 clients x 8 requests, so
+            # that a TTFT p50 of ~10 ms rests on 16 requests)
+            code, _ = http_post_json(r.url + "/v1/generate", WARM_DOC, timeout=120)
+            if code != 200:
+                fail(phase, f"replica {r.name} answered the warm-up request {code}")
         events = work / "events.jsonl"
         port = free_port()
         fleet = subprocess.Popen(
@@ -2844,8 +2931,7 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
              "--port", str(port), *[a for r in reps for a in ("--replica", r.url)],
              "--watch-checkpoint-dir", str(watch), "--initial-step", "2", "--device", "cuda",
              "--poll-interval-s", "0.5", "--health-interval-s", "0.2",
-             "--drain-timeout-s", "10", "--canary-clients", "2", "--canary-requests", "2",
-             "--max-tps-drop", "0.5", "--max-latency-increase", "2.0",
+             "--drain-timeout-s", "10", "--canary-requests", "8",
              "--events-jsonl", str(events), "--quiet"],
             cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
         procs.append(fleet)
@@ -2885,8 +2971,16 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
         if not tracked or abs(by_state - tracked) > 0.01 * tracked:
             fail(phase, f"fleet goodput: states {by_state} s against {tracked} s tracked")
         ours = {s: canary_eval_loss(str(watch), s, device="cuda") for s in (2, 4, 6)}
-        cli_loss = {e["step"]: e["record"]["canary_eval_loss"] for e in deploys
-                    if e["deploy_event"] in ("canary_baseline", "canary_verdict")}
+        benches = {e["step"]: e["record"] for e in deploys
+                   if e["deploy_event"] in ("canary_baseline", "canary_verdict")}
+        cli_loss = {s: b["canary_eval_loss"] for s, b in benches.items()}
+        # the fleet process's own counts: each canary loss went through B1
+        launches = {k: sum(b["kernel_launches"][k] for b in benches.values())
+                    for k in fa.launch_counts()}
+        if sorted(benches) != [2, 4, 6] or any(
+                b["kernel_launches"]["flash_fwd"] <= 0 for b in benches.values()):
+            fail(phase, f"a canary loss of the fleet process did not launch B1: "
+                        f"{ {s: b.get('kernel_launches') for s, b in benches.items()} }")
         # the record keeps 6 decimals; the same kernels on the same card
         if (any(abs(cli_loss[s] - ours[s]) > 2e-6 + 1e-5 * abs(ours[s]) for s in (2, 4))
                 or not math.isnan(ours[6]) or not math.isnan(cli_loss[6])):
@@ -2899,6 +2993,9 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
             "train_s": train_s, "steps": [2, 4, 6],
             "checkpoint_bytes": os.path.getsize(watch / "step_4.pt"),
             "canary_losses": ours, "cli_canary_losses": cli_loss,
+            "canary_benches": {s: {k: b[k] for k in ("ttft_p50_s", "client_tokens_per_sec",
+                                                     "wall_s", "requests", "errors")}
+                               for s, b in benches.items()},
             "canary_s": at("promote", 4) - at("canary_start", 4),
             "rollback_s": at("rollback", 6) - at("canary_start", 6),
             "report_faults": listed, "fleet_goodput_fraction": good["fleet_goodput_fraction"],
@@ -3006,9 +3103,6 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
                         os.kill(pid, signal.SIGKILL)
         provider.stop_all()
         log.close()
-    launches = fa.launch_counts()
-    if launches["flash_fwd"] <= 0:
-        fail(phase, f"B1 never launched in this phase: {launches}")
     shutil.rmtree(work)
     emit(phase=phase, ok=True, nvidia_smi=smi, model=RESUME_MODEL.to_dict(),
          b1_launches=launches["flash_fwd"], seconds=time.perf_counter() - t_phase, **out)

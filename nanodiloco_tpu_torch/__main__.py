@@ -486,7 +486,9 @@ def report_faults_main(argv: list[str]) -> None:
                                        "promote", "rollback", "rollback_failed"):
             # the router's side of the same incident: route-around
             # marks and deferred canaries, from a deploy JSONL passed
-            # here directly
+            # here directly; and (in the port only: the JAX verb leaves
+            # them out) the deploy verdicts, so that a canary's promotion
+            # and rollback read in order on the same timeline
             events.append({"event": r["deploy_event"],
                            **{k: v for k, v in r.items()
                               if k != "deploy_event"}})

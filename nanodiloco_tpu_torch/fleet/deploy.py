@@ -98,13 +98,18 @@ def canary_bench(url: str, checkpoint_dir: str, step: int | None, *,
     """The closed-loop canary measurement against ONE replica (see
     module docstring for the two-leg split). Returns the summary keys
     ``compare_runs`` gates (``ttft_p50_s``, ``client_tokens_per_sec``,
-    ``canary_eval_loss``) plus the raw counts."""
+    ``canary_eval_loss``) plus the raw counts, and ``kernel_launches``:
+    the CUDA kernels the loss leg launched in this process (all 0 on
+    the CPU), which ``compare_runs`` does not read."""
     import random
 
     from nanodiloco_tpu_torch.obs.telemetry import nearest_rank_percentile
+    from nanodiloco_tpu_torch.ops.cuda.flash_attention import launch_counts
 
+    launches0 = launch_counts()
     loss = canary_eval_loss(checkpoint_dir, step,
                             rows=eval_rows, seq=eval_seq, device=device)
+    launches = {k: v - launches0[k] for k, v in launch_counts().items()}
     rng = random.Random(seed)
     # greedy, prefix-cache-opted-out traffic: the canary must measure
     # the CHECKPOINT, not the cache it is about to invalidate anyway
@@ -160,6 +165,7 @@ def canary_bench(url: str, checkpoint_dir: str, step: int | None, *,
         "client_tokens_per_sec": (
             round(completion / wall, 1) if wall > 0 else None
         ),
+        "kernel_launches": launches,
     }
 
 

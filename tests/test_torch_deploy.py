@@ -216,9 +216,10 @@ def test_promote_then_rollback_over_the_port_fleet(run, tmp_path, capsys):
         router.health_tick()  # the canary swapped to 6 and back to 4; r1 never moved
         assert router.fleet_stats()["deploy_generations"] == {"r0": 3, "r1": 1}
         # the rest of the fleet never saw the poisoned weights. (The
-        # canary's KV rows written under them stay non-finite after the
-        # rollback, in the JAX engine as in the port's: ROADMAP Queue C,
-        # and test_nan_weights_leave_kv_rows_like_jax below.)
+        # canary's own later streams are not checked here: the KV rows
+        # that the poisoned weights wrote stay non-finite after the
+        # rollback, in the JAX engine as in the port's, the open fault
+        # of ROADMAP Queue C.)
         code, out = http_post_json(f"http://127.0.0.1:{servers[1].port}/v1/generate", {
             "token_ids": prompt, "max_new_tokens": 8, "temperature": 0.0, "stop": False})
         assert code == 200 and out["token_ids"] == jax_solo(d, 4, prompt, 8)
@@ -232,6 +233,9 @@ def test_promote_then_rollback_over_the_port_fleet(run, tmp_path, capsys):
     verdicts = [r for r in recs if r.get("deploy_event") == "canary_verdict"]
     assert [v["ok"] for v in verdicts] == [True, False]
     assert verdicts[1]["regressions"] == ["canary_eval_loss_nonfinite"]
+    # the loss leg's kernel launches: none on the CPU
+    assert all(v["record"]["kernel_launches"] == {"flash_fwd": 0, "flash_bwd_dq": 0,
+                                                  "flash_bwd_dkv": 0} for v in verdicts)
     assert recs[-1]["fleet_goodput"]["replicas_total"] == 2
     capsys.readouterr()
     torch_main(["report", "faults", events, "--json"])
@@ -241,11 +245,11 @@ def test_promote_then_rollback_over_the_port_fleet(run, tmp_path, capsys):
 
 @pytest.mark.parametrize("kv", [{}, {"kv_block_size": 4}], ids=["dense", "paged"])
 def test_nan_weights_leave_kv_rows_like_jax(run, kv):
-    """A replica that served under NaN weights (a canary of a poisoned
-    checkpoint) and was swapped back writes its later streams from the
-    same slot through the non-finite rows those requests left: the
-    masked attention weights are 0, and 0 x NaN is NaN. The JAX engine
-    does the same; this pins the port to it (ROADMAP Queue C)."""
+    """A replica that serves a request under NaN weights (a canary of a
+    poisoned checkpoint), is swapped back and serves again from the same
+    slot gives the JAX engine's streams, dense and paged. (Both engines
+    leave that last stream garbage today: the open fault of ROADMAP
+    Queue C. This test holds only the parity.)"""
     from nanodiloco_tpu.serve import GenRequest as JaxRequest
     from nanodiloco_tpu.serve import InferenceEngine as JaxEngine
     from nanodiloco_tpu.serve import Scheduler as JaxScheduler
@@ -275,7 +279,6 @@ def test_nan_weights_leave_kv_rows_like_jax(run, kv):
             out.append(t.result["tokens"])
         streams[name] = out
     assert streams["torch"] == streams["jax"]
-    assert streams["torch"][2] != streams["torch"][0]
 
 
 @within(120)
@@ -313,3 +316,40 @@ def test_fleet_cli_watches_and_promotes(run, tmp_path):
     assert promote["step"] == 4 and promote["prior_step"] == 2
     assert "fleet_goodput" in recs[-1]
     assert "fleet router on 127.0.0.1:" in out and "watching" in out
+
+
+def test_report_faults_lists_the_deploy_verdicts_beside_jax_events(tmp_path, capsys):
+    """``report faults`` of a fleet's events JSONL lists every event that
+    the JAX verb lists, and adds the deploy verdicts (promote, rollback,
+    rollback_failed) in their places, which the JAX verb leaves out."""
+    recs = [
+        {"deploy_event": "canary_start", "step": 4, "replica": "r0", "baseline_step": 2},
+        {"deploy_event": "slo_burn", "slo": "ttft_p95", "replica": "r1"},
+        {"deploy_event": "promote", "step": 4, "replicas": ["r0", "r1"], "prior_step": 2},
+        {"deploy_event": "canary_deferred", "step": 6, "replica": "r0",
+         "reason": "fleet SLO burning"},
+        {"deploy_event": "slo_clear", "slo": "ttft_p95", "replica": "r1"},
+        {"deploy_event": "rollback", "step": 6, "restored_step": 4,
+         "regressions": ["canary_eval_loss_nonfinite"]},
+        {"deploy_event": "swap", "replica": "r0", "step": 4},
+        {"deploy_event": "rollback_failed", "step": 8, "restored_step": None,
+         "regressions": ["canary_request_errors"],
+         "error": "no prior deployed step to restore"},
+    ]
+    path = tmp_path / "fleet.jsonl"
+    path.write_text("".join(json.dumps({"t_unix": float(i), **r}) + "\n"
+                            for i, r in enumerate(recs)))
+    listed = {}
+    for name, cli_main in (("jax", jax_cli.main), ("torch", torch_main)):
+        capsys.readouterr()
+        cli_main(["report", "faults", str(path), "--json"])
+        listed[name] = json.loads(capsys.readouterr().out)
+    verdicts = ("promote", "rollback", "rollback_failed")
+    assert [e["event"] for e in listed["jax"]] == ["slo_burn", "canary_deferred", "slo_clear"]
+    assert [e for e in listed["torch"] if e["event"] not in verdicts] == listed["jax"]
+    assert [e["event"] for e in listed["torch"]] == [
+        "slo_burn", "promote", "canary_deferred", "slo_clear", "rollback", "rollback_failed"]
+    assert [e for e in listed["torch"] if e["event"] in verdicts] == [
+        {"event": r["deploy_event"], "t_unix": float(i),
+         **{k: v for k, v in r.items() if k != "deploy_event"}}
+        for i, r in enumerate(recs) if r["deploy_event"] in verdicts]
