@@ -203,11 +203,42 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  --autoscale-template` over one `serve` replica: a burst takes
                  the fleet from 1 to 2 replicas (the new child serves), idle
                  drains it back to 1.
+18. moe_small   - every MoE mode at a small float32 size (2 layers, hidden
+                 128, 4/2 heads: hd 32, the FMA kernels; vocab 384; 4 experts
+                 top-2; TF32 off) from one parameter tree, two DiLoCo rounds
+                 (W 2, H 2, grad_accum 2) on the card twice and on the CPU:
+                 token-choice dense at cf 1.25 and at cf 0.25 (the capacity
+                 binds), ragged, and expert-choice. The two card runs are bit-
+                 identical; card and CPU losses and snapshots agree within
+                 train_small's 1e-3; the router probe on one snapshot agrees
+                 (dropped within one assignment, entropy 1e-5); top-k ties
+                 come out lower index first on both; B1, B2, B3 launch.
+19. moe_train   - train() on bench.py's moe-8x-top2 (vocab 32000, hidden 512,
+                 6 layers, 8/4 heads: hd 64 bf16, the FMA kernels; 8 experts
+                 top-2) at its bench shape (S 1024 x B 8, W 2, H 2, 3 rounds),
+                 dense at cf 1.25 and ragged: tokens/s, peak memory, t_inner,
+                 t_sync beside its byte bound, the analytic MFU, the router
+                 stats of each sync; every kernel launches in every run. The
+                 ragged run checkpointed after round 1 and resumed equals the
+                 uninterrupted one bit for bit. One profiled inner step per
+                 dispatch (kernel ms by class, host syncs, idle share). `python
+                 -m nanodiloco_tpu_torch --llama-config-file
+                 configs/llama_moe_64e.json --attention flash` (64 experts,
+                 ragged, hd 32) in a subprocess, 3 rounds.
+20. moe_serve   - moe-8x-top2 weights (seed 0, bf16) behind the dense and the
+                 paged engine (4 slots x 1024, chunk 512, 8 greedy requests of
+                 64 new tokens). Ragged: every stream equals solo generate() or
+                 parts from it first at a near-tie, and each token is the
+                 training forward's argmax within NEAR_TIE. Dense at cf 1.25:
+                 streams that part beyond a near-tie are the documented
+                 capacity divergence, counted. `generate` from the CLI on
+                 moe_train's ragged checkpoint equals generate() on its
+                 snapshot.
 
 Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, and the files
-of phases 13-17 in a directory of its own under /dev/shm (a tmpfs: the
+of phases 13-20 in a directory of its own under /dev/shm (a tmpfs: the
 card's machine allows a run 45 GiB of disk writes, and
 checkpoint_full takes 40.6 GB of them), each removed at the end.
 """
@@ -217,6 +248,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import json
 import math
@@ -258,6 +290,9 @@ from nanodiloco_tpu_torch.models.generate import (
 )
 from nanodiloco_tpu_torch.models import safetensors_io
 from nanodiloco_tpu_torch.models.hf_interop import _export_plan, from_hf_pretrained, hf_config
+from nanodiloco_tpu_torch.models.moe import _mm as moe_mm
+from nanodiloco_tpu_torch.models.moe import _top as moe_top
+from nanodiloco_tpu_torch.models.moe import make_router_stats_fn
 from nanodiloco_tpu_torch.models.llama import (
     causal_lm_loss,
     forward,
@@ -1384,7 +1419,7 @@ def teacher_forcing(sp, cfg, req: GenRequest, stream: list[int]) -> dict:
     best = logits.argmax(-1)
     tol = tie_tolerance(h, sp["lm_head"], logits, best, emitted)
     gap = logits.gather(-1, best[:, None])[:, 0] - logits.gather(-1, emitted[:, None])[:, 0]
-    return {"exact": int((best == emitted).sum()), "n": len(stream),
+    return {"exact": int((best == emitted).sum()), "n": len(stream), "gap": gap, "tol": tol,
             "max_gap": float(gap.max()), "gap_over_tol": float((gap / tol).max()),
             "ok": bool((gap <= tol).all()), "h": h, "logits": logits}
 
@@ -1725,10 +1760,12 @@ def random_prompts(cfg: LlamaConfig, lens, seed: int) -> list[tuple]:
     return [tuple(torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()) for n in lens]
 
 
-def near_tie(sp, cfg, req: GenRequest, a: list[int], b: list[int], phase: str, what: str) -> dict:
+def near_tie(sp, cfg, req: GenRequest, a: list[int], b: list[int], phase: str, what: str,
+             strict: bool = True) -> dict:
     """Where greedy streams ``a`` and ``b`` of ``req`` first part, the two
     tokens' logit gap in the training forward (through B1) over the prompt
-    and the common prefix must be within NEAR_TIE; fails the phase if not."""
+    and the common prefix must be within NEAR_TIE; fails the phase if not
+    (``strict``), else reports it ("near_tie": False)."""
     first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if first is None:
         return {"first_divergence": None}
@@ -1739,9 +1776,9 @@ def near_tie(sp, cfg, req: GenRequest, a: list[int], b: list[int], phase: str, w
     ta, tb = torch.tensor([a[first]], device="cuda"), torch.tensor([b[first]], device="cuda")
     gap = (row[0, ta] - row[0, tb]).abs().item()
     tol = tie_tolerance(h, sp["lm_head"], row, ta, tb).item()
-    if gap > tol:
+    if gap > tol and strict:
         fail(phase, f"{what}: streams part at {first} off a near-tie: gap {gap:.4g} > {tol:.4g}")
-    return {"first_divergence": first, "gap": gap, "tol": tol}
+    return {"first_divergence": first, "gap": gap, "tol": tol, "near_tie": gap <= tol}
 
 
 def tick_profile(eng: InferenceEngine, cfg: LlamaConfig, reqs, matmul_bytes: int) -> dict:
@@ -3109,6 +3146,448 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
     return launches
 
 
+# -- Mixture-of-Experts --------------------------------------------------------
+
+# moe_small's size: float32, TF32 off, hd 32 (the FMA kernels; the kernels
+# have no hd-16 route, so hidden 128 over 4/2 heads), 4 experts top-2
+MOE_SMALL = dataclasses.replace(SMALL_MODEL, hidden_size=128, intermediate_size=256,
+                                num_experts=4, num_experts_per_tok=2)
+MOE_SMALL_MODES = {
+    "dense_cf1.25": dict(expert_capacity_factor=1.25),
+    "dense_cf0.25": dict(expert_capacity_factor=0.25),  # the capacity binds
+    "ragged": dict(moe_dispatch="ragged"),
+    "expert_choice": dict(router_type="experts_choose"),
+}
+# bench.py's moe-8x-top2 (its single / single_ragged entries) at full width
+# and depth, with flash attention: hd 64 in bf16 runs the FMA kernels
+MOE_8X = LlamaConfig(vocab_size=32000, hidden_size=512, intermediate_size=1408,
+                     num_hidden_layers=6, num_attention_heads=8, num_key_value_heads=4,
+                     max_position_embeddings=1024, dtype="bfloat16", loss_chunk=256,
+                     num_experts=8, num_experts_per_tok=2, attention_impl="flash")
+# its bench shape: S 1024 x B 8 per worker, one microbatch, W 2, H 2
+MOE_RUN = dict(seed=0, batch_size=8, per_device_batch_size=8, seq_length=1024,
+               warmup_steps=1, inner_steps=2, num_workers=2, total_steps=6, fit_vocab=False,
+               quiet=True)
+MOE_64E_FILE = ROOT / "configs" / "llama_moe_64e.json"
+DISPATCH_KERNEL = re.compile(r"sort|scan|cumsum|index|gather|scatter|histogram|bincount",
+                             re.IGNORECASE)
+
+
+def tree_copy(tree):
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+ROUTER_NEAR_TIE = ("an MoE layer's top-k boundary is a near-tie when the router logits of the "
+                   "k-th and (k+1)-th experts a, b differ by at most 2**-8 * sum_i |x_i (R_ia - "
+                   "R_ib)| plus one bf16 ulp of each (NEAR_TIE's argument for the router's "
+                   "product): two bf16 computations of the same network may route such a token "
+                   "to different experts, and every later layer at that and later tokens may "
+                   "then route and part by more than NEAR_TIE; the first such flips (no flip "
+                   "in an earlier layer at the same or an earlier token) must be near-ties")
+
+
+@contextlib.contextmanager
+def moe_routes(log: list):
+    """Record, in call order, every MoE layer's normed input rows [n, d],
+    router [d, E] (one worker) and router logits [n, E], from the training
+    forward and from generate(). The logits are the layer's own product
+    again (the same shapes, so the same bits on the card)."""
+    import nanodiloco_tpu_torch.models.generate as gen_mod
+    import nanodiloco_tpu_torch.models.llama as llama_mod
+
+    orig = llama_mod.moe_mlp
+
+    def spy(cfg, h, layer, **kw):
+        x, router = h[0].reshape(-1, h.shape[-1]).detach(), layer["router"][0].to(h.dtype)
+        log.append((x, router, moe_mm(x, router).float()))
+        return orig(cfg, h, layer, **kw)
+
+    llama_mod.moe_mlp = gen_mod.moe_mlp = spy
+    try:
+        yield log
+    finally:
+        llama_mod.moe_mlp = gen_mod.moe_mlp = orig
+
+
+def router_flips(sp, cfg, req: GenRequest, stream: list[int], upto: int) -> dict:
+    """Where the training forward over prompt + stream and solo generate()
+    (which emits ``stream``) route a token at or before stream position
+    ``upto`` to different top-k experts: the count of such (layer, token)
+    pairs, the root ones (no flip in an earlier layer at the same or an
+    earlier token explains them), and whether every root is a router
+    near-tie (ROUTER_NEAR_TIE) in the forward's logits."""
+    fwd, gen = [], []
+    toks = torch.tensor([list(req.prompt) + stream[:-1]], device="cuda")
+    with torch.no_grad(), moe_routes(fwd):
+        forward(sp, toks, dataclasses.replace(cfg, remat=False), return_hidden=True)
+    with moe_routes(gen):
+        ref = solo(sp, cfg, req, "cuda")
+    if ref[:upto] != stream[:upto]:
+        return {"route_flips": None, "all_router_near_ties": False,
+                "solo_parts_before": upto}
+    n_layers, k = cfg.num_hidden_layers, cfg.num_experts_per_tok
+    last = len(req.prompt) + upto  # the rows that can reach stream position upto
+    flips = []
+    for layer in range(n_layers):
+        x, router, lf = fwd[layer]
+        calls = [layer] + list(range(n_layers + layer, len(gen), n_layers))
+        lf, lg = lf[:last], torch.cat([gen[i][2] for i in calls])[:last]
+        # routed as moe_mlp routes: top-k of the softmax
+        ef, eg = (moe_top(torch.softmax(lx, -1), k)[1].sort(-1)[0] for lx in (lf, lg))
+        for row in (ef != eg).any(-1).nonzero()[:, 0].tolist():
+            idx = moe_top(torch.softmax(lf[row], -1), k + 1)[1]
+            a, b = int(idx[k - 1]), int(idx[k])
+            vals = lf[row, idx]
+            gap = float(vals[k - 1] - vals[k])
+            ulp = sum(float(torch.exp2(torch.floor(torch.log2(v.abs().clamp_min(1e-30))) - 7))
+                      for v in (vals[k - 1], vals[k]))
+            tol = float((x[row].float() * (router[:, a].float() - router[:, b].float())).abs()
+                        .sum()) * BF16_U + ulp
+            flips.append({"layer": layer, "row": row, "gap": gap, "tol": tol})
+    # a flip at (layer l, row r) changes the input of every later layer at
+    # rows >= r (the residual stream, then attention): the roots, flips no
+    # earlier-layer flip at a row <= r explains, must be router near-ties
+    roots = [f for f in flips if not any(g["layer"] < f["layer"] and g["row"] <= f["row"]
+                                         for g in flips)]
+    worst = max((f["gap"] / f["tol"] for f in roots), default=0.0)
+    return {"route_flips": len(flips), "root_flips": roots[:6],
+            "all_router_near_ties": bool(roots) and worst <= 1.0,
+            "worst_root_gap_over_tol": worst}
+
+
+def moe_small_run(model, device, params, rounds) -> dict:
+    """Two DiLoCo rounds of ``model`` from a copy of ``params`` on
+    ``device``: the [H, W] losses and the snapshot, on the CPU."""
+    dl = Diloco(model, DilocoConfig(**SMALL_DILOCO), device=device)
+    state = dl.init_state(params=tree_copy(params))
+    losses = torch.cat([dl.round_step(state, t, m)[1].cpu() for t, m in rounds])
+    return {"losses": losses, "snapshot": tree_map(lambda t: t.detach().cpu().clone(),
+                                                   state.snapshot)}
+
+
+def phase_moe_small(smi: str) -> dict:
+    """Every MoE mode at a small float32 size from one parameter tree: two
+    DiLoCo rounds on the card (twice) and on the CPU; the router probe on
+    the CPU's final snapshot on both; forced top-k ties on both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rounds = small_rounds()
+    probe_tokens = torch.as_tensor(rounds[-1][0][-1, 0, 0]).long()       # [B, S]
+    n_assign = MOE_SMALL.num_experts_per_tok * probe_tokens.numel()
+    params = init_params(torch.Generator().manual_seed(0), MOE_SMALL, device="cpu")
+    # ties: equal values must come out lower index first, as jax.lax.top_k has it
+    x = torch.tensor([[0.5, 1.0, 1.0, 0.2, 1.0, 0.0, 0.0, 1.0]]).repeat(3, 1)
+    ties = {d: [t.cpu().tolist() for t in moe_top(x.to(d), 5)] for d in ("cuda", "cpu")}
+    if ties["cuda"] != ties["cpu"] or ties["cpu"][1][0] != [1, 2, 4, 7, 0]:
+        fail("moe_small", f"top-k tie order: card {ties['cuda']}, CPU {ties['cpu']}")
+    launches = dict.fromkeys(fa.KERNEL_NAMES, 0)
+    out = {}
+    for mode, change in MOE_SMALL_MODES.items():
+        model = dataclasses.replace(MOE_SMALL, **change)
+        fa.reset_launch_counts()
+        card = [moe_small_run(model, "cuda", params, rounds) for _ in range(2)]
+        for k, v in fa.launch_counts().items():
+            launches[k] += v
+        if min(fa.launch_counts().values()) == 0:
+            fail("moe_small", f"{mode}: a kernel was not launched: {fa.launch_counts()}")
+        cpu = moe_small_run(model, "cpu", params, rounds)
+        same = torch.equal(card[0]["losses"], card[1]["losses"]) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(card[0]["snapshot"]),
+                                              tree_leaves(card[1]["snapshot"])))
+        if not same:
+            fail("moe_small", f"{mode}: two card runs differ")
+        got, want = card[0]["losses"], cpu["losses"]
+        err = ((got - want).abs() / want.abs()).max().item()
+        snap_err = max(rel_err(a, b) for a, b in zip(tree_leaves(card[0]["snapshot"]),
+                                                     tree_leaves(cpu["snapshot"])))
+        if not torch.isfinite(got).all() or max(err, snap_err) > SMALL_TOL:
+            fail("moe_small", f"{mode}: card vs CPU losses {got.tolist()} vs {want.tolist()}, "
+                              f"snapshot rel err {snap_err:.3e}")
+        # the probe on ONE snapshot (the CPU's) on both devices
+        probe = {d: make_router_stats_fn(model)(tree_map(lambda t: t.to(d), cpu["snapshot"]),
+                                                probe_tokens.to(d)) for d in ("cuda", "cpu")}
+        d_drop = abs(probe["cuda"]["moe_dropped_frac"] - probe["cpu"]["moe_dropped_frac"])
+        e_err = (abs(probe["cuda"]["moe_router_entropy"] - probe["cpu"]["moe_router_entropy"])
+                 / probe["cpu"]["moe_router_entropy"])
+        if d_drop > 1.0 / n_assign or e_err > 1e-5:
+            fail("moe_small", f"{mode}: router probe card {probe['cuda']} vs CPU {probe['cpu']}")
+        # cf 0.25: E*C = 100 slots for 400 assignments, at least 3/4 drop
+        dropped = probe["cpu"]["moe_dropped_frac"]
+        if ((mode == "dense_cf0.25" and dropped < 0.75 - 1e-6)
+                or (mode == "ragged" and dropped != 0.0)):
+            fail("moe_small", f"{mode}: dropped fraction {probe['cpu']}")
+        out[mode] = {"losses": got.tolist(), "cpu_losses": want.tolist(), "max_rel_err": err,
+                     "snapshot_max_rel_err": snap_err, "card_runs_bit_identical": same,
+                     "probe_card": probe["cuda"], "probe_cpu": probe["cpu"]}
+    emit(phase="moe_small", ok=True, nvidia_smi=smi, model=MOE_SMALL.to_dict(), modes=out,
+         tolerance={"losses_and_snapshot_rel": SMALL_TOL,
+                    "dropped_frac_abs": f"one assignment of {n_assign}",
+                    "router_entropy_rel": 1e-5},
+         top_k_ties=ties["cuda"], launches=launches)
+    return launches
+
+
+def moe_step_profile(model: LlamaConfig) -> dict:
+    """One inner step of ``model`` at MOE_RUN's shape (W 2, one microbatch
+    of 8 x 1024) under torch.profiler, after one warm step: host ms, the
+    device's busy ms and idle share, kernel ms by class (GEMMs, the flash
+    kernels, the dispatch's sort/scan/index/gather/scatter kernels, the
+    rest) and the host syncs (device-to-host copies and their seconds)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dl = Diloco(model, DilocoConfig(num_workers=2, inner_steps=2, warmup_steps=1,
+                                    total_steps=4, lr=1e-3), device="cuda")
+    state = dl.init_state(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, 384, (2, 1, 8, 1024), generator=gen)
+    dl.inner_step(state, toks, torch.ones_like(toks))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dl.inner_step(state, toks, torch.ones_like(toks))
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    busy_us, n_kernels = device_busy_us(prof)
+    by_class = dict.fromkeys(("gemm", "flash", "dispatch", "other"), 0.0)
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            name = e.name
+            cls = ("flash" if "flash" in name else "gemm" if GEMM_KERNEL.search(name)
+                   else "dispatch" if DISPATCH_KERNEL.search(name) else "other")
+            by_class[cls] += us / 1e3
+            by_name[name[:90]] = by_name.get(name[:90], 0.0) + us / 1e3
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    d2h = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU
+           and e.name in ("cudaMemcpyAsync", "cudaStreamSynchronize")]
+    del dl, state
+    torch.cuda.empty_cache()
+    if busy_us <= 0:
+        return {"host_ms": host_ms, "idle_share": "not measured: no device time in the profile"}
+    return {"host_ms": host_ms, "device_busy_ms": busy_us / 1e3, "kernels": n_kernels,
+            "idle_share": max(0.0, 1.0 - busy_us / 1e3 / host_ms), "kernel_ms": by_class,
+            "top_kernels_ms": top,
+            "host_sync_calls": len(d2h),
+            "host_sync_ms": sum(e.time_range.end - e.time_range.start for e in d2h) / 1e3}
+
+
+def moe_run_line(name: str, summary: dict, jsonl: Path, n_params: int,
+                 allocated_before: int = 0) -> dict:
+    recs = read_jsonl_records(str(jsonl))[0]
+    syncs = [r for r in recs if r.get("outer_synced")]
+    cost = next((r["cost_analysis"] for r in recs if r.get("cost_analysis")), None)
+    tps = summary["tokens_per_sec_after_first_round"]
+    return {
+        "tokens_per_sec_after_first_round": tps,
+        "round_seconds": summary["round_seconds"],
+        "peak_memory_bytes": summary["peak_memory_bytes"],
+        # the run's own: its peak above what was allocated when it started
+        "run_peak_memory_bytes": (summary["peak_memory_bytes"] or 0) - allocated_before,
+        "t_inner_s": [r.get("t_inner") for r in syncs],
+        "t_sync_s": [r.get("t_sync") for r in syncs],
+        "outer_step_bound_ms": outer_bytes_per_param(name, 2) * n_params / PEAK_BYTES * 1e3,
+        "flops_per_token": None if cost is None else cost.get("flops_per_token"),
+        "mfu_analytic_after_first_round": None if cost is None else analytic_mfu(cost, tps),
+        "router_stats": [{k: r[k] for k in ("step", "moe_dropped_frac", "moe_router_entropy")}
+                         for r in syncs],
+        "final_loss": summary["final_loss"],
+    }
+
+
+def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
+    """train() on moe-8x-top2 at its bench shape, dense and ragged, 3
+    rounds each; the ragged run checkpointed after round 1 and resumed
+    must equal the uninterrupted one bit for bit; a torch.profiler step
+    of each dispatch; `python -m nanodiloco_tpu_torch --llama-config-file
+    configs/llama_moe_64e.json` (ragged, 64 experts, hd 32) in a
+    subprocess. Returns the kernels' launches and what moe_serve needs
+    (the ragged checkpoint's directory and final snapshot)."""
+    t_phase = time.perf_counter()
+    log_dir = mem / "moe_runs"
+    ck_dir = mem / "moe_ck"
+    n = MOE_8X.num_params()
+    launches = dict.fromkeys(fa.KERNEL_NAMES, 0)
+    runs = {}
+    # what earlier phases still hold in this process: device memory every
+    # run's absolute peak includes, and threads that share the host
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"allocated_at_start_bytes": torch.cuda.memory_allocated(),
+            "threads_at_start": sorted(t.name for t in threading.enumerate())}
+    emit(phase="moe_train", run="start", ok=True, **held)
+    before = {}
+
+    def run(name: str, model: LlamaConfig, **kw) -> dict:
+        cfg = TrainConfig(**{**MOE_RUN, "model": model, "log_dir": str(log_dir),
+                             "run_name": name, **kw})
+        fa.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        before[name] = torch.cuda.memory_allocated()
+        summary = train(cfg, device="cuda")
+        got = fa.launch_counts()
+        if min(got.values()) == 0:
+            fail("moe_train", f"{name}: a kernel was not launched: {got}")
+        for k, v in got.items():
+            launches[k] += v
+        if not all(math.isfinite(x) for step in summary["losses"] for x in step):
+            fail("moe_train", f"{name}: losses {summary['losses']}")
+        return summary
+
+    dense = dataclasses.replace(MOE_8X, expert_capacity_factor=1.25)
+    ragged = dataclasses.replace(MOE_8X, moe_dispatch="ragged")
+    for name, model in (("dense", dense), ("ragged", ragged)):
+        summary = run(name, model)
+        runs[name] = moe_run_line(name, summary, log_dir / f"{name}.jsonl", n, before[name])
+        if len(runs[name]["router_stats"]) != 3:
+            fail("moe_train", f"{name}: router stats on {runs[name]['router_stats']}")
+        emit(phase="moe_train", run=name, ok=True, nvidia_smi=smi, num_params=n, **runs[name])
+        # only the ragged state stays (for the resume check): no run's peak
+        # carries an earlier run's state
+        full = summary if name == "ragged" else None
+        del summary
+        torch.cuda.empty_cache()
+    # the ragged run again: one round with a checkpoint, then resumed to 3
+    run("ragged_first", ragged, total_steps=2, checkpoint_dir=str(ck_dir))
+    resumed = run("ragged_resumed", ragged, checkpoint_dir=str(ck_dir))
+    resume_diff = None
+    if resumed["losses"] != full["losses"][2:]:
+        resume_diff = "losses"
+    for (name, a), (_, b) in zip(state_leaves(resumed["state"]), state_leaves(full["state"])):
+        if resume_diff is None and not torch.equal(a, b):
+            resume_diff = name
+    if resume_diff is not None:
+        fail("moe_train", f"the resumed ragged run differs from the uninterrupted one first "
+                          f"at {resume_diff}")
+    snapshot = tree_map(lambda t: t.detach().clone(), full["state"].snapshot)
+    del full, resumed
+    torch.cuda.empty_cache()
+    profiles = {name: moe_step_profile(model) for name, model in (("dense", dense),
+                                                                  ("ragged", ragged))}
+    # llama_moe_64e through the CLI, 3 rounds at the bench shape
+    cmd = [sys.executable, "-m", "nanodiloco_tpu_torch", "--llama-config-file",
+           str(MOE_64E_FILE), "--attention", "flash", "--seed", "0", "--batch-size", "8",
+           "--per-device-batch-size", "8", "--seq-length", "1024", "--warmup-steps", "1",
+           "--total-steps", "6", "--inner-steps", "2", "--num-workers", "2",
+           "--log-dir", str(log_dir), "--run-name", "moe64e", "--quiet"]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail("moe_train", f"the llama_moe_64e CLI run exited {proc.returncode}: "
+                          f"{proc.stderr[-2000:]}")
+    cli_summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    if min(cli_summary["kernel_launches"].values()) == 0:
+        fail("moe_train", f"llama_moe_64e: a kernel was not launched: "
+                          f"{cli_summary['kernel_launches']}")
+    model64 = LlamaConfig(**cli_summary["model"])
+    runs["llama_moe_64e_cli"] = moe_run_line("cli", cli_summary, log_dir / "moe64e.jsonl",
+                                             model64.num_params())
+    emit(phase="moe_train", run="llama_moe_64e_cli", ok=True, nvidia_smi=smi,
+         model=cli_summary["model"], launches=cli_summary["kernel_launches"],
+         **runs["llama_moe_64e_cli"])
+    dense_tps = runs["dense"]["tokens_per_sec_after_first_round"]
+    emit(phase="moe_train", ok=True, nvidia_smi=smi, model=MOE_8X.to_dict(), num_params=n,
+         tokens_per_sec={k: v["tokens_per_sec_after_first_round"] for k, v in runs.items()},
+         ragged_over_dense_tokens_per_sec=(
+             runs["ragged"]["tokens_per_sec_after_first_round"] / dense_tps),
+         peak_memory_gb={k: (v["peak_memory_bytes"] or 0) / 1e9 for k, v in runs.items()},
+         run_peak_memory_gb={k: v["run_peak_memory_bytes"] / 1e9 for k, v in runs.items()},
+         **held,
+         resumed_bit_exact=True, step_profile=profiles, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches, {"checkpoint_dir": ck_dir, "snapshot": snapshot, "model": ragged}
+
+
+def phase_moe_serve(ragged_run: dict, smi: str) -> dict:
+    """moe-8x-top2 weights (seed 0, bf16 serving copy) behind the dense
+    and the paged engine (4 slots x 1024, chunk 512, 8 greedy requests of
+    64 new tokens). Ragged dispatch: every stream equals solo generate()
+    or parts from it first at a near-tie, and each token is the training
+    forward's argmax within NEAR_TIE. Dense dispatch at cf 1.25: the
+    streams that part from solo generate() beyond a near-tie are the
+    documented capacity divergence, counted, not failed. Then `generate`
+    from the CLI on moe_train's ragged checkpoint equals generate() on
+    its snapshot."""
+    t_phase = time.perf_counter()
+    fa.reset_launch_counts()
+    gen = torch.Generator().manual_seed(2)
+    reqs = [GenRequest(prompt=tuple(torch.randint(0, MOE_8X.vocab_size, (n,),
+                                                  generator=gen).tolist()),
+                       max_new_tokens=SERVE_NEW, seed=10 + i)
+            for i, n in enumerate(SERVE_PROMPTS)]
+    out = {}
+    for mode, change in (("ragged", dict(moe_dispatch="ragged")),
+                         ("dense_cf1.25", dict(expert_capacity_factor=1.25))):
+        cfg = dataclasses.replace(MOE_8X, **change)
+        params = init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+        sp = serving_params(params, cfg)
+        del params
+        refs = [solo(sp, cfg, r, "cuda") for r in reqs]
+        for engine, kw in (("dense", {}), ("paged", {"kv_block_size": 16})):
+            torch.cuda.reset_peak_memory_stats()
+            eng = InferenceEngine(sp, cfg, num_slots=4, max_len=1024, chunk_size=512,
+                                  device="cuda", **kw)
+            sched = Scheduler(eng)
+            t0 = time.perf_counter()
+            streams = [t.result["tokens"] for t in drive(sched, reqs, per_tick=2)]
+            wall = time.perf_counter() - t0
+            stats = sched.stats()
+            checks, parted, routed_ties = [], 0, 0
+            for req, stream, ref in zip(reqs, streams, refs):
+                if len(stream) != SERVE_NEW:
+                    fail("moe_serve", f"{mode}/{engine}: stream of {len(stream)} tokens")
+                tie = near_tie(sp, cfg, req, stream, ref, "moe_serve",
+                               f"{mode}/{engine} vs solo generate()", strict=mode == "ragged")
+                parted += not tie.get("near_tie", True)
+                entry = {"prompt_len": len(req.prompt), **tie}
+                if mode == "ragged":
+                    tf = teacher_forcing(sp, cfg, req, stream)
+                    entry.update(teacher_forcing_exact=tf["exact"],
+                                 teacher_forcing_gap_over_tol=tf["gap_over_tol"])
+                    if not tf["ok"]:
+                        # past NEAR_TIE only behind a routing difference at a router near-tie
+                        first_bad = int((tf["gap"] > tf["tol"]).nonzero()[0, 0])
+                        flips = router_flips(sp, cfg, req, stream, first_bad)
+                        entry.update(teacher_forcing_first_beyond_near_tie=first_bad, **flips)
+                        if not flips["all_router_near_ties"]:
+                            fail("moe_serve", f"ragged/{engine}: a token is not the training "
+                                              f"forward's argmax within NEAR_TIE, and no "
+                                              f"router near-tie explains it: {entry}")
+                        routed_ties += 1
+                checks.append(entry)
+            out[f"{mode}/{engine}"] = {
+                "streams_equal_to_solo": sum(c["first_divergence"] is None for c in checks),
+                "streams_parted_beyond_near_tie": parted,
+                "streams_past_near_tie_behind_router_near_ties": routed_ties, "checks": checks,
+                "workload_seconds": wall, "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
+                "ttft_p50_s": stats["ttft_p50_s"], "ttft_p95_s": stats["ttft_p95_s"],
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            emit(phase="moe_serve", run=f"{mode}/{engine}", ok=True, nvidia_smi=smi,
+                 **out[f"{mode}/{engine}"])
+            del eng, sched
+        del sp
+        torch.cuda.empty_cache()
+    launches = fa.launch_counts()
+    if launches["flash_fwd"] == 0:
+        fail("moe_serve", f"B1 did not launch in the teacher-forcing forwards: {launches}")
+    # `generate` from the CLI on moe_train's ragged checkpoint
+    tok = ByteTokenizer()
+    prompt = "The experts"
+    proc = subprocess.run(
+        [sys.executable, "-m", "nanodiloco_tpu_torch", "generate", "--checkpoint-dir",
+         str(ragged_run["checkpoint_dir"]), "--prompt", prompt, "--max-new-tokens", "16",
+         "--temperature", "0"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    want = generate(ragged_run["snapshot"], [tok.encode(prompt)], ragged_run["model"], 16,
+                    device="cuda")[0].tolist()
+    if proc.returncode != 0 or proc.stdout != prompt + tok.decode(want) + "\n":
+        fail("moe_serve", f"CLI generate exited {proc.returncode}: {proc.stdout!r} vs "
+                          f"{prompt + tok.decode(want)!r}: {proc.stderr[-2000:]}")
+    emit(phase="moe_serve", ok=True, nvidia_smi=smi, model=MOE_8X.to_dict(),
+         requests=len(reqs), prompt_lens=list(SERVE_PROMPTS), new_tokens=SERVE_NEW,
+         near_tie_rule=NEAR_TIE, router_near_tie_rule=ROUTER_NEAR_TIE,
+         cli_generate_tokens=want, b1_launches=launches["flash_fwd"],
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
 def _healthy(url: str) -> bool:
     try:
         return http_get(url + "/healthz", timeout=2.0)[0] == 200
@@ -3161,6 +3640,10 @@ def main() -> None:
         phase_supervise_small(mem, smi)
         fleet_launches = phase_fleet_8b(mem, smi)
         deploy_launches = phase_deploy_small(mem, smi)
+        moe_small_launches = phase_moe_small(smi)
+        moe_train_launches, ragged_run = phase_moe_train(mem, smi)
+        moe_serve_launches = phase_moe_serve(ragged_run, smi)
+        del ragged_run
     finally:
         shutil.rmtree(mem, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
@@ -3173,7 +3656,10 @@ def main() -> None:
          "launches_serve": serve_launches[name],
          "launches_faults_8b": faults_launches[name],
          "launches_fleet_8b": fleet_launches[name],
-         "launches_deploy_small": deploy_launches[name], **kernels[name]}
+         "launches_deploy_small": deploy_launches[name],
+         "launches_moe_small": moe_small_launches[name],
+         "launches_moe_train": moe_train_launches[name],
+         "launches_moe_serve": moe_serve_launches[name], **kernels[name]}
         for name in REPLACES
     ])
     print(smi, flush=True)

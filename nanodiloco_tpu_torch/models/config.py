@@ -3,8 +3,8 @@
 The same fields and defaults, so the repository's ``configs/*.json`` and
 the ``TINY_LLAMA`` / ``LLAMA3_8B`` presets load unchanged. ``dtype`` is
 the compute dtype and ``param_dtype`` the master-weight dtype, both as
-names ("float32", "bfloat16"). The MoE fields are kept so every config
-file loads; the port's model raises on ``num_experts > 0`` for now.
+names ("float32", "bfloat16"). ``num_experts > 0`` makes every MLP a
+Mixture-of-Experts layer (``models/moe.py``).
 """
 
 from __future__ import annotations

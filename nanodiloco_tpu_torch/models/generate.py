@@ -1,5 +1,5 @@
-"""Autoregressive generation over a preallocated KV cache: port of the
-dense half of ``nanodiloco_tpu/models/generate.py``.
+"""Autoregressive generation over a preallocated KV cache: port of
+``nanodiloco_tpu/models/generate.py``.
 
 - ``generate``: one-shot sampling. The prompt prefills in one call of
   ``_cached_block`` and each new token is one more call at T = 1. The
@@ -40,6 +40,18 @@ cannot be reproduced here.
 Variable-length prompts are right-aligned: shorter prompts are padded on
 the LEFT (``pad_prompts``) and ``prompt_valid`` masks the pads out of
 attention.
+
+MoE configs run the training forward's MLP (``models/moe.py``) on each
+call's tokens, with the tokens that must claim no expert capacity masked:
+a prompt's left pads, a final chunk's right pads, and the dead slots of
+a B-slot tick (every slot row runs; capacity is sized from all B rows).
+Known divergence from the training forward, as in the JAX package:
+dense dispatch sizes capacity from the tokens of the CURRENT call (B·P
+at prefill, B at a decode step) where training routes over B·S, so when
+capacity binds, which tokens overflow differs and logits can diverge.
+Ragged dispatch has no capacity and routes as training does. Expert-
+choice routing is training-only (its top-C selection sees the whole
+token set) and is refused here.
 """
 
 from __future__ import annotations
@@ -61,9 +73,13 @@ from nanodiloco_tpu_torch.models.llama import (
     rms_norm,
     rope_tables,
 )
+from nanodiloco_tpu_torch.models.moe import moe_mlp
 from nanodiloco_tpu_torch.ops.online_softmax import block_update, finalize_grouped
 
 MATMUL_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+# cast to the compute dtype with them: the MoE router (the training forward
+# casts it before its product too)
+_CAST_KEYS = MATMUL_KEYS + ("router",)
 
 
 def serving_params(params: Params, cfg: LlamaConfig,
@@ -80,7 +96,7 @@ def serving_params(params: Params, cfg: LlamaConfig,
     def put(t, dtype=None):
         return t.to(device=dev if dev is not None else t.device, dtype=dtype or t.dtype)
 
-    layers = {k: put(v, cdt if k in MATMUL_KEYS else None)
+    layers = {k: put(v, cdt if k in _CAST_KEYS else None)
               for k, v in params["layers"].items()}
     head = params.get("lm_head")
     head = params["embed"].transpose(0, 1) if head is None else head
@@ -156,9 +172,17 @@ def _linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*lead, out.shape[-1])
 
 
-def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: dict) -> torch.Tensor:
-    """The norm + SwiGLU residual half of a decoder layer (dense)."""
+def _mlp(cfg: LlamaConfig, x: torch.Tensor, layer: dict,
+         valid: torch.Tensor | None = None) -> torch.Tensor:
+    """The norm + (SwiGLU | MoE) residual half of a decoder layer: x [B,
+    T, d]; ``valid`` [B, T] marks the tokens that claim expert capacity
+    (None: all). The MoE half is the training forward's ``moe_mlp`` at a
+    worker axis of 1."""
     h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.num_experts:
+        y = moe_mlp(cfg, h[None], {k: v[None] for k, v in layer.items()},
+                    valid=None if valid is None else valid[None])[0]
+        return x + y[0]
     gate = F.silu(_linear(h, layer["w_gate"]))
     return x + _linear(gate * _linear(h, layer["w_up"]), layer["w_down"])
 
@@ -195,6 +219,8 @@ def _cached_block(
                                # online softmax over cache blocks
     last_index: int | None = None,  # row of [0, T) whose logits to return
                                     # (None = the last)
+    token_valid: torch.Tensor | None = None,  # [B, T] 1 = a real input token
+                                              # (MoE capacity; None = all)
 ):
     """Run the decoder over ``tokens``, writing their K/V into the cache
     at ``pos``. Returns (logits [B, V] float32 of one position, the
@@ -249,7 +275,7 @@ def _cached_block(
         cv[:, pos:pos + t] = _linear(h, layer["wv"]).reshape(b, t, nkv, hd)
         qg = q.reshape(b, t, nkv, g, hd)
         attn = attn_blockwise(qg, ck, cv) if block else _attend_dense(qg, ck, cv, mask, cdt)
-        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer)
+        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer, token_valid)
     xl = x[:, -1 if last_index is None else last_index]
     return _logits(params, cfg, xl), cache
 
@@ -459,7 +485,8 @@ def generate(
                  if temperature > 0 else None)
         return _sample(logits, noise, temperature, top_k, top_p)
 
-    logits, cache = _cached_block(params, cfg, prompt, cache, 0, key_valid, block=decode_block)
+    logits, cache = _cached_block(params, cfg, prompt, cache, 0, key_valid, block=decode_block,
+                                  token_valid=prompt_valid)
     tok = sample(logits, 0)
     out = [tok]
     done = tok == stop_token if stop_token is not None else None
@@ -528,6 +555,16 @@ def _rope_rows(a, cos, sin):
     return a * cos + torch.cat([-a[..., half:], a[..., :half]], dim=-1) * sin
 
 
+def _slot_valid(cfg: LlamaConfig, active, t: int, device) -> torch.Tensor | None:
+    """[B, T]: a slot program's tokens that claim MoE capacity, the live
+    slots' rows (``active`` [B] host ints broadcast over T); None for a
+    dense model."""
+    if not cfg.num_experts:
+        return None
+    live = torch.as_tensor(np.asarray(active).reshape(-1) > 0, device=device)
+    return live[:, None].expand(-1, t).int()
+
+
 def _verify_slots_block(params: Params, cfg: LlamaConfig, tokens, cache, pos, key_valid,
                         active):
     """The decoder over ``tokens`` [B, T] at PER-SLOT positions
@@ -564,6 +601,7 @@ def _verify_slots_block(params: Params, cfg: LlamaConfig, tokens, cache, pos, ke
     wb = torch.as_tensor(wb_np, device=dev)
     wj = torch.as_tensor(wj_np, device=dev)
     wp = torch.as_tensor(qpos_np[wb_np, wj_np], device=dev)
+    token_valid = _slot_valid(cfg, active, t, dev)
 
     for i in range(cfg.num_hidden_layers):
         layer = _layer(params, i)
@@ -575,7 +613,7 @@ def _verify_slots_block(params: Params, cfg: LlamaConfig, tokens, cache, pos, ke
         ck[wb, wp] = k[wb, wj]
         cv[wb, wp] = v[wb, wj]
         attn = _attend_dense(q.reshape(b, t, nkv, g, hd), ck, cv, mask, cdt)
-        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer)
+        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer, token_valid)
     return _logits(params, cfg, x), cache
 
 
@@ -590,22 +628,25 @@ def _decode_slots_block(params, cfg: LlamaConfig, tokens, cache, pos, key_valid,
 
 def prefill_chunk_fn(cfg: LlamaConfig):
     """``(params, cache, chunk [1, C], slot, pos, last_idx, noise,
-    temperature, top_k, top_p) -> (token [] int32, logits [1, V] float32,
-    cache)``: run ONE chunk of a prompt through the decoder, writing its
-    K/V into slot ``slot`` at ``[pos, pos + C)`` and attending causally
-    over everything already written, and sample a token from the logits
-    at ``last_idx`` (an interior chunk's sample is discarded by the
-    caller). Every cache position reads as valid: a slot is never
-    left-padded, and positions at or after the live prefix are causally
-    masked. Pad tokens of a final chunk write past the prompt, where
-    decode overwrites them before any query can see them."""
+    temperature, top_k, top_p, chunk_valid=None) -> (token [] int32,
+    logits [1, V] float32, cache)``: run ONE chunk of a prompt through
+    the decoder, writing its K/V into slot ``slot`` at ``[pos, pos + C)``
+    and attending causally over everything already written, and sample a
+    token from the logits at ``last_idx`` (an interior chunk's sample is
+    discarded by the caller). Every cache position reads as valid: a slot
+    is never left-padded, and positions at or after the live prefix are
+    causally masked. Pad tokens of a final chunk write past the prompt,
+    where decode overwrites them before any query can see them;
+    ``chunk_valid`` [1, C] marks them 0 so that they claim no MoE
+    capacity."""
 
     @torch.no_grad()
-    def run(params, cache, chunk, slot, pos, last_idx, noise, temperature, top_k, top_p):
+    def run(params, cache, chunk, slot, pos, last_idx, noise, temperature, top_k, top_p,
+            chunk_valid=None):
         sub = {"k": cache["k"][:, slot:slot + 1], "v": cache["v"][:, slot:slot + 1]}
         key_valid = torch.ones((1, sub["k"].shape[2]), dtype=torch.int32, device=chunk.device)
         logits, _ = _cached_block(params, cfg, chunk, sub, pos, key_valid, block=0,
-                                  last_index=last_idx)
+                                  last_index=last_idx, token_valid=chunk_valid)
         tok = _sample_one(logits, noise, temperature, top_k, top_p)
         return tok, logits, cache
 
@@ -763,20 +804,22 @@ def _gather_rows(rows: torch.Tensor, scales: torch.Tensor | None, idx: torch.Ten
 def prefill_chunk_paged_fn(cfg: LlamaConfig, kv_dtype: str | None = None):
     """Paged twin of ``prefill_chunk_fn``: ``(params, pool, table
     [max_blocks] host ints, chunk [1, C], pos, last_idx, noise,
-    temperature, top_k, top_p) -> (token, logits [1, V], pool)``. Gathers
-    the slot's dense view through its table, runs ``_cached_block``
-    unchanged (paged-fp logits are the dense path's bits) and scatters
-    back only the touched blocks: ``C // block + 1`` blocks from the one
-    holding ``pos``, which covers an unaligned start (the bucket-overflow
-    re-feed) and costs one identity rewrite of gathered rows when ``pos``
-    is aligned. Touched table entries that are sentinels (pad rows past
-    the slot's allocation) are dropped. int8 mode dequantizes the gather
-    and quantizes the scattered rows per row."""
+    temperature, top_k, top_p, chunk_valid=None) -> (token, logits [1,
+    V], pool)``. Gathers the slot's dense view through its table, runs
+    ``_cached_block`` unchanged (paged-fp logits are the dense path's
+    bits) and scatters back only the touched blocks: ``C // block + 1``
+    blocks from the one holding ``pos``, which covers an unaligned start
+    (the bucket-overflow re-feed) and costs one identity rewrite of
+    gathered rows when ``pos`` is aligned. Touched table entries that are
+    sentinels (pad rows past the slot's allocation) are dropped. int8
+    mode dequantizes the gather and quantizes the scattered rows per
+    row."""
     quant = kv_dtype == "int8"
     cdt = dtype_of(cfg.dtype)
 
     @torch.no_grad()
-    def run(params, pool, table, chunk, pos, last_idx, noise, temperature, top_k, top_p):
+    def run(params, pool, table, chunk, pos, last_idx, noise, temperature, top_k, top_p,
+            chunk_valid=None):
         l, nb, bs, nkv, hd = pool["k"].shape
         table = np.asarray(table, np.int64).reshape(-1)
         mb = table.shape[0]
@@ -786,7 +829,7 @@ def prefill_chunk_paged_fn(cfg: LlamaConfig, kv_dtype: str | None = None):
                    l, 1, mb * bs, nkv, hd) for n, sn in (("k", "ks"), ("v", "vs"))}
         key_valid = torch.ones((1, mb * bs), dtype=torch.int32, device=dev)
         logits, sub = _cached_block(params, cfg, chunk, sub, pos, key_valid, block=0,
-                                    last_index=last_idx)
+                                    last_index=last_idx, token_valid=chunk_valid)
         c = chunk.shape[1]
         n_touch = min(c // bs + 1, mb) if c >= bs else 1
         b0 = min(pos // bs, mb - n_touch)
@@ -847,6 +890,7 @@ def _verify_slots_paged_block(params: Params, cfg: LlamaConfig, tokens, pool, ta
     wj = torch.as_tensor(wj_np, device=dev)
     wphys = torch.as_tensor(phys[wb_np, wj_np], device=dev)
     woff = torch.as_tensor(qpos_np[wb_np, wj_np] % bs, device=dev)
+    token_valid = _slot_valid(cfg, active, t, dev)
 
     for i in range(cfg.num_hidden_layers):
         layer = _layer(params, i)
@@ -866,7 +910,7 @@ def _verify_slots_paged_block(params: Params, cfg: LlamaConfig, tokens, pool, ta
         ck, cv = (_gather_rows(arena[n], arena.get(sn) if quant else None, read, cdt).reshape(
             b, s_view, nkv, hd) for n, sn in (("k", "ks"), ("v", "vs")))
         attn = _attend_dense(q.reshape(b, t, nkv, g, hd), ck, cv, mask, cdt)
-        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer)
+        x = _mlp(cfg, x + _linear(attn, layer["wo"]), layer, token_valid)
     return _logits(params, cfg, x), pool
 
 

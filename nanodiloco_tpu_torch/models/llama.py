@@ -1,10 +1,13 @@
 """Llama-family decoder as plain functions over a parameter dict.
 
-Port of the dense path of ``nanodiloco_tpu/models/llama.py``, with its
-parameter layout: ``embed [V, d]``; ``layers/{wq, wk, wv, wo, w_gate,
-w_up, w_down}`` stacked ``[L, in, out]`` (``x @ W``); ``attn_norm`` /
-``mlp_norm [L, d]``; ``final_norm [d]``; ``lm_head [d, V]`` unless the
-head is tied to the embedding.
+Port of ``nanodiloco_tpu/models/llama.py``, with its parameter layout:
+``embed [V, d]``; ``layers/{wq, wk, wv, wo, w_gate, w_up, w_down}``
+stacked ``[L, in, out]`` (``x @ W``); ``attn_norm`` / ``mlp_norm [L,
+d]``; ``final_norm [d]``; ``lm_head [d, V]`` unless the head is tied to
+the embedding. An MoE config (``num_experts = E > 0``) adds
+``layers/router [L, d, E]`` and stacks the expert FFN per layer:
+``w_gate`` / ``w_up [L, E, d, f]``, ``w_down [L, E, f, d]``
+(``models/moe.py``).
 
 Worker axis. Every function also takes the DiLoCo layout, where each
 parameter carries a leading worker dimension ``[W, ...]`` and tokens are
@@ -34,6 +37,7 @@ from torch.utils.checkpoint import (
 )
 
 from nanodiloco_tpu_torch.models.config import LlamaConfig
+from nanodiloco_tpu_torch.models.moe import moe_mlp
 from nanodiloco_tpu_torch.ops.flash_attention import flash_attention
 from nanodiloco_tpu_torch.ops.fused_ce import chunked_softmax_xent
 
@@ -57,9 +61,13 @@ def dtype_of(name: str) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
 
 
+def layer_keys(cfg: LlamaConfig) -> tuple[str, ...]:
+    """The per-layer leaves of ``cfg``'s tree: ``LAYER_KEYS``, and the
+    router in an MoE config."""
+    return LAYER_KEYS + (("router",) if cfg.num_experts else ())
+
+
 def _check_supported(cfg: LlamaConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError(f"MoE layers are {_NOT_PORTED}")
     if cfg.attention_impl not in ("dense", "flash"):
         if cfg.attention_impl == "ring":
             raise NotImplementedError(f"ring attention (sequence parallelism) is {_NOT_PORTED}")
@@ -97,13 +105,17 @@ def init_params(
         "wv": normal(l, d, nkv * hd),
         "wo": normal(l, nh * hd, d),
         "mlp_norm": ones(l, d),
-        "w_gate": normal(l, d, f),
-        "w_up": normal(l, d, f),
-        "w_down": normal(l, f, d),
     }
+    e = cfg.num_experts
+    ffn = (e,) if e else ()
+    layers["w_gate"] = normal(l, *ffn, d, f)
+    layers["w_up"] = normal(l, *ffn, d, f)
+    layers["w_down"] = normal(l, *ffn, f, d)
     params: Params = {"embed": normal(v, d), "layers": layers, "final_norm": ones(d)}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = normal(d, v)
+    if e:
+        layers["router"] = normal(l, d, e)
     return params
 
 
@@ -249,14 +261,26 @@ def _norm(x, scale, eps):
     return rms_norm(x, scale[:, None, None, :], eps)
 
 
-def mlp_block(cfg: LlamaConfig, x, layer: Params):
-    """The norm + SwiGLU residual half of a decoder layer."""
+def mlp_block(cfg: LlamaConfig, x, layer: Params, valid=None, with_stats: bool = False):
+    """The norm + (dense SwiGLU | MoE) residual half of a decoder layer.
+    Returns (x, aux [W]): aux is the router's load-balance term, 0 for a
+    dense layer. ``valid`` [W, B, S] marks the tokens that claim expert
+    capacity. ``with_stats`` appends [W, 2] = [dropped_frac,
+    router_entropy] (zeros for a dense layer), the diagnostics channel."""
     h = _norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
+    if cfg.num_experts:
+        out = moe_mlp(cfg, h, layer, valid=valid, with_stats=with_stats)
+        return (x + out[0], *out[1:])
     gate = F.silu(_mm(h, layer["w_gate"]))
-    return x + _mm(gate * _mm(h, layer["w_up"]), layer["w_down"])
+    x = x + _mm(gate * _mm(h, layer["w_up"]), layer["w_down"])
+    zero = torch.zeros(x.shape[0], device=x.device)
+    if with_stats:
+        return x, zero, torch.zeros(x.shape[0], 2, device=x.device)
+    return x, zero
 
 
-def _decoder_layer(cfg: LlamaConfig, x, layer: Params, cos, sin, mask):
+def _decoder_layer(cfg: LlamaConfig, x, layer: Params, cos, sin, mask, valid=None,
+                   with_stats: bool = False):
     wn, b, s, d = x.shape
     nh, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
     h = _norm(x, layer["attn_norm"], cfg.rms_norm_eps)
@@ -264,7 +288,7 @@ def _decoder_layer(cfg: LlamaConfig, x, layer: Params, cos, sin, mask):
     k = apply_rope(_mm(h, layer["wk"]).reshape(wn * b, s, nkv, hd), cos, sin)
     v = _mm(h, layer["wv"]).reshape(wn * b, s, nkv, hd)
     attn = _attention(cfg, q, k, v, mask).reshape(wn, b, s, nh * hd)
-    return mlp_block(cfg, x + _mm(attn, layer["wo"]), layer)
+    return mlp_block(cfg, x + _mm(attn, layer["wo"]), layer, valid, with_stats)
 
 
 def _stacked(params: Params, tokens: torch.Tensor, extra=()):
@@ -282,8 +306,12 @@ def _head(params: Params) -> torch.Tensor:
     return params["embed"].transpose(-1, -2) if head is None else head
 
 
-def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, attn_mask):
-    """Final normed hidden states [W, B, S, d] in the compute dtype."""
+def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, attn_mask,
+            collect_stats: bool = False):
+    """(final normed hidden states [W, B, S, d] in the compute dtype, the
+    router aux summed over layers [W], and with ``collect_stats`` the
+    layer mean of the MoE stats [W, 2], else None). ``attn_mask`` also
+    tells the MoE layers which tokens are real, under flash too."""
     _check_supported(cfg)
     wn, b, s = tokens.shape
     cdt = dtype_of(cfg.dtype)
@@ -294,16 +322,22 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, attn_mask):
     mask = None
     if attn_mask is not None and cfg.attention_impl == "dense":
         mask = causal_mask(s, valid=attn_mask.reshape(wn * b, s))
+    keys = layer_keys(cfg)
+    aux, stats = torch.zeros(wn, device=tokens.device), []
     for i in range(cfg.num_hidden_layers):
-        layer = {key: params["layers"][key][:, i] for key in LAYER_KEYS}
+        layer = {key: params["layers"][key][:, i] for key in keys}
         if cfg.remat:
             ctx = _remat_context(cfg)
-            x = checkpoint(_decoder_layer, cfg, x, layer, cos, sin, mask,
-                           use_reentrant=False,
-                           **({"context_fn": ctx} if ctx is not None else {}))
+            out = checkpoint(_decoder_layer, cfg, x, layer, cos, sin, mask, attn_mask,
+                             collect_stats, use_reentrant=False,
+                             **({"context_fn": ctx} if ctx is not None else {}))
         else:
-            x = _decoder_layer(cfg, x, layer, cos, sin, mask)
-    return _norm(x, params["final_norm"], cfg.rms_norm_eps)
+            out = _decoder_layer(cfg, x, layer, cos, sin, mask, attn_mask, collect_stats)
+        x, aux = out[0], aux + out[1]
+        if collect_stats:
+            stats.append(out[2])
+    stats = torch.stack(stats).mean(0) if collect_stats else None
+    return _norm(x, params["final_norm"], cfg.rms_norm_eps), aux, stats
 
 
 def forward(
@@ -312,18 +346,31 @@ def forward(
     cfg: LlamaConfig,
     attn_mask: torch.Tensor | None = None,
     return_hidden: bool = False,
-) -> torch.Tensor:
+    with_aux: bool = False,
+    collect_stats: bool = False,
+):
     """tokens [B, S] (or [W, B, S] with worker-stacked params) -> logits
     [..., S, vocab] float32, or the final normed hidden states [..., S, d]
     in the compute dtype with ``return_hidden``. ``attn_mask`` [.., B, S]
-    marks real tokens (dense attention honors it; flash does not)."""
+    marks real tokens (dense attention honors it, flash does not; the MoE
+    layers route only real tokens under both). ``with_aux`` returns
+    ``(out, aux)``, aux the router load-balance term summed over layers
+    (0 for a dense model); ``collect_stats`` appends the layer mean of
+    the MoE router stats [dropped_frac, router_entropy] (diagnostics,
+    ``moe.make_router_stats_fn``). aux and stats carry the worker axis
+    [W] of stacked inputs."""
     params, tokens, (attn_mask,), squeeze = _stacked(params, tokens, (attn_mask,))
-    x = _hidden(params, tokens, cfg, attn_mask)
+    x, aux, stats = _hidden(params, tokens, cfg, attn_mask, collect_stats)
     if not return_hidden:
         wn, b, s, d = x.shape
         x = torch.matmul(x.reshape(wn, b * s, d), _head(params).to(x.dtype))
         x = x.float().reshape(wn, b, s, -1)
-    return x[0] if squeeze else x
+    if squeeze:
+        x, aux = x[0], aux[0]
+        stats = None if stats is None else stats[0]
+    if collect_stats:
+        return (x, aux, stats) if with_aux else (x, stats)
+    return (x, aux) if with_aux else x
 
 
 def causal_lm_loss(
@@ -332,17 +379,18 @@ def causal_lm_loss(
     cfg: LlamaConfig,
     loss_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-    """Mean next-token cross-entropy with an internal label shift.
+    """Mean next-token cross-entropy with an internal label shift, plus
+    ``router_aux_coef`` times the router's load-balance term (MoE).
 
     ``loss_mask`` marks real tokens; a position whose TARGET is padding
-    is excluded. Returns (loss, {"n_tokens", "sum_loss"}), per worker
-    ([W]) for worker-stacked inputs, scalars otherwise."""
+    is excluded. Returns (loss, {"n_tokens", "sum_loss", "router_aux"}),
+    per worker ([W]) for worker-stacked inputs, scalars otherwise."""
     params, tokens, (loss_mask,), squeeze = _stacked(params, tokens, (loss_mask,))
     wn, b, s = tokens.shape
     targets = tokens[..., 1:].reshape(wn, -1)
     m = (loss_mask[..., 1:] if loss_mask is not None
          else torch.ones_like(tokens[..., 1:])).reshape(wn, -1).float()
-    h = _hidden(params, tokens, cfg, loss_mask)
+    h, router_aux, _ = _hidden(params, tokens, cfg, loss_mask)
     head = _head(params).to(h.dtype)
     rows = h[:, :, :-1].reshape(wn, b * (s - 1), -1)
     if cfg.loss_chunk:
@@ -351,8 +399,8 @@ def causal_lm_loss(
         logits = torch.matmul(rows, head).float()
         nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, targets[..., None])[..., 0]
         sum_loss, n_tok = (nll * m).sum(dim=-1), m.sum(dim=-1)
-    loss = sum_loss / n_tok.clamp_min(1.0)
-    aux = {"n_tokens": n_tok, "sum_loss": sum_loss}
+    loss = sum_loss / n_tok.clamp_min(1.0) + cfg.router_aux_coef * router_aux
+    aux = {"n_tokens": n_tok, "sum_loss": sum_loss, "router_aux": router_aux}
     if squeeze:
         return loss[0], {k: v[0] for k, v in aux.items()}
     return loss, aux

@@ -83,7 +83,11 @@ def microbatch_flops(params, model_cfg, batch_shape: tuple[int, int]) -> float:
     """FLOPs of one microbatch's forward and backward (``causal_lm_loss``
     on ``batch_shape`` = [B, S] tokens) counted on the ``meta`` device,
     with the parameter shapes and dtypes of ``params`` (one worker's
-    tree) and attention through its plain version."""
+    tree) and attention through its plain version. An MoE layer counts
+    what it runs: dense dispatch its E x C slots; ragged dispatch its k·T
+    rows, spread evenly over the experts (the meta device has no data to
+    route by, and the grouped matmuls' FLOPs depend only on the row
+    count)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from nanodiloco_tpu_torch.models.llama import causal_lm_loss, tree_map

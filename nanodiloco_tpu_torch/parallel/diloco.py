@@ -12,8 +12,10 @@ slices (the backward of a sum is ones whatever the values, so one
 worker's NaN loss leaves the others' gradients finite).
 
 - Inner step: ``grad_accum`` microbatches, each backpropagating its
-  per-worker ``sum_loss`` into ``.grad``; dividing worker w's slice by its
-  token total gives the exact token-weighted mean of the JAX package.
+  per-worker ``sum_loss`` (plus ``router_aux_coef · n_tokens ·
+  router_aux`` in an MoE model) into ``.grad``; dividing worker w's slice
+  by its token total gives the exact token-weighted mean of the JAX
+  package.
   Then a per-worker global-norm clip and AdamW under warmup-cosine, each
   worker at its own step count (``training/optim.py::StackedAdamW``).
 - Outer step: pseudo-gradient ``snapshot - mean_w(params_w)``, one
@@ -45,10 +47,10 @@ import torch
 
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.llama import (
-    LAYER_KEYS,
     Params,
     causal_lm_loss,
     init_params,
+    layer_keys,
     resolve_device,
     tree_leaves,
     tree_map,
@@ -422,7 +424,13 @@ class Diloco:
             loss, aux = causal_lm_loss(
                 state.params, tokens[:, a], self.model_cfg, loss_mask[:, a]
             )
-            aux["sum_loss"].sum().backward()
+            objective = aux["sum_loss"]
+            if self.model_cfg.num_experts:
+                # JAX weights each microbatch's gradient of the mean loss
+                # by its token count: sum_loss + coef * n * router_aux
+                objective = objective + (self.model_cfg.router_aux_coef
+                                         * aux["n_tokens"].detach() * aux["router_aux"])
+            objective.sum().backward()
             loss_sum += loss.detach()
             n_sum += aux["n_tokens"].detach()
         with torch.no_grad():
@@ -560,7 +568,8 @@ class Diloco:
         if snapshot is not None:
             leaves = tree_leaves(snapshot)
             return sum(t.numel() for t in leaves), len(leaves)
-        n_leaves = len(LAYER_KEYS) + 2 + (0 if self.model_cfg.tie_word_embeddings else 1)
+        n_leaves = (len(layer_keys(self.model_cfg)) + 2
+                    + (0 if self.model_cfg.tie_word_embeddings else 1))
         return self.model_cfg.num_params(), n_leaves
 
     def sync_payload_report(self) -> dict:

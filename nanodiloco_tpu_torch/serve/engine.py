@@ -73,9 +73,22 @@ slot's written rows leave as ``[L, pos, Hkv, hd]`` host arrays and are
 re-blocked into the importer's own geometry, across dense, paged, int8
 and block sizes.
 
+MoE configs serve through the training forward's MLP (``models/moe.py``):
+a final chunk's right pads and the dead slots of a tick claim no expert
+capacity, and a tick's capacity is sized from all B slot rows, as in the
+JAX engine. Expert-choice routing is refused (ValueError), as there.
+
+Known divergence (token-choice MoE with dense dispatch), carried from the
+JAX engine: expert capacity is sized from the tokens of each dispatch (a
+prefill chunk's C, a tick's B slots) while a solo ``generate()`` sizes it
+from its own call's tokens and training from the whole B×S batch; when
+capacity binds, which tokens overflow to the residual path differs, so a
+stream can part from solo ``generate()``. Keep the capacity factor
+generous for serving, or use ``moe_dispatch="ragged"``, which has no
+capacity and serves exactly as ``generate()`` routes.
+
 Still refused, with NotImplementedError naming ROADMAP.md: tensor
-parallelism (``tp > 1``, Queue A item 7); MoE configs are refused by
-the model's own check (item 6).
+parallelism (``tp > 1``, Queue A item 7).
 
 All calls come from one thread (the scheduler's tick loop); every tensor
 the engine makes names its device.
@@ -459,18 +472,25 @@ class InferenceEngine:
         return -(-(len(ids) - done) // self.chunk_size)
 
     def _run_chunk(self, slot: int, chunk: list[int], pos: int, last: int,
-                   noise, temp: float, top_k: int, top_p: float):
-        """Dispatch one (bucketed) chunk; returns (token, logits [1, V])."""
+                   noise, temp: float, top_k: int, top_p: float, n_real: int | None = None):
+        """Dispatch one (bucketed) chunk whose first ``n_real`` tokens are
+        real (None: all; right pads claim no MoE capacity); returns
+        (token, logits [1, V])."""
         self._buckets.setdefault("prefill_chunk", set()).add(len(chunk))
         params = self._params_by_gen[self._slot_gen[slot]]
         toks = torch.as_tensor([chunk], dtype=torch.long, device=self.device)
+        valid = None
+        if self.cfg.num_experts and n_real is not None and n_real < len(chunk):
+            valid = torch.zeros((1, len(chunk)), dtype=torch.int32, device=self.device)
+            valid[0, :n_real] = 1
         with self.accountant.section("prefill_chunk", len(chunk), self.kv_layout):
             if self.paged:
                 tok, logits, self.pool = self._chunk(params, self.pool, self._tables[slot], toks,
-                                                     pos, last, noise, temp, top_k, top_p)
+                                                     pos, last, noise, temp, top_k, top_p,
+                                                     valid)
             else:
                 tok, logits, self.cache = self._chunk(params, self.cache, toks, slot, pos, last,
-                                                      noise, temp, top_k, top_p)
+                                                      noise, temp, top_k, top_p, valid)
             # fence INSIDE the section: an interior chunk has no host
             # consumer, and an unfenced dispatch would be timed as free
             self._fence()
@@ -506,6 +526,7 @@ class InferenceEngine:
             lo = p - bucket
             chunk = ids[lo:]
             last = bucket - 1
+        n_real = last + 1
         req = pf.request
         temp = float(req.temperature)
         top_k = min(int(req.top_k), self.vocab_size)
@@ -513,7 +534,7 @@ class InferenceEngine:
         seed = int(req.seed)
         noise = (gumbel_noise([seed], [0], [0], self.vocab_size, self.device)
                  if temp > 0 else None)
-        tok, logits = self._run_chunk(slot, chunk, lo, last, noise, temp, top_k, top_p)
+        tok, logits = self._run_chunk(slot, chunk, lo, last, noise, temp, top_k, top_p, n_real)
         tok0 = int(tok)
         if self.capture_prefill_logits:
             self.last_prefill_logits = logits.cpu().numpy()

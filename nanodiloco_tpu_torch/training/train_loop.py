@@ -24,7 +24,10 @@ inner steps and one outer sync until ``total_steps``. Around the rounds:
   record per boundary, a flush after the last round), streaming DiLoCo
   (``parallel/streaming.py``) and the snapshot offload;
 - held-out evaluation of the snapshot every ``eval_every`` syncs, plus a
-  final one;
+  final one; in an MoE model, after every sync, the router probe
+  (``models/moe.py::make_router_stats_fn``) on the snapshot and one
+  microbatch, whose ``moe_dropped_frac`` and ``moe_router_entropy`` go on
+  the synced record (both inside the ``eval`` span);
 - a checkpoint every ``checkpoint_every`` syncs, plus a final one, and a
   bit-exact resume from the latest (``restore_elastic`` when the worker
   count changed);
@@ -86,6 +89,7 @@ from nanodiloco_tpu_torch.data.pipeline import (
 from nanodiloco_tpu_torch.data.tokenizer import get_tokenizer
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.llama import Params, resolve_device, tree_leaves, tree_map
+from nanodiloco_tpu_torch.models.moe import make_router_stats_fn
 from nanodiloco_tpu_torch.obs import flightrec
 from nanodiloco_tpu_torch.obs.costs import build_cost_record, microbatch_flops
 from nanodiloco_tpu_torch.obs.devtime import DispatchAccountant
@@ -688,11 +692,15 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
 
     eval_launches = {name: dict.fromkeys(v, 0) for name, v in variant_counts().items()}
 
-    def _evaluate() -> dict[str, float]:
-        """The held-out loss of the snapshot (fetched to the card when it
-        is parked on the host)."""
+    # MoE observability: once per outer sync, the snapshot's router on one
+    # microbatch; the dropped fraction and the router entropy go on the
+    # synced record (a collapsed router looks healthy in the loss for long)
+    moe_stats_fn = make_router_stats_fn(model_cfg) if model_cfg.num_experts else None
+
+    def _evaluate(snapshot) -> dict[str, float]:
+        """The held-out loss of ``snapshot`` (on the card)."""
         before = variant_counts()
-        out = evaluator(dl.device_snapshot(state), eval_set)
+        out = evaluator(snapshot, eval_set)
         for name, counts in variant_counts().items():
             for variant, n in counts.items():
                 eval_launches[name][variant] += n - before[name][variant]
@@ -932,10 +940,18 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             if ckpt and rnd % cfg.checkpoint_every == 0:
                 _guarded_save(real_step)
             eval_metrics = {}
-            if evaluator is not None and rnd % cfg.eval_every == 0:
+            eval_due = evaluator is not None and rnd % cfg.eval_every == 0
+            if eval_due or moe_stats_fn is not None:
+                # one fetch for both readers of an offloaded snapshot
                 with trace_span("eval"):
-                    eval_metrics = _evaluate()
-                last_eval_step, last_eval = real_step, eval_metrics
+                    snap_dev = dl.device_snapshot(state)
+                    if eval_due:
+                        eval_metrics = _evaluate(snap_dev)
+                        last_eval_step, last_eval = real_step, eval_metrics
+                    if moe_stats_fn is not None:
+                        probe = toks[-1, 0, 0].to(device, torch.long)  # [B, S]
+                        eval_metrics = {**eval_metrics, **moe_stats_fn(snap_dev, probe)}
+                    del snap_dev
             eval_metrics = {**eval_metrics, **device_memory_stats(device)}
             # depth-0 span totals since the last round; the log span of
             # this round is still open, its seconds land in the next one
@@ -1019,7 +1035,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             # reuse the in-loop result when the last sync already evaluated
             # this exact snapshot
             final_eval = (last_eval if last_eval_step == cfg.total_steps
-                          else _evaluate())
+                          else _evaluate(dl.device_snapshot(state)))
         completed = True
     except _EmergencyExit as e:
         emergency = e

@@ -243,10 +243,23 @@ def test_entry_points_raise_without_a_card():
 
 @pytest.mark.parametrize(
     "change, error",
-    [({"num_experts": 4}, NotImplementedError),
-     ({"attention_impl": "ring"}, NotImplementedError)],
+    [({"attention_impl": "ring"}, NotImplementedError)],
 )
 def test_paths_not_ported_raise(change, error):
     cfg = LlamaConfig(**{**BASE, **change})
     with pytest.raises(error, match="not ported"):
         init_params(torch.Generator(), cfg, device="cpu")
+
+
+@pytest.mark.parametrize("moe", [dict(num_experts=4), dict(num_experts=8, moe_dispatch="ragged"),
+                                 dict(num_experts=4, router_type="experts_choose")])
+def test_init_params_builds_the_jax_moe_shapes(moe):
+    """An MoE config gets the JAX tree: the router [L, d, E] and the
+    expert FFN stacked [L, E, d, f] / [L, E, f, d], in param_dtype."""
+    cfg = LlamaConfig(**{**BASE, **moe})
+    want = jax.tree.map(lambda x: (x.shape, str(x.dtype)),
+                        jax_init(jax.random.key(0), JaxConfig(**cfg.to_dict())))
+    got = jax.tree.map(lambda x: (tuple(x.shape), str(x.dtype).removeprefix("torch.")),
+                       init_params(torch.Generator(), cfg, device="cpu"))
+    assert got == want
+    assert got["layers"]["router"][0] == (2, 32, moe["num_experts"])

@@ -327,10 +327,14 @@ def test_engine_calls_answer(models):
 
 
 def test_moe_config_and_bad_options_are_refused(models):
+    """Expert-choice MoE is refused, as by the JAX engine (token-choice
+    MoE serves: tests/test_torch_moe_serve.py)."""
     _, _, _, params = models["gqa"]
-    moe = LlamaConfig(**SIZE, num_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
+    moe = LlamaConfig(**SIZE, num_experts=4, router_type="experts_choose")
+    with pytest.raises(ValueError, match="expert-choice"):
         InferenceEngine(params, moe, device="cpu")
+    with pytest.raises(ValueError, match="expert-choice"):
+        JaxEngine(models["gqa"][1], JaxConfig(**moe.to_dict()))
     for bad in ({"num_slots": 0}, {"max_len": 1}, {"chunk_size": 0}, {"spec_k": -1},
                 {"tp": 0}, {"kv_dtype": "fp8"}, {"kv_dtype": "int8"}):
         with pytest.raises(ValueError):
