@@ -9,14 +9,18 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 2. build       - nvcc builds every kernel from nanodiloco_tpu_torch/csrc,
                  and g++ the tokenshard reader from csrc/tokenshard.cpp.
 3. kernels     - each kernel against its plain PyTorch version on the
-                 card, at the training shape (bf16, hd 128), at bf16 hd-128
-                 edge shapes (ragged S, non-causal S < one tile, MHA) that
-                 run the tensor-core B1, B2 and B3, and at one shape for every
-                 other (dtype, head dim) row of the route table (float32
-                 and bf16 at hd 32/64 run the FMA kernels); at the training
-                 shape, CUDA-event times of the kernel, the plain version
-                 and the PyTorch library call, the least time the card
-                 could take (bound_ms), TFLOP/s and the share of the bound.
+                 card at the tolerance of its route, at shapes that cover
+                 every (dtype, head dim) row of the route table (hd 16, 32,
+                 64, 80, 96, 128; ragged S, non-causal, S under one tile,
+                 MHA and GQA): bf16 B1 and B3 at hd 128, 64 and 32 and B2
+                 at hd 128 run the tensor cores, the rest the FMA kernels.
+                 At one shape of every route that no phase is built to
+                 run (hd 16, 80, 96 in bf16; hd 32, 80, 96, 128 in f32),
+                 CUDA-event times of the kernel, the plain version and the
+                 PyTorch library call, the least time the card could take
+                 (bound_ms), TFLOP/s and the share of the bound. From here
+                 on every launch is counted by shape (fa.shape_counts),
+                 and the child processes that train report theirs.
 4. train_small - two DiLoCo rounds at a small float32 size from one
                  parameter tree, on the card and on the CPU: the losses
                  and the snapshot must agree.
@@ -103,11 +107,11 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  Prints the weight, cache and peak bytes; prefill ms per
                  chunk bucket against its FLOP bound; decode ms per tick
                  at 1 and 4 live slots against its byte bound; TTFT p50 /
-                 p95, decode tokens/s, and the device's idle share in a
-                 decode tick (torch.profiler). B1's launches in this phase
-                 (the teacher-forcing forward alone: generation and the
-                 engine run no kernel of their own) go to the kernels line
-                 as "launches_serve".
+                 p95, decode tokens/s, the device's idle share in a decode
+                 tick (torch.profiler), and what zeroing one slot's rows at
+                 release costs against its byte bound. B1 launches only in
+                 the teacher-forcing forwards (B 1, S of prompt + stream):
+                 generation and the engine run no kernel of their own.
 11. serve_modes_small - the engine's modes at serve_small's size in
                  float32, on the card and on the CPU: dense, paged (block 4),
                  paged + int8 and paged + speculation (spec_k 4) serve
@@ -127,8 +131,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  int8 KV. Prints the arena's bytes and bytes per token, peak
                  memory, TTFT p50/p95, decode tokens/s, the decode tick at 16
                  live slots against its byte bound with the device's idle
-                 share and the gather/scatter kernels' share, and int8's
-                 agreement with bf16. Checks: paged bf16 against the dense
+                 share and the gather/scatter kernels' share, the zeroing of
+                 a 1024-token request's blocks, and int8's agreement with
+                 bf16. Checks: paged bf16 against the dense
                  engine (16 x 1024, greedy) and spec_k=4 on repeated prompts
                  against the same engine without speculation; streams may
                  part only at a near-tie (NEAR_TIE).
@@ -199,12 +204,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  again; `report faults` of the events JSONL lists the
                  promotion then the rollback; the fleet-goodput record's state
                  seconds sum to the tracked replica-seconds within 1%; the
-                 CLI's canary losses equal this process's. Then `fleet
+                 CLI's canary losses equal this process's; the rolled-back
+                 canary's own greedy streams (both slots, which served the
+                 NaN weights) equal the other replica's. Then `fleet
                  --autoscale-template` over one `serve` replica: a burst takes
                  the fleet from 1 to 2 replicas (the new child serves), idle
                  drains it back to 1.
 18. moe_small   - every MoE mode at a small float32 size (2 layers, hidden
-                 128, 4/2 heads: hd 32, the FMA kernels; vocab 384; 4 experts
+                 64, 4/2 heads: hd 16, the FMA kernels; vocab 384; 4 experts
                  top-2; TF32 off) from one parameter tree, two DiLoCo rounds
                  (W 2, H 2, grad_accum 2) on the card twice and on the CPU:
                  token-choice dense at cf 1.25 and at cf 0.25 (the capacity
@@ -212,19 +219,22 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  identical; card and CPU losses and snapshots agree within
                  train_small's 1e-3; the router probe on one snapshot agrees
                  (dropped within one assignment, entropy 1e-5); top-k ties
-                 come out lower index first on both; B1, B2, B3 launch.
+                 come out lower index first on both; B1, B2, B3 launch, all
+                 on the FMA kernels.
 19. moe_train   - train() on bench.py's moe-8x-top2 (vocab 32000, hidden 512,
-                 6 layers, 8/4 heads: hd 64 bf16, the FMA kernels; 8 experts
-                 top-2) at its bench shape (S 1024 x B 8, W 2, H 2, 3 rounds),
-                 dense at cf 1.25 and ragged: tokens/s, peak memory, t_inner,
-                 t_sync beside its byte bound, the analytic MFU, the router
-                 stats of each sync; every kernel launches in every run. The
+                 6 layers, 8/4 heads: hd 64 bf16; 8 experts top-2) at its
+                 bench shape (S 1024 x B 8, W 2, H 2, 3 rounds), dense at cf
+                 1.25 and ragged: tokens/s, peak memory, t_inner, t_sync
+                 beside its byte bound, the analytic MFU, the router stats of
+                 each sync; every kernel launches in every run, B1 and B3
+                 only on the tensor cores and B2 only on the FMA kernel. The
                  ragged run checkpointed after round 1 and resumed equals the
                  uninterrupted one bit for bit. One profiled inner step per
                  dispatch (kernel ms by class, host syncs, idle share). `python
                  -m nanodiloco_tpu_torch --llama-config-file
-                 configs/llama_moe_64e.json --attention flash` (64 experts,
-                 ragged, hd 32) in a subprocess, 3 rounds.
+                 configs/llama_moe_64e.json --attention flash --dtype
+                 bfloat16` (64 experts, ragged, hd 32) in a subprocess, 3
+                 rounds.
 20. moe_serve   - moe-8x-top2 weights (seed 0, bf16) behind the dense and the
                  paged engine (4 slots x 1024, chunk 512, 8 greedy requests of
                  64 new tokens). Ragged: every stream equals solo generate() or
@@ -235,7 +245,15 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  moe_train's ragged checkpoint equals generate() on its
                  snapshot.
 
-Then the kernels line ({"kernels": [...]}), the nvidia-smi line, and last
+21. kernels_main - each kernel at every shape the main path (phases 4-20)
+                 gave it, held against its plain version at its route's
+                 tolerance and timed as in phase 3; fails unless every
+                 kernel ran at the head dim and dtype of every model the
+                 path trains (bf16 hd 128, 64, 32; f32 hd 64, 16).
+
+Then the kernels line ({"kernels": [...]}: one entry per kernel and shape
+of the main path, with its launches there, in all and by phase), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, and the files
 of phases 13-20 in a directory of its own under /dev/shm (a tmpfs: the
@@ -340,20 +358,51 @@ SOURCE = {  # by variant
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
-# (name, dtype, B, H, Hkv, S, hd, causal); the first is the training shape
+# (name, dtype, B, H, Hkv, S, hd, causal): every route-table row's edge
+# shapes (ragged S, non-causal, S under one tile, MHA, GQA) and the shapes
+# the longest runs of the main path give the kernels (B counts every
+# worker's sequences: the model folds W x b into B before attention):
+#   train_bf16: the 8B width's training (train, diloco_options_8b, faults_8b);
+#   moe_hd64: moe-8x-top2 in moe_train (W 2 x b 8);
+#   moe64e_hd32: llama_moe_64e through the CLI in moe_train (W 2 x b 8, MHA);
+#   tiny_hd32: bench.py's tiny model on one device (b 8);
+#   small_f32_hd64 / moe_small_f32_hd16: train_small's and moe_small's rounds.
+# The kernels line does not come from these: the main path's own shapes are
+# counted as it runs (fa.shape_counts) and held and timed after it
+# (kernels_main). Here the first shape of every route that no phase is
+# built to run (MAIN_PATH_ROUTES) is timed, so that every route has a time.
 SHAPES = [
     ("train_bf16", torch.bfloat16, 2, 32, 8, 2048, 128, True),
     ("ragged_gqa4_bf16", torch.bfloat16, 1, 8, 2, 1000, 128, True),
     ("noncausal_gqa2_bf16", torch.bfloat16, 2, 4, 2, 77, 128, False),
     ("mha_bf16", torch.bfloat16, 2, 4, 4, 256, 128, True),
+    ("moe_hd64", torch.bfloat16, 16, 8, 4, 1024, 64, True),
     ("gqa2_bf16_hd64", torch.bfloat16, 2, 4, 2, 320, 64, True),
+    ("ragged_gqa4_bf16_hd64", torch.bfloat16, 1, 8, 2, 1000, 64, True),
+    ("noncausal_mha_bf16_hd64", torch.bfloat16, 2, 4, 4, 130, 64, False),
+    ("moe64e_hd32", torch.bfloat16, 16, 8, 8, 1024, 32, True),
+    ("tiny_hd32", torch.bfloat16, 8, 4, 4, 1024, 32, True),
     ("noncausal_bf16_hd32", torch.bfloat16, 2, 4, 4, 192, 32, False),
+    ("ragged_gqa2_bf16_hd32", torch.bfloat16, 1, 4, 2, 77, 32, True),
+    ("ragged_gqa2_bf16_hd16", torch.bfloat16, 2, 4, 2, 200, 16, True),
+    ("noncausal_bf16_hd80", torch.bfloat16, 1, 4, 4, 77, 80, False),
+    ("gqa4_bf16_hd96", torch.bfloat16, 1, 8, 2, 256, 96, True),
+    ("small_f32_hd64", torch.float32, 2, 4, 2, 200, 64, True),
     ("mha_f32", torch.float32, 2, 4, 4, 256, 64, True),
     ("gqa4_f32", torch.float32, 1, 8, 2, 320, 128, True),
     ("noncausal_gqa2_f32", torch.float32, 2, 4, 2, 192, 32, False),
     ("ragged_f32", torch.float32, 1, 4, 1, 1000, 128, True),
     ("ragged_noncausal_f32", torch.float32, 1, 2, 2, 77, 64, False),
+    ("moe_small_f32_hd16", torch.float32, 2, 4, 2, 200, 16, True),
+    ("noncausal_f32_hd16", torch.float32, 2, 4, 4, 130, 16, False),
+    ("ragged_gqa2_f32_hd80", torch.float32, 1, 4, 2, 333, 80, True),
+    ("mha_f32_hd96", torch.float32, 2, 2, 2, 128, 96, True),
 ]
+# the (dtype, head dim) of each model the main path trains: every kernel
+# must launch at each of them (the 8B width and the resume size; moe-8x-top2;
+# llama_moe_64e; train_small; moe_small)
+MAIN_PATH_ROUTES = ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 32),
+                    (torch.float32, 64), (torch.float32, 16))
 # |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|, elementwise, per
 # (dtype, variant). The FMA kernels compute in float32 from the same inputs
 # as the plain versions and differ only in summation order: ~1e-6 relative
@@ -380,8 +429,12 @@ TOL_REASON = {
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kv) -> None:
-    print(json.dumps(kv), flush=True)
+    """One JSON line; ``elapsed_s`` is the script's seconds so far."""
+    print(json.dumps({**kv, "elapsed_s": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def fail(phase: str, msg: str) -> None:
@@ -418,18 +471,18 @@ def cuda_ms(fn, warmup: int = 3, runs: int = 20, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def within(name, got, want, tol) -> tuple[float, float]:
+def within(phase, name, got, want, tol) -> tuple[float, float]:
     """(max |err|, the ATOL share of max|want| that the output needs at this
-    RTOL); fails the phase if that is more than the tolerance's ATOL."""
+    RTOL); fails ``phase`` if that is more than the tolerance's ATOL."""
     atol, rtol = tol
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
-        fail("kernels", f"{name}: non-finite kernel output")
+        fail(phase, f"{name}: non-finite kernel output")
     err = (got - want).abs()
     need = max(0.0, (err - rtol * want.abs()).max().item()) / max(want.abs().max().item(), 1e-30)
     if need > atol:
-        fail("kernels", f"{name}: max |err| {err.max().item():.3e} over tolerance "
-                        f"(needs atol_of_max {need:.3e} > {atol:.3e})")
+        fail(phase, f"{name}: max |err| {err.max().item():.3e} over tolerance "
+                    f"(needs atol_of_max {need:.3e} > {atol:.3e})")
     return err.max().item(), need
 
 
@@ -437,14 +490,15 @@ def attended_pairs(s: int, causal: bool) -> int:
     return s * (s + 1) // 2 if causal else s * s
 
 
-def bounds(dtype, b, h, hkv, s, hd, causal) -> dict:
-    """Least time per kernel: max(tensor-core products / peak rate, bytes
-    each read once and written once / HBM rate). The exps are not counted."""
+def bounds(dtype, bh, bh_kv, s, hd, causal) -> dict:
+    """Least time per kernel at q [bh, s, hd], k and v [bh_kv, s, hd]:
+    max(tensor-core products / peak rate, bytes each read once and written
+    once / HBM rate). The exps are not counted."""
     esize = torch.finfo(dtype).bits // 8
-    prod = 2.0 * hd * attended_pairs(s, causal) * b * h  # one S x S x hd product
-    q_bytes = b * h * s * hd * esize
-    kv_bytes = b * hkv * s * hd * esize
-    row_bytes = b * h * s * 4  # lse or delta
+    prod = 2.0 * hd * attended_pairs(s, causal) * bh  # one S x S x hd product
+    q_bytes = bh * s * hd * esize
+    kv_bytes = bh_kv * s * hd * esize
+    row_bytes = bh * s * 4  # lse or delta
     work = {
         "flash_fwd": (2 * prod, q_bytes + 2 * kv_bytes + q_bytes + row_bytes),
         "flash_bwd_dq": (3 * prod, 2 * q_bytes + 2 * kv_bytes + 2 * row_bytes + q_bytes),
@@ -462,99 +516,163 @@ def bounds(dtype, b, h, hkv, s, hd, causal) -> dict:
     return out
 
 
-def phase_kernels() -> dict:
+def check_variants(phase: str, variants: dict, dtype, hd: int) -> None:
+    """Fails ``phase`` unless every launch in ``variants`` (a
+    ``fa.variant_counts()``) went to the variant ROUTES names for
+    (kernel, dtype, hd), and every kernel launched."""
+    for kname, counts in variants.items():
+        want = fa.ROUTES[kname, dtype, hd]
+        if any(n for v, n in counts.items() if v != want) or counts[want] == 0:
+            fail(phase, f"{kname} at {dtype} hd {hd} must launch only {want}: {variants}")
+
+
+def check_routes(phase: str, dtype, hd: int) -> None:
+    """check_variants on this process's launches since the counts were last
+    reset."""
+    check_variants(phase, fa.variant_counts(), dtype, hd)
+
+
+def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, causal: bool,
+         kernels=fa.KERNEL_NAMES, timed: bool = False) -> dict:
+    """Each of ``kernels`` against its plain version at q [bh, s, hd], k and
+    v [bh_kv, s, hd], on its route's tolerance (fails ``phase`` past it);
+    with ``timed``, CUDA-event times of the kernel, its plain version and
+    the library call beside the bounds. The backward kernels take the
+    plain forward's (O, lse), so each is held against its plain version on
+    identical inputs. Returns the shape's JSON fields."""
+    variant = {kname: fa.ROUTES[kname, dtype, hd] for kname in kernels}
+    tol = {kname: TOL[dtype, v] for kname, v in variant.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, do = rnd(bh, s, hd), rnd(bh, s, hd)
+    k, v = rnd(bh_kv, s, hd), rnd(bh_kv, s, hd)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    checks = {}
+    if "flash_fwd" in kernels:
+        o, lse = fa.flash_fwd(q, k, v, causal)
+        checks["flash_fwd"] = [within(phase, f"{tag} O", o, o_ref, tol["flash_fwd"]),
+                               within(phase, f"{tag} lse", lse, lse_ref,
+                                      TOL[torch.float32, "fma"])]
+    if "flash_bwd_dq" in kernels:
+        dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+        dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
+        checks["flash_bwd_dq"] = [within(phase, f"{tag} dQ", dq, dq_ref, tol["flash_bwd_dq"])]
+    if "flash_bwd_dkv" in kernels:
+        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+        checks["flash_bwd_dkv"] = [
+            within(phase, f"{tag} dK", dk, dk_ref, tol["flash_bwd_dkv"]),
+            within(phase, f"{tag} dV", dv, dv_ref, tol["flash_bwd_dkv"])]
+    errs = {kname: max(e for e, _ in c) for kname, c in checks.items()}
+    out = {"dtype": str(dtype).removeprefix("torch."), "BH": bh, "BH_kv": bh_kv, "S": s,
+           "hd": hd, "causal": causal, "variant": variant, "max_abs_err": errs,
+           "atol_of_max_needed": {kname: max(n for _, n in c) for kname, c in checks.items()},
+           "tolerance": {kname: {"atol_of_max": tol[kname][0], "rtol": tol[kname][1],
+                                 "reason": TOL_REASON[dtype, variant[kname]]}
+                         for kname in errs}}
+    if timed:
+        timing = time_kernels(q, k, v, do, lse_ref, delta, causal, kernels)
+        bnd = bounds(dtype, bh, bh_kv, s, hd, causal)
+        out["timing"] = {}
+        for kname in kernels:
+            t = timing[kname]
+            rate = {"tflops": bnd[kname]["flops"] / (t["ms"] * 1e-3) / 1e12,
+                    "bound_share": bnd[kname]["bound_ms"] / t["ms"]}
+            out["timing"][kname] = {"variant": variant[kname], "dtype": out["dtype"], "hd": hd,
+                                    "max_abs_err": errs[kname], **t, **bnd[kname], **rate}
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_kernels() -> None:
+    """Each kernel against its plain version at every shape of SHAPES, on
+    its route's tolerance; timed at the first shape of every route that no
+    phase is built to run (the others are timed at the main path's own
+    shapes, in kernels_main)."""
     covered = {(dtype, hd) for _, dtype, *_, hd, _ in SHAPES}
     missing = {(dtype, hd) for _, dtype, hd in fa.ROUTES} - covered
     if missing:
         fail("kernels", f"route-table rows without a shape: {sorted(map(str, missing))}")
-    results = {}
+    timed = set(MAIN_PATH_ROUTES)
     for name, dtype, b, h, hkv, s, hd, causal in SHAPES:
-        variant = {kname: fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES}
-        tol = {kname: TOL[dtype, v] for kname, v in variant.items()}
-        gen = torch.Generator(device="cuda").manual_seed(0)
-
-        def rnd(*shape):
-            return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-
-        q, do = rnd(b * h, s, hd), rnd(b * h, s, hd)
-        k, v = rnd(b * hkv, s, hd), rnd(b * hkv, s, hd)
-        o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
-        o, lse = fa.flash_fwd(q, k, v, causal)
-        torch.cuda.synchronize()
-        # the backward kernels take the plain forward's (O, lse) so that
-        # each is held against its plain version on identical inputs
-        delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
-        dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
-        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
-        dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
-        torch.cuda.synchronize()
-        f32_tol = TOL[torch.float32, "fma"]
-        checks = {
-            "flash_fwd": [within(f"{name} O", o, o_ref, tol["flash_fwd"]),
-                          within(f"{name} lse", lse, lse_ref, f32_tol)],
-            "flash_bwd_dq": [within(f"{name} dQ", dq, dq_ref, tol["flash_bwd_dq"])],
-            "flash_bwd_dkv": [within(f"{name} dK", dk, dk_ref, tol["flash_bwd_dkv"]),
-                              within(f"{name} dV", dv, dv_ref, tol["flash_bwd_dkv"])],
-        }
-        errs = {kname: max(e for e, _ in c) for kname, c in checks.items()}
-        line = {"shape": name, "dtype": str(dtype).removeprefix("torch."),
-                "B": b, "H": h, "Hkv": hkv, "S": s, "hd": hd, "causal": causal,
-                "variant": variant, "max_abs_err": errs,
-                "atol_of_max_needed": {kname: max(n for _, n in c) for kname, c in checks.items()},
-                "tolerance": {kname: {"atol_of_max": tol[kname][0], "rtol": tol[kname][1],
-                                      "reason": TOL_REASON[dtype, variant[kname]]}
-                              for kname in errs}}
-        if name == "train_bf16":
-            timing = time_train_shape(q, k, v, do, lse_ref, delta, causal, b, h, hkv, s, hd)
-            bnd = bounds(dtype, b, h, hkv, s, hd, causal)
-            for kname in errs:
-                t = timing[kname]
-                rate = {"tflops": bnd[kname]["flops"] / (t["ms"] * 1e-3) / 1e12,
-                        "bound_share": bnd[kname]["bound_ms"] / t["ms"]}
-                results[kname] = {"variant": variant[kname], "max_abs_err": errs[kname],
-                                  **t, **bnd[kname], **rate}
-            line["timing"] = {k2: results[k2] for k2 in errs}
-        emit(phase="kernels", ok=True, **line)
-        del q, k, v, do, o, lse, o_ref, lse_ref, dq, dk, dv, dq_ref, dk_ref, dv_ref
+        line = hold("kernels", name, dtype, b * h, b * hkv, s, hd, causal,
+                    timed=(dtype, hd) not in timed)
+        timed.add((dtype, hd))
+        emit(phase="kernels", ok=True, shape=name, B=b, H=h, Hkv=hkv, **line)
         torch.cuda.empty_cache()
-    return results
 
 
-def time_train_shape(q, k, v, do, lse, delta, causal, b, h, hkv, s, hd) -> dict:
-    ms = {
-        "flash_fwd": (
-            cuda_ms(lambda: fa.flash_fwd(q, k, v, causal)),
-            cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, causal), runs=5, reps=1),
-        ),
-        "flash_bwd_dq": (
-            cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)),
-            cuda_ms(lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), runs=5,
-                    reps=1),
-        ),
-        "flash_bwd_dkv": (
-            cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)),
-            cuda_ms(lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal), runs=5,
-                    reps=1),
-        ),
+def phase_kernels_main(path: dict) -> list[dict]:
+    """Each kernel at every shape the main path gave it (``path``: launches
+    by phase, kernel and ``fa.shape_key``), held against its plain version
+    and timed as in the kernels phase. Fails unless every kernel launched at
+    every route of MAIN_PATH_ROUTES. Returns the kernels line: one entry
+    per kernel and shape, with its launches at that shape, in all and by
+    phase."""
+    at = {}  # shape -> kernel -> phase -> launches
+    for phase, by_kernel in path.items():
+        for kname, shapes in by_kernel.items():
+            for key, n in shapes.items():
+                at.setdefault(key, {}).setdefault(kname, {})[phase] = n
+    ran = {(kname, dtype, hd) for key, by_kernel in at.items() for kname in by_kernel
+           for dtype, _, _, _, _, hd, _ in [fa.parse_shape_key(key)]}
+    idle = [(kname, str(dtype), hd) for dtype, hd in MAIN_PATH_ROUTES
+            for kname in fa.KERNEL_NAMES if (kname, dtype, hd) not in ran]
+    if idle:
+        fail("kernels_main", f"a route of the main path was not launched: {idle}")
+    line = []
+    for key in sorted(at, key=lambda key: -sum(sum(p.values()) for p in at[key].values())):
+        dtype, bh, bh_kv, sq, sk, hd, causal = fa.parse_shape_key(key)
+        if sq != sk:
+            fail("kernels_main", f"{key}: the main path attends across lengths")
+        kernels = tuple(kname for kname in fa.KERNEL_NAMES if kname in at[key])
+        out = hold("kernels_main", key, dtype, bh, bh_kv, sq, hd, causal, kernels, timed=True)
+        emit(phase="kernels_main", ok=True, shape=key, launches=at[key], **out)
+        for kname in kernels:
+            t = out["timing"][kname]
+            line.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]],
+                         "replaces": REPLACES[kname], "shape": key,
+                         "launches": sum(at[key][kname].values()),
+                         "launches_by_phase": at[key][kname], **t})
+        torch.cuda.empty_cache()
+    return line
+
+
+def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
+    """{kernel: ms, plain_ms, library_ms} at one shape. The library call is
+    torch's fused attention on the same inputs in its [B, H, S, hd] layout
+    (q as [BH_kv, group, S, hd], k and v as [BH_kv, 1, S, hd]): its forward
+    for B1, one backward (dQ, dK and dV) for B2 and B3."""
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                      lambda: fa.flash_fwd_plain(q, k, v, causal)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
+                          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)),
     }
-    # yardstick only: torch's fused attention on the same inputs in its
-    # [B, H, S, hd] layout (forward for B1, one backward for B2 + B3)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ql = q.view(b, h, s, hd).detach().requires_grad_(True)
-    kl = k.view(b, hkv, s, hd).detach().requires_grad_(True)
-    vl = v.view(b, hkv, s, hd).detach().requires_grad_(True)
-    lib_fwd = cuda_ms(lambda: sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True))
-    out = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
-    dol = do.view(b, h, s, hd)
-    lib_bwd = cuda_ms(
-        lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True)
-    )
-    library = {"flash_fwd": lib_fwd, "flash_bwd_dq": lib_bwd, "flash_bwd_dkv": lib_bwd}
-    return {
-        name: {"ms": t, "plain_ms": p, "library_ms": library[name]}
-        for name, (t, p) in ms.items()
-    }
+    (bh, s, hd), bh_kv = q.shape, k.shape[0]
+    ql = q.view(bh_kv, bh // bh_kv, s, hd).detach().requires_grad_(True)
+    kl = k.view(bh_kv, 1, s, hd).detach().requires_grad_(True)
+    vl = v.view(bh_kv, 1, s, hd).detach().requires_grad_(True)
+    library = {}
+    if "flash_fwd" in kernels:
+        library["flash_fwd"] = cuda_ms(lambda: sdpa(ql, kl, vl, is_causal=causal,
+                                                    enable_gqa=True))
+    if {"flash_bwd_dq", "flash_bwd_dkv"} & set(kernels):
+        out = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
+        dol = do.view(bh_kv, bh // bh_kv, s, hd)
+        library["flash_bwd_dq"] = library["flash_bwd_dkv"] = cuda_ms(
+            lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
+    return {name: {"ms": cuda_ms(calls[name][0]),
+                   "plain_ms": cuda_ms(calls[name][1], runs=5, reps=1),
+                   "library_ms": library[name]}
+            for name in kernels}
 
 
 # train_small's size: float32, hd 64, so the FMA kernels run
@@ -609,10 +727,11 @@ def phase_train_small() -> None:
     if not torch.isfinite(got).all() or max(err, snap_err) > 1e-3:
         fail("train_small", f"card vs CPU: losses {got.tolist()} vs {want.tolist()}, "
                             f"snapshot rel err {snap_err:.3e}")
-    if min(fa.launch_counts().values()) == 0:
-        fail("train_small", f"a kernel was not launched: {fa.launch_counts()}")
+    launches = fa.launch_counts()
+    if min(launches.values()) == 0:
+        fail("train_small", f"a kernel was not launched: {launches}")
     emit(phase="train_small", ok=True, losses=got.tolist(), cpu_losses=want.tolist(),
-         max_rel_err=err, snapshot_max_rel_err=snap_err, tolerance=1e-3)
+         max_rel_err=err, snapshot_max_rel_err=snap_err, tolerance=1e-3, launches=launches)
 
 
 def state_leaves(state) -> list[tuple[str, torch.Tensor]]:
@@ -766,7 +885,7 @@ def phase_resume_sigterm(work: Path) -> dict:
             "sigterm_exit_s": exit_s, "rerun_exit_code": rc, "rerun_last_step": last}
 
 
-def phase_train(smi: str) -> tuple[dict, dict]:
+def phase_train(smi: str) -> dict:
     """Two DiLoCo rounds at Llama-3-8B width, depth cut to one layer, with
     an eval of the snapshot after each round and the metrics JSONL."""
     model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1)
@@ -843,7 +962,7 @@ def phase_train(smi: str) -> tuple[dict, dict]:
          cost_analysis=cost, mfu_analytic_after_first_round=analytic_mfu(cost, tps_warm),
          goodput=goodput[-1], devtime=round_ends[-1]["devtime"],
          report=report, report_compare="exit 0")
-    return launches, summary
+    return summary
 
 
 def phase_checkpoint_full(summary: dict, smi: str) -> None:
@@ -961,7 +1080,7 @@ def wire_bin(dcfg: dict, amax: float) -> float:
     return cfg.outer_lr * (1 + cfg.outer_momentum) * scale
 
 
-def phase_diloco_options_small(smi: str) -> dict:
+def phase_diloco_options_small(smi: str) -> None:
     """Every DiLoCo option at train_small's size (float32, TF32 off), on
     the card and on the CPU from one parameter tree: losses and snapshot
     within SMALL_TOL (under a quantized wire after one bin, ``wire_bin``),
@@ -972,8 +1091,7 @@ def phase_diloco_options_small(smi: str) -> dict:
     delay 0, and streaming at P=1, delay 0, alpha 1 are classic bit for
     bit (within twice the run-to-run spread of two classic runs, should
     those differ); remat "dots" gives the gradients of no remat and
-    recomputes no GEMM (``dots_check``). Returns the kernels' launches in
-    this phase's card runs."""
+    recomputes no GEMM (``dots_check``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rounds = small_rounds()
     params = init_params(torch.Generator().manual_seed(0), SMALL_MODEL, device="cpu")
@@ -1036,7 +1154,6 @@ def phase_diloco_options_small(smi: str) -> dict:
          classic_run_to_run_max_rel_err=run_to_run, identities_max_rel_err=identities,
          quarantine=quarantine, wire_bits=wire_bits, remat=dots,
          launches=launches)
-    return launches
 
 
 def quarantine_check(params, round0) -> dict:
@@ -1177,7 +1294,7 @@ def outer_bytes_per_param(name: str, workers: int) -> int:
     return classic + (8 if name.startswith("c_") else 0)
 
 
-def phase_diloco_options_8b(smi: str) -> dict:
+def phase_diloco_options_8b(smi: str) -> None:
     """The five option runs at the train phase's Llama-3-8B width (1 layer,
     W=2, H=2, grad_accum 2, S=2048, bf16 over f32 masters, flash), 3
     rounds each: tokens/s after the first round, t_sync per round beside
@@ -1230,7 +1347,6 @@ def phase_diloco_options_8b(smi: str) -> dict:
          peak_memory_gb={k: v["peak_memory_bytes"] / 1e9 for k, v in runs.items()},
          tokens_per_sec={k: v["tokens_per_sec_after_first_round"] for k, v in runs.items()},
          launches=total)
-    return total
 
 
 # -- serving -------------------------------------------------------------------
@@ -1424,9 +1540,8 @@ def teacher_forcing(sp, cfg, req: GenRequest, stream: list[int]) -> dict:
             "ok": bool((gap <= tol).all()), "h": h, "logits": logits}
 
 
-def phase_serve(smi: str) -> tuple[dict, dict]:
-    """Returns B1's launches in this phase and the serving weights, which
-    serve_paged reuses."""
+def phase_serve(smi: str) -> dict:
+    """Returns the serving weights, which serve_paged reuses."""
     cfg = LLAMA3_8B  # 32 layers, bf16 compute over float32 masters, flash attention
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1485,6 +1600,7 @@ def phase_serve(smi: str) -> tuple[dict, dict]:
     if launches["flash_fwd"] != cfg.num_hidden_layers * len(checks):
         fail("serve", f"B1 launches {launches}, want {cfg.num_hidden_layers} per forward")
     timing = serve_timing(eng, cfg, matmul_bytes)
+    timing["kv_zero_slot"] = zero_cost(eng, 1, lambda: eng._zero_slot_rows(0))
     peak = torch.cuda.max_memory_allocated()
     tf_exact = sum(c["teacher_forcing_exact"] for c in checks)
     tf_n = sum(c["teacher_forcing_n"] for c in checks)
@@ -1499,7 +1615,18 @@ def phase_serve(smi: str) -> tuple[dict, dict]:
          b1_launches=launches["flash_fwd"], devtime=eng.devtime_stats(), **timing)
     del eng
     torch.cuda.empty_cache()
-    return launches, sp
+    return sp
+
+
+def zero_cost(eng: InferenceEngine, rows: int, zero) -> dict:
+    """What a release's zeroing of KV rows costs: ``zero`` (one
+    dense slot's rows, or ``rows`` blocks of a paged arena, in every layer
+    and arena tensor) timed on the card beside the bytes it writes over
+    the card's memory rate. Run on an idle engine: it overwrites them."""
+    arena = list((eng.pool or eng.cache).values())
+    nbytes = rows * arena[0].shape[0] * sum(t[0, 0].numel() * t.element_size() for t in arena)
+    ms = cuda_ms(zero, runs=5)
+    return {"ms": ms, "bytes": nbytes, "bound_ms": nbytes / PEAK_BYTES * 1e3}
 
 
 def serve_timing(eng: InferenceEngine, cfg: LlamaConfig, matmul_bytes: int) -> dict:
@@ -1907,7 +2034,11 @@ def phase_serve_paged(sp, smi: str) -> None:
                     "decode_tokens_per_sec": stats["decode_tokens_per_sec"],
                     "prefill_chunks": stats["prefill_chunks_total"],
                     "tick_16_slots": tick_profile(eng, cfg, reqs, matmul_bytes),
-                    "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+                    "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                    # the blocks of one 1024-token request (K, V and scales)
+                    "kv_zero_blocks_1024_tokens": zero_cost(
+                        eng, 1024 // eng.kv_block_size,
+                        lambda: eng._zero_blocks(range(1024 // eng.kv_block_size)))}
         if any(len(s) != PAGED_NEW for s in runs[kv]["streams"]):
             fail("serve_paged", f"{kv}: stream lengths {[len(s) for s in runs[kv]['streams']]}")
         if eng.block_pool.free_blocks != eng.block_pool.num_blocks:
@@ -2184,7 +2315,7 @@ def phase_faults_8b(fixture: dict, mem: Path, smi: str) -> dict:
     retry, alarm, elastic and goodput records; a /metrics scrape against
     the JSONL; then `export-hf --max-shard-gb 2` of its checkpoint,
     re-imported and held leaf by leaf against the checkpoint's snapshot.
-    Returns the run's kernel launches."""
+    Returns the CLI run's kernel launches by shape (``kernel_shapes``)."""
     work = mem / "faults_8b"
     hf_dir = work / "hf"
     model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1)
@@ -2329,7 +2460,7 @@ def phase_faults_8b(fixture: dict, mem: Path, smi: str) -> dict:
          mfu_analytic=analytic_mfu(cost, tps), alarms=summary["alarms"],
          launches=launches, export_files=exported, export_bytes=export_bytes,
          export_s=export_s, reimport_leaves_equal=True)
-    return launches
+    return summary["kernel_shapes"]
 
 
 SUPERVISE_ROUNDS = 8
@@ -2600,7 +2731,7 @@ def log_cancels(server: ServeServer) -> dict:
     return log
 
 
-def phase_fleet_8b(mem: Path, smi: str) -> dict:
+def phase_fleet_8b(mem: Path, smi: str) -> None:
     """Serve's Llama-3-8B weights (32 layers, bf16, seed 0, made again on
     the card) behind the port's fleet: two replicas (r0 paged, r1 dense,
     4 slots x 1024 each) over one params tree, each behind the port's
@@ -2891,7 +3022,6 @@ def phase_fleet_8b(mem: Path, smi: str) -> dict:
          prompt_lens=list(SERVE_PROMPTS), new_tokens=FLEET_NEW, solo_seconds=solo_s,
          near_tie_rule=NEAR_TIE, b1_launches=launches["flash_fwd"],
          peak_memory_bytes=peak, seconds=time.perf_counter() - t_phase, **out)
-    return launches
 
 
 DEPLOY_RUN = dict(RESUME_RUN, total_steps=6, checkpoint_every=1, log_dir=None)
@@ -2922,12 +3052,13 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
     canaried again; `report faults` of the events JSONL lists the
     promotion then the rollback; the fleet-goodput record's state
     seconds sum to the tracked replica-seconds within 1%; the CLI's
-    canary losses equal the same function's in this process. The
-    phase's launches are the fleet process's own: the `kernel_launches`
-    of its three canary records, each with B1 above 0. Then
+    canary losses equal the same function's in this process; each of
+    the fleet process's three canary records launched B1. Then
     `fleet --autoscale-template` over
     one `serve` replica: a burst of clients takes the fleet from 1 to 2
-    replicas (the child serves), and idle drains it back to 1."""
+    replicas (the child serves), and idle drains it back to 1. Returns the
+    fleet process's kernel launches by shape (its canary records'
+    ``kernel_shapes``)."""
     from nanodiloco_tpu_torch.fleet.autoscaler import ProcessReplicaProvider
     from nanodiloco_tpu_torch.fleet.deploy import canary_eval_loss
 
@@ -3014,6 +3145,11 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
         # the fleet process's own counts: each canary loss went through B1
         launches = {k: sum(b["kernel_launches"][k] for b in benches.values())
                     for k in fa.launch_counts()}
+        child_shapes = {k: {} for k in fa.KERNEL_NAMES}
+        for b in benches.values():
+            for k, shapes in b["kernel_shapes"].items():
+                for key, n in shapes.items():
+                    child_shapes[k][key] = child_shapes[k].get(key, 0) + n
         if sorted(benches) != [2, 4, 6] or any(
                 b["kernel_launches"]["flash_fwd"] <= 0 for b in benches.values()):
             fail(phase, f"a canary loss of the fleet process did not launch B1: "
@@ -3022,6 +3158,25 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
         if (any(abs(cli_loss[s] - ours[s]) > 2e-6 + 1e-5 * abs(ours[s]) for s in (2, 4))
                 or not math.isnan(ours[6]) or not math.isnan(cli_loss[6])):
             fail(phase, f"canary losses: the CLI's {cli_loss}, in process {ours}")
+        # the canary (the first replica) served step 6's NaN weights in both
+        # of its slots and was swapped back to step 4: its own streams now
+        # (shorter than the canary bench's rows, in both slots at once) must
+        # equal the other replica's, which never took the poisoned weights
+        # (same weights, engine and card: the same bits)
+        docs = [{"token_ids": [(5 * i + j) % 300 + 2 for j in range(n)],
+                 "max_new_tokens": 8, "temperature": 0.0, "stop": False,
+                 "prefix_cache": False} for i, n in enumerate((4, 7, 5, 9))]
+        after = {}
+        for r in reps:
+            http_post_json(r.url + "/admin/resume", {}, timeout=60)
+            replies = fire(r.url, docs, concurrency=2)
+            if any(rep[0] != 200 for rep in replies):
+                fail(phase, f"replica {r.name} after the rollback: {replies}")
+            after[r.name] = [rep[1]["token_ids"] for rep in replies]
+        canary_streams, clean_streams = after[reps[0].name], after[reps[1].name]
+        if canary_streams != clean_streams:
+            fail(phase, f"the rolled-back canary's streams {canary_streams} differ from the "
+                        f"clean replica's {clean_streams}")
 
         def at(kind, step):
             return next(e["t_unix"] for e in deploys
@@ -3038,6 +3193,8 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
             "report_faults": listed, "fleet_goodput_fraction": good["fleet_goodput_fraction"],
             "goodput_state_s": by_state, "goodput_tracked_s": tracked,
             "seconds_by_state": good["seconds_by_state"],
+            "canary_streams_after_rollback": canary_streams,
+            "canary_streams_equal_clean_replica": True,
         }
         provider.stop_all()
         del state, summary
@@ -3143,14 +3300,14 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
     shutil.rmtree(work)
     emit(phase=phase, ok=True, nvidia_smi=smi, model=RESUME_MODEL.to_dict(),
          b1_launches=launches["flash_fwd"], seconds=time.perf_counter() - t_phase, **out)
-    return launches
+    return child_shapes
 
 
 # -- Mixture-of-Experts --------------------------------------------------------
 
-# moe_small's size: float32, TF32 off, hd 32 (the FMA kernels; the kernels
-# have no hd-16 route, so hidden 128 over 4/2 heads), 4 experts top-2
-MOE_SMALL = dataclasses.replace(SMALL_MODEL, hidden_size=128, intermediate_size=256,
+# moe_small's size: float32, TF32 off, hidden 64 over 4/2 heads (hd 16,
+# the FMA kernels), 4 experts top-2
+MOE_SMALL = dataclasses.replace(SMALL_MODEL, hidden_size=64, intermediate_size=128,
                                 num_experts=4, num_experts_per_tok=2)
 MOE_SMALL_MODES = {
     "dense_cf1.25": dict(expert_capacity_factor=1.25),
@@ -3159,7 +3316,8 @@ MOE_SMALL_MODES = {
     "expert_choice": dict(router_type="experts_choose"),
 }
 # bench.py's moe-8x-top2 (its single / single_ragged entries) at full width
-# and depth, with flash attention: hd 64 in bf16 runs the FMA kernels
+# and depth, with flash attention: hd 64 in bf16 runs B1 and B3 on the
+# tensor cores and B2 on the FMA kernel
 MOE_8X = LlamaConfig(vocab_size=32000, hidden_size=512, intermediate_size=1408,
                      num_hidden_layers=6, num_attention_heads=8, num_key_value_heads=4,
                      max_position_embeddings=1024, dtype="bfloat16", loss_chunk=256,
@@ -3265,7 +3423,7 @@ def moe_small_run(model, device, params, rounds) -> dict:
                                                    state.snapshot)}
 
 
-def phase_moe_small(smi: str) -> dict:
+def phase_moe_small(smi: str) -> None:
     """Every MoE mode at a small float32 size from one parameter tree: two
     DiLoCo rounds on the card (twice) and on the CPU; the router probe on
     the CPU's final snapshot on both; forced top-k ties on both."""
@@ -3287,8 +3445,7 @@ def phase_moe_small(smi: str) -> dict:
         card = [moe_small_run(model, "cuda", params, rounds) for _ in range(2)]
         for k, v in fa.launch_counts().items():
             launches[k] += v
-        if min(fa.launch_counts().values()) == 0:
-            fail("moe_small", f"{mode}: a kernel was not launched: {fa.launch_counts()}")
+        check_routes("moe_small", torch.float32, model.head_dim)
         cpu = moe_small_run(model, "cpu", params, rounds)
         same = torch.equal(card[0]["losses"], card[1]["losses"]) and all(
             torch.equal(a, b) for a, b in zip(tree_leaves(card[0]["snapshot"]),
@@ -3323,7 +3480,6 @@ def phase_moe_small(smi: str) -> dict:
                     "dropped_frac_abs": f"one assignment of {n_assign}",
                     "router_entropy_rel": 1e-5},
          top_k_ties=ties["cuda"], launches=launches)
-    return launches
 
 
 def moe_step_profile(model: LlamaConfig) -> dict:
@@ -3400,8 +3556,10 @@ def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
     must equal the uninterrupted one bit for bit; a torch.profiler step
     of each dispatch; `python -m nanodiloco_tpu_torch --llama-config-file
     configs/llama_moe_64e.json` (ragged, 64 experts, hd 32) in a
-    subprocess. Returns the kernels' launches and what moe_serve needs
-    (the ragged checkpoint's directory and final snapshot)."""
+    subprocess, whose B1 and B3 must launch only on the tensor cores and B2
+    only on the FMA kernel. Returns that run's kernel launches by shape
+    and what moe_serve needs (the ragged checkpoint's directory and final
+    snapshot)."""
     t_phase = time.perf_counter()
     log_dir = mem / "moe_runs"
     ck_dir = mem / "moe_ck"
@@ -3425,8 +3583,7 @@ def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
         before[name] = torch.cuda.memory_allocated()
         summary = train(cfg, device="cuda")
         got = fa.launch_counts()
-        if min(got.values()) == 0:
-            fail("moe_train", f"{name}: a kernel was not launched: {got}")
+        check_routes("moe_train", torch.bfloat16, model.head_dim)
         for k, v in got.items():
             launches[k] += v
         if not all(math.isfinite(x) for step in summary["losses"] for x in step):
@@ -3463,9 +3620,11 @@ def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     profiles = {name: moe_step_profile(model) for name, model in (("dense", dense),
                                                                   ("ragged", ragged))}
-    # llama_moe_64e through the CLI, 3 rounds at the bench shape
+    # llama_moe_64e through the CLI in bf16 (hd 32: B1 and B3 on the tensor
+    # cores), 3 rounds at the bench shape
     cmd = [sys.executable, "-m", "nanodiloco_tpu_torch", "--llama-config-file",
-           str(MOE_64E_FILE), "--attention", "flash", "--seed", "0", "--batch-size", "8",
+           str(MOE_64E_FILE), "--attention", "flash", "--dtype", "bfloat16",
+           "--seed", "0", "--batch-size", "8",
            "--per-device-batch-size", "8", "--seq-length", "1024", "--warmup-steps", "1",
            "--total-steps", "6", "--inner-steps", "2", "--num-workers", "2",
            "--log-dir", str(log_dir), "--run-name", "moe64e", "--quiet"]
@@ -3474,14 +3633,14 @@ def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
         fail("moe_train", f"the llama_moe_64e CLI run exited {proc.returncode}: "
                           f"{proc.stderr[-2000:]}")
     cli_summary = json.loads(proc.stdout.strip().splitlines()[-1])
-    if min(cli_summary["kernel_launches"].values()) == 0:
-        fail("moe_train", f"llama_moe_64e: a kernel was not launched: "
-                          f"{cli_summary['kernel_launches']}")
     model64 = LlamaConfig(**cli_summary["model"])
+    check_variants("moe_train", cli_summary["kernel_variants"], torch.bfloat16,
+                   model64.head_dim)
     runs["llama_moe_64e_cli"] = moe_run_line("cli", cli_summary, log_dir / "moe64e.jsonl",
                                              model64.num_params())
     emit(phase="moe_train", run="llama_moe_64e_cli", ok=True, nvidia_smi=smi,
          model=cli_summary["model"], launches=cli_summary["kernel_launches"],
+         variants=cli_summary["kernel_variants"],
          **runs["llama_moe_64e_cli"])
     dense_tps = runs["dense"]["tokens_per_sec_after_first_round"]
     emit(phase="moe_train", ok=True, nvidia_smi=smi, model=MOE_8X.to_dict(), num_params=n,
@@ -3493,10 +3652,11 @@ def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
          **held,
          resumed_bit_exact=True, step_profile=profiles, launches=launches,
          seconds=time.perf_counter() - t_phase)
-    return launches, {"checkpoint_dir": ck_dir, "snapshot": snapshot, "model": ragged}
+    return (cli_summary["kernel_shapes"],
+            {"checkpoint_dir": ck_dir, "snapshot": snapshot, "model": ragged})
 
 
-def phase_moe_serve(ragged_run: dict, smi: str) -> dict:
+def phase_moe_serve(ragged_run: dict, smi: str) -> None:
     """moe-8x-top2 weights (seed 0, bf16 serving copy) behind the dense
     and the paged engine (4 slots x 1024, chunk 512, 8 greedy requests of
     64 new tokens). Ragged dispatch: every stream equals solo generate()
@@ -3585,7 +3745,6 @@ def phase_moe_serve(ragged_run: dict, smi: str) -> dict:
          near_tie_rule=NEAR_TIE, router_near_tie_rule=ROUTER_NEAR_TIE,
          cli_generate_tokens=want, b1_launches=launches["flash_fwd"],
          seconds=time.perf_counter() - t_phase)
-    return launches
 
 
 def _healthy(url: str) -> bool:
@@ -3614,19 +3773,42 @@ def main() -> None:
          built={n: r["seconds"] for n, r in report.items()}, dir=str(build.build_dir()),
          tokenshard=str(tokenshard.lib_path()))
 
-    kernels = phase_kernels()
+    phase_kernels()
+    # the main path: every launch from here on is counted by shape, and each
+    # phase's share (with what its child processes report) goes to `path`
+    fa.reset_shape_counts()
+    path, seen = {}, fa.shape_counts()
+
+    def took(phase: str, child: dict | None = None) -> None:
+        nonlocal seen
+        now = fa.shape_counts()
+        got = {k: {key: n - seen[k].get(key, 0) for key, n in shapes.items()
+                   if n > seen[k].get(key, 0)} for k, shapes in now.items()}
+        for k, shapes in (child or {}).items():
+            for key, n in shapes.items():
+                got[k][key] = got[k].get(key, 0) + n
+        path[phase], seen = got, now
+
     phase_train_small()
+    took("train_small")
     phase_resume()
-    launches, summary = phase_train(smi)
+    took("resume")
+    summary = phase_train(smi)
+    took("train")
     phase_checkpoint_full(summary, smi)
     del summary
     torch.cuda.empty_cache()
-    options_small = phase_diloco_options_small(smi)
-    options_8b = phase_diloco_options_8b(smi)
+    phase_diloco_options_small(smi)
+    took("diloco_options_small")
+    phase_diloco_options_8b(smi)
+    took("diloco_options_8b")
     phase_serve_small(smi)
     phase_serve_modes_small(smi)
-    serve_launches, sp = phase_serve(smi)
+    took("serve_small")
+    sp = phase_serve(smi)
+    took("serve")
     phase_serve_paged(sp, smi)
+    took("serve_paged")
     # this run's own directory: a second run on the same machine never
     # shares (or removes) its files
     mem = Path(tempfile.mkdtemp(prefix="nanodiloco_chip_smoke_", dir=MEM_PARENT))
@@ -3634,34 +3816,27 @@ def main() -> None:
         fixture = phase_hf_8b(sp, mem, smi)
         del sp
         torch.cuda.empty_cache()
-        faults_launches = phase_faults_8b(fixture, mem, smi)
+        took("hf_8b")
+        took("faults_8b", phase_faults_8b(fixture, mem, smi))
         del fixture
         torch.cuda.empty_cache()
         phase_supervise_small(mem, smi)
-        fleet_launches = phase_fleet_8b(mem, smi)
-        deploy_launches = phase_deploy_small(mem, smi)
-        moe_small_launches = phase_moe_small(smi)
-        moe_train_launches, ragged_run = phase_moe_train(mem, smi)
-        moe_serve_launches = phase_moe_serve(ragged_run, smi)
+        took("supervise_small")
+        phase_fleet_8b(mem, smi)
+        took("fleet_8b")
+        took("deploy_small", phase_deploy_small(mem, smi))
+        phase_moe_small(smi)
+        took("moe_small")
+        moe64e_shapes, ragged_run = phase_moe_train(mem, smi)
+        took("moe_train", moe64e_shapes)
+        phase_moe_serve(ragged_run, smi)
+        took("moe_serve")
         del ragged_run
     finally:
         shutil.rmtree(mem, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
 
-    emit(kernels=[
-        {"name": name, "route": "cuda", "source": SOURCE[kernels[name]["variant"]],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "launches_diloco_options_small": options_small[name],
-         "launches_diloco_options_8b": options_8b[name],
-         "launches_serve": serve_launches[name],
-         "launches_faults_8b": faults_launches[name],
-         "launches_fleet_8b": fleet_launches[name],
-         "launches_deploy_small": deploy_launches[name],
-         "launches_moe_small": moe_small_launches[name],
-         "launches_moe_train": moe_train_launches[name],
-         "launches_moe_serve": moe_serve_launches[name], **kernels[name]}
-        for name in REPLACES
-    ])
+    emit(kernels=phase_kernels_main(path))
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

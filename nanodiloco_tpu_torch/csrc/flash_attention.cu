@@ -32,9 +32,17 @@
 // float32 FMAs from shared memory (64 x 64 tiles, a 4 x 4 or 4 x hd/16
 // register tile per thread) on the CUDA cores, whose float32 peak is
 // 67 TFLOP/s. They serve every float32 case (wgmma has no float32 path, and
-// TF32 would not hold the float32 tolerance) and bf16 at hd 32 and 64; bf16
-// at hd 128 runs on the tensor cores in flash_attention_tc.cu (route table in
-// ops/cuda/flash_attention.py).
+// TF32 would not hold the float32 tolerance), bf16 at the head dims the
+// tensor-core kernels do not take (16, 80, 96), and bf16 B2 at hd 32 and 64;
+// the rest of bf16 runs on the tensor cores in flash_attention_tc.cu (route
+// table in ops/cuda/flash_attention.py).
+//
+// Head dims: 16, 32, 64, 80, 96 and 128 (the templates take any multiple of
+// 16; these are the ones the launchers instantiate). hd 256 stays refused:
+// at 64-row tiles B3 holds four [64][257] float32 tiles, two [64][65] score
+// tiles and the lse / delta rows, 297 KB against the 227 KB a block may use
+// (B2 280 KB; B1 214 KB would fit); it needs smaller tiles, not another
+// instantiation.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -461,20 +469,22 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32 at head dims 32, 64, 128; 1 = bfloat16 at 32 and 64
-// (bf16 at 128 runs on the tensor cores, in flash_attention_tc.cu).
-#define ND_DISPATCH(LAUNCH, ...)                                              \
-  {                                                                           \
-    if (dtype == 0) {                                                         \
-      if (hd == 32) return LAUNCH<float, 32>(__VA_ARGS__);                    \
-      if (hd == 64) return LAUNCH<float, 64>(__VA_ARGS__);                    \
-      if (hd == 128) return LAUNCH<float, 128>(__VA_ARGS__);                  \
-    } else if (dtype == 1) {                                                  \
-      if (hd == 32) return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);            \
-      if (hd == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);            \
-    }                                                                         \
-    return -1;                                                                \
-  }
+// dtype 0 = float32, at every head dim above; dtype 1 = bfloat16, at the
+// head dims the tensor-core kernels (flash_attention_tc.cu) do not take:
+// 16, 80 and 96 for B1 and B3, and also 32 and 64 for B2.
+#define ND_HD(T, HD, LAUNCH, ...) \
+  if (hd == HD) return LAUNCH<T, HD>(__VA_ARGS__);
+#define ND_F32(LAUNCH, ...)                  \
+  ND_HD(float, 16, LAUNCH, __VA_ARGS__)      \
+  ND_HD(float, 32, LAUNCH, __VA_ARGS__)      \
+  ND_HD(float, 64, LAUNCH, __VA_ARGS__)      \
+  ND_HD(float, 80, LAUNCH, __VA_ARGS__)      \
+  ND_HD(float, 96, LAUNCH, __VA_ARGS__)      \
+  ND_HD(float, 128, LAUNCH, __VA_ARGS__)
+#define ND_BF16(LAUNCH, ...)                         \
+  ND_HD(__nv_bfloat16, 16, LAUNCH, __VA_ARGS__)      \
+  ND_HD(__nv_bfloat16, 80, LAUNCH, __VA_ARGS__)      \
+  ND_HD(__nv_bfloat16, 96, LAUNCH, __VA_ARGS__)
 
 extern "C" {
 
@@ -486,24 +496,44 @@ const char* nd_error_string(int code) {
 int nd_flash_fwd(int dtype, int hd, const void* q, const void* k, const void* v,
                  void* o, float* lse, int bh, int group, int sq, int sk,
                  int causal, float scale, void* stream) {
-  ND_DISPATCH(launch_fwd, q, k, v, o, lse, bh, group, sq, sk, causal, scale,
-              static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    ND_F32(launch_fwd, q, k, v, o, lse, bh, group, sq, sk, causal, scale, st)
+  } else if (dtype == 1) {
+    ND_BF16(launch_fwd, q, k, v, o, lse, bh, group, sq, sk, causal, scale, st)
+  }
+  return -1;
 }
 
 int nd_flash_bwd_dq(int dtype, int hd, const void* q, const void* k,
                     const void* v, const void* dout, const float* lse,
                     const float* delta, void* dq, int bh, int group, int sq,
                     int sk, int causal, float scale, void* stream) {
-  ND_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk,
-              causal, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    ND_F32(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
+  } else if (dtype == 1) {
+    ND_BF16(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
+    ND_HD(__nv_bfloat16, 32, launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk,
+          causal, scale, st)
+    ND_HD(__nv_bfloat16, 64, launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk,
+          causal, scale, st)
+  }
+  return -1;
 }
 
 int nd_flash_bwd_dkv(int dtype, int hd, const void* q, const void* k,
                      const void* v, const void* dout, const float* lse,
                      const float* delta, void* dk, void* dv, int bh, int group,
                      int sq, int sk, int causal, float scale, void* stream) {
-  ND_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk,
-              causal, scale, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    ND_F32(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal, scale, st)
+  } else if (dtype == 1) {
+    ND_BF16(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal, scale,
+            st)
+  }
+  return -1;
 }
 
 }  // extern "C"

@@ -2,18 +2,22 @@
 // mbarriers, TMA tile loads, wgmma with shared-memory descriptors, bf16
 // fragments in registers, and the host-side TMA descriptor encoder.
 //
-// Tiles are bf16 with a 64-element (128-byte) inner box, loaded by TMA with
-// the 128-byte swizzle: row r of a box lies at byte 128 * r, its eight
-// 16-byte chunks permuted by r % 8, and every box starts on a 1024-byte
-// boundary. A row of hd = 128 is two such boxes, the second at +box_bytes.
-// wgmma reads these tiles through descriptors in the matching layout:
+// Tiles are bf16 rows of hd = 128, 64 or 32 elements, loaded by TMA in boxes
+// of min(hd, 64) columns with a swizzle as wide as a box row: SW = 128 bytes
+// at hd 128 and 64, 64 bytes at hd 32. Row r of a box lies at byte SW * r,
+// its 16-byte chunks permuted by (r * SW / 128) % 8, and every box starts
+// on a 1024-byte boundary. A row of hd = 128 is two boxes, the second at
+// +box_bytes; at hd 64 and 32 a row is one box.
+// wgmma reads these tiles through descriptors in the matching layout (type
+// 1 for the 128-byte swizzle, 2 for the 64-byte one):
 //   K-major operand (the reduction axis contiguous, e.g. Q or K in Q K^T):
-//     LBO unused (16 bytes), SBO = 1024 bytes (the next 8 rows); k-slice kk of
-//     16 elements starts at box(kk / 4) + 32 * (kk % 4) bytes.
+//     LBO unused (16 bytes), SBO = 8 * SW bytes (the next 8 rows); k-slice kk
+//     of 16 elements (32 bytes) starts at box(kk / (SW / 32)) +
+//     32 * (kk % (SW / 32)) bytes.
 //   MN-major operand (the output axis contiguous, e.g. V in P V, with
-//     trans-b = 1): LBO = box_bytes (from output columns 0-63 to 64-127),
-//     SBO = 1024 bytes (the next 8 reduction rows); k-slice kk of 16 rows
-//     starts at 16 * 128 * kk bytes.
+//     trans-b = 1): LBO = box_bytes (from output columns 0-63 to 64-127, hd
+//     128 only), SBO = 8 * SW bytes (the next 8 reduction rows); k-slice kk
+//     of 16 rows starts at 16 * SW * kk bytes.
 // The f32 accumulator of m64nNk16 gives thread t of the warpgroup (warp
 // w = t / 32, lane l) rows 16 w + l / 4 + 8 h (h = 0, 1) and, for register
 // i < N / 2, row half h = (i / 2) % 2 and column 8 (i / 4) + 2 (l % 4) + i % 2.
@@ -115,12 +119,14 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
+// Shared-memory matrix descriptor for a tile in the `swizzle`-byte layout
+// (128: layout type 1; 64: layout type 2).
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo_bytes,
-                                              uint32_t sbo_bytes) {
+                                              uint32_t sbo_bytes, int swizzle = 128) {
+  const uint64_t layout = swizzle == 128 ? 1 : 2;
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) | (layout << 62);
 }
 
 // Two floats to one bf16x2 register, `lo` in the low half (the lower column).
@@ -216,6 +222,66 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A from registers, B from shared
+// memory MN-major (trans-b = 1), as wgmma_m64n128k16_rs_tb.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A from registers, B from shared
+// memory MN-major (trans-b = 1), as wgmma_m64n128k16_rs_tb.
+__device__ __forceinline__ void wgmma_m64n32k16_rs_tb(float (&d)[16], uint32_t a0, uint32_t a1,
+                                                    uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x N] (+)= A[64 x 16] * B[16 x N], A from registers, B MN-major: the
+// instruction picked by N (a product whose width is the head dim).
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                            int accumulate) {
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+  } else {
+    static_assert(N == 32, "wgmma_rs_tb: N is 128, 64 or 32");
+    wgmma_m64n32k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host: TMA descriptors
 // ---------------------------------------------------------------------------
@@ -239,23 +305,27 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Map of a contiguous bf16 tensor [heads, rows, 128] as {128, rows, heads},
-// read in boxes of {64, box_rows, 1} with the 128-byte swizzle. Rows past
-// `rows` read as zeros inside each head. Returns false if the driver refuses.
+// Map of a contiguous bf16 tensor [heads, rows, hd] (hd 128, 64 or 32) as
+// {hd, rows, heads}, read in boxes of {min(hd, 64), box_rows, 1} with the
+// swizzle as wide as a box row (128 bytes at hd >= 64, 64 bytes at hd 32).
+// Rows past `rows` read as zeros inside each head. Returns false if the
+// driver refuses.
 inline bool bf16_rows_map(CUtensorMap* map, const void* base, int heads, int rows,
-                          int box_rows) {
+                          int box_rows, int hd) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {128, static_cast<cuuint64_t>(rows),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {128 * sizeof(__nv_bfloat16),
-                                 static_cast<cuuint64_t>(rows) * 128 * sizeof(__nv_bfloat16)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint64_t strides[2] = {hd * sizeof(__nv_bfloat16),
+                                 static_cast<cuuint64_t>(rows) * hd * sizeof(__nv_bfloat16)};
+  const cuuint32_t box_cols = hd < 64 ? hd : 64;
+  const cuuint32_t box[3] = {box_cols, static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                 strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace hopper

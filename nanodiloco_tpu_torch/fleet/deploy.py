@@ -98,18 +98,22 @@ def canary_bench(url: str, checkpoint_dir: str, step: int | None, *,
     """The closed-loop canary measurement against ONE replica (see
     module docstring for the two-leg split). Returns the summary keys
     ``compare_runs`` gates (``ttft_p50_s``, ``client_tokens_per_sec``,
-    ``canary_eval_loss``) plus the raw counts, and ``kernel_launches``:
-    the CUDA kernels the loss leg launched in this process (all 0 on
-    the CPU), which ``compare_runs`` does not read."""
+    ``canary_eval_loss``) plus the raw counts, and ``kernel_launches`` and
+    ``kernel_shapes``: the CUDA kernels the loss leg launched in this
+    process, and at which shapes (0 and empty on the CPU), which
+    ``compare_runs`` does not read."""
     import random
 
     from nanodiloco_tpu_torch.obs.telemetry import nearest_rank_percentile
-    from nanodiloco_tpu_torch.ops.cuda.flash_attention import launch_counts
+    from nanodiloco_tpu_torch.ops.cuda.flash_attention import launch_counts, shape_counts
 
-    launches0 = launch_counts()
+    launches0, shapes0 = launch_counts(), shape_counts()
     loss = canary_eval_loss(checkpoint_dir, step,
                             rows=eval_rows, seq=eval_seq, device=device)
     launches = {k: v - launches0[k] for k, v in launch_counts().items()}
+    shapes = {k: {key: n - shapes0[k].get(key, 0) for key, n in v.items()
+                  if n > shapes0[k].get(key, 0)}
+              for k, v in shape_counts().items()}
     rng = random.Random(seed)
     # greedy, prefix-cache-opted-out traffic: the canary must measure
     # the CHECKPOINT, not the cache it is about to invalidate anyway
@@ -166,6 +170,7 @@ def canary_bench(url: str, checkpoint_dir: str, step: int | None, *,
             round(completion / wall, 1) if wall > 0 else None
         ),
         "kernel_launches": launches,
+        "kernel_shapes": shapes,
     }
 
 

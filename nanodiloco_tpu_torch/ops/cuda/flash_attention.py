@@ -10,26 +10,31 @@ B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 ==  ==========================  ==============================================
 
 Each kernel comes in up to two variants, and ``ROUTES`` names the one
-that serves each (kernel, dtype, head dim):
+that serves each (kernel, dtype, head dim), at head dims 16, 32, 64, 80,
+96 and 128 (``HEAD_DIMS``; any other raises):
 
-- ``wgmma``: tensor-core kernels for bf16 at hd 128 (B1, B2, B3), wgmma
-  fed by TMA (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``);
+- ``wgmma``: tensor-core kernels, wgmma fed by TMA
+  (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16 at
+  hd 128 (B1, B2, B3) and at hd 64 and 32 (B1 and B3; B2 there is the
+  next kernel to move);
 - ``fma``: float32 FMA kernels from shared memory for every other case
-  (``nanodiloco_tpu_torch/csrc/flash_attention.cu``). wgmma has no
-  float32 path, and TF32 would not hold the float32 tolerance.
+  (``nanodiloco_tpu_torch/csrc/flash_attention.cu``): every float32 row
+  (wgmma has no float32 path, and TF32 would not hold the float32
+  tolerance), bf16 at hd 16, 80 and 96, and bf16 B2 at hd 64 and 32.
 
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
 CUDA tensor it launches the routed kernel, adds one to its ``launches``
-count and to its variant's count, and raises if the launch fails; on a
-CPU tensor it runs its plain version (same decomposition: forward
-returns (O, lse); dQ and dK/dV are recomputed from lse and delta). There
-is no other path and no fallback from one variant to another.
+count and to its variant's and its shape's counts, and raises if the
+launch fails; on a CPU tensor it runs its plain version (same
+decomposition: forward returns (O, lse); dQ and dK/dV are recomputed from
+lse and delta). There is no other path and no fallback from one variant
+to another.
 
 What bounds them on the H100: at the training shape (hd 128, S 2048,
-causal) every kernel does 2-4 S x S x hd products per head on O(S x hd)
-bytes, so operations bound all three (see the notes at the top of the
-CUDA sources for the designs).
+causal) and at moe-8x-top2's (hd 64, S 1024) every kernel does 2-4
+S x S x hd products per head on O(S x hd) bytes, so operations bound all
+three (see the notes at the top of the CUDA sources for the designs).
 """
 
 from __future__ import annotations
@@ -43,14 +48,23 @@ import torch
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.ops.online_softmax import NEG_INF, block_update
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 VARIANTS = ("fma", "wgmma")
-# the variant that serves each (kernel, dtype, head dim): tensor cores for
-# bf16 at hd 128, the FMA kernels everywhere else
+# the head dims each tensor-core kernel takes, in bf16 only
+_TENSOR_CORE_HEAD_DIMS = {
+    "flash_fwd": (32, 64, 128),
+    "flash_bwd_dq": (128,),
+    "flash_bwd_dkv": (32, 64, 128),
+}
+# the variant that serves each (kernel, dtype, head dim): the tensor cores
+# for bf16 where a tensor-core kernel takes the head dim, the FMA kernels
+# everywhere else (every float32 row included)
 ROUTES = {
-    (name, dtype, hd): "wgmma" if (dtype, hd) == (torch.bfloat16, 128) else "fma"
+    (name, dtype, hd): (
+        "wgmma" if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS[name] else "fma"
+    )
     for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS
 }
 _MAX_GRID_Y = 65535
@@ -95,9 +109,24 @@ def _raise_on(rc: int, name: str, variant: str = "fma") -> None:
         raise RuntimeError(f"{name} ({variant}) kernel launch failed ({rc}): {msg}")
 
 
-def _counted(fn, variant: str) -> None:
+def shape_key(dtype, bh: int, bh_kv: int, sq: int, sk: int, hd: int, causal: bool) -> str:
+    """The key of one launch's shape in ``shape_counts``:
+    ``"<dtype>/<BH>/<BH_kv>/<Sq>/<Sk>/<hd>/<causal 0|1>"``, for example
+    ``"bfloat16/128/64/1024/1024/64/1"``."""
+    return f"{str(dtype).removeprefix('torch.')}/{bh}/{bh_kv}/{sq}/{sk}/{hd}/{int(causal)}"
+
+
+def parse_shape_key(key: str) -> tuple:
+    """(dtype, BH, BH_kv, Sq, Sk, hd, causal) of a ``shape_key``."""
+    dtype, *dims, causal = key.split("/")
+    return (getattr(torch, dtype), *map(int, dims), causal == "1")
+
+
+def _counted(fn, variant: str, q, k, causal: bool) -> None:
     fn.launches += 1
     fn.variant_launches[variant] += 1
+    key = shape_key(q.dtype, q.shape[0], k.shape[0], q.shape[1], k.shape[1], q.shape[2], causal)
+    fn.shape_launches[key] = fn.shape_launches.get(key, 0) + 1
 
 
 def _check(name: str, q, k, v, *same_as_q, stats=()) -> None:
@@ -245,7 +274,7 @@ def flash_fwd(q, k, v, causal: bool):
         else:
             rc = _lib().nd_flash_fwd(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
     _raise_on(rc, "flash_fwd", variant)
-    _counted(flash_fwd, variant)
+    _counted(flash_fwd, variant, q, k, causal)
     return o, lse
 
 
@@ -266,7 +295,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
         else:
             rc = _lib().nd_flash_bwd_dq(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
     _raise_on(rc, "flash_bwd_dq", variant)
-    _counted(flash_bwd_dq, variant)
+    _counted(flash_bwd_dq, variant, q, k, causal)
     return dq
 
 
@@ -289,7 +318,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
         else:
             rc = _lib().nd_flash_bwd_dkv(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
     _raise_on(rc, "flash_bwd_dkv", variant)
-    _counted(flash_bwd_dkv, variant)
+    _counted(flash_bwd_dkv, variant, q, k, causal)
     return dk, dv
 
 
@@ -297,13 +326,21 @@ KERNELS = (flash_fwd, flash_bwd_dq, flash_bwd_dkv)
 
 
 def reset_launch_counts() -> None:
-    """Zero both counts: ``launch_counts`` and ``variant_counts``."""
+    """Zero ``launch_counts`` and ``variant_counts`` (not ``shape_counts``)."""
     for fn in KERNELS:
         fn.launches = 0
         fn.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
+def reset_shape_counts() -> None:
+    """Zero ``shape_counts``. It has a reset of its own so that a caller can
+    total the shapes of a run whose parts reset the other counts."""
+    for fn in KERNELS:
+        fn.shape_launches = {}
+
+
 reset_launch_counts()
+reset_shape_counts()
 
 
 def launch_counts() -> dict[str, int]:
@@ -314,6 +351,12 @@ def variant_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel by variant, e.g.
     ``{"flash_fwd": {"fma": 0, "wgmma": 4}, ...}``."""
     return {fn.__name__: dict(fn.variant_launches) for fn in KERNELS}
+
+
+def shape_counts() -> dict[str, dict[str, int]]:
+    """Launches of each kernel by shape (``shape_key``), e.g.
+    ``{"flash_fwd": {"bfloat16/64/16/2048/2048/128/1": 4}, ...}``."""
+    return {fn.__name__: dict(fn.shape_launches) for fn in KERNELS}
 
 
 class FlashAttention(torch.autograd.Function):

@@ -73,6 +73,12 @@ slot's written rows leave as ``[L, pos, Hkv, hd]`` host arrays and are
 re-blocked into the importer's own geometry, across dense, paged, int8
 and block sizes.
 
+No stale rows (a departure from the JAX engine, which keeps them): every
+row that no request holds is zero. The arenas start zeroed, a dense
+slot's rows are zeroed when it is released, and a paged block when its
+last reference is dropped. A request served under non-finite weights (a
+canary that is then rolled back) leaves nothing a later stream reads.
+
 MoE configs serve through the training forward's MLP (``models/moe.py``):
 a final chunk's right pads and the dead slots of a tick claim no expert
 capacity, and a tick's capacity is sized from all B slot rows, as in the
@@ -471,6 +477,35 @@ class InferenceEngine:
         self._prefills[slot] = _Prefill(request, ids, done)
         return -(-(len(ids) - done) // self.chunk_size)
 
+    # -- no stale rows ---------------------------------------------------------
+    #
+    # Attention reads a slot's whole row span (dense) or its gathered blocks
+    # (paged; table sentinels read the pool's last block) and masks the rows
+    # past the cursor additively. A non-finite row that an earlier occupant
+    # left (a request served under NaN weights) survives that mask: its score
+    # is NaN, and 0 x NaN is NaN in P V. So rows are zeroed when no request
+    # holds them any more: a dense slot's at release, a block's when its last
+    # reference goes. Only live slots write rows, so an unheld row stays
+    # zero. (The JAX engine keeps such rows.)
+
+    def _zero_slot_rows(self, slot: int) -> None:
+        """Zero dense slot ``slot``'s K/V rows (all layers, all positions)."""
+        self.cache["k"][:, slot].zero_()
+        self.cache["v"][:, slot].zero_()
+
+    def _zero_blocks(self, blocks) -> None:
+        """Zero paged blocks ``blocks`` in every arena tensor (K, V and, in
+        int8, their scales)."""
+        if blocks:
+            idx = torch.as_tensor(list(blocks), device=self.device)
+            for t in self.pool.values():
+                t.index_fill_(1, idx, 0)
+
+    def _free_blocks(self, blocks) -> None:
+        """Drop one reference per block and zero the blocks no one holds now."""
+        self.block_pool.deref(blocks)
+        self._zero_blocks([b for b in set(blocks) if self.block_pool.refcount(b) == 0])
+
     def _run_chunk(self, slot: int, chunk: list[int], pos: int, last: int,
                    noise, temp: float, top_k: int, top_p: float, n_real: int | None = None):
         """Dispatch one (bucketed) chunk whose first ``n_real`` tokens are
@@ -830,9 +865,11 @@ class InferenceEngine:
             blocks = self._slot_blocks[slot]
             if blocks:
                 self.hist_blocks_per_request.observe(len(blocks))
-                self.block_pool.deref(blocks)
+                self._free_blocks(blocks)
             self._slot_blocks[slot] = []
             self._tables[slot] = self.block_pool.num_blocks
+        else:
+            self._zero_slot_rows(slot)
         self._dev_key_valid = None
         # a retiring slot may have held the last reference to a pre-swap
         # weight generation
@@ -842,7 +879,7 @@ class InferenceEngine:
         """Prefix-cache eviction hook (paged): drop the cache's references;
         blocks still mapped into a live slot survive until it releases
         them."""
-        self.block_pool.deref(blocks)
+        self._free_blocks(blocks)
         self.kv_block_evictions += len(blocks)
 
     # -- KV shipping (serve/kvship.py) ---------------------------------------
@@ -941,7 +978,7 @@ class InferenceEngine:
             return nb
         except BaseException:
             # a failed scatter must not leak the allocation
-            self.block_pool.deref(own)
+            self._free_blocks(own)
             raise
 
     def import_kv(self, slot: int, request, shipped) -> None:

@@ -181,8 +181,9 @@ def wire_tag(dtype: torch.dtype) -> str:
 
 def to_host(t: torch.Tensor) -> np.ndarray:
     """Arena rows -> the host array the wire carries: a bfloat16 tensor as
-    its 16-bit pattern."""
-    t = t.detach().cpu()
+    its 16-bit pattern. Always a copy: a view of a CPU arena would change
+    when the exported slot is released (and zeroed)."""
+    t = t.detach().to("cpu", copy=True)
     return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
 
 

@@ -96,7 +96,11 @@ from nanodiloco_tpu_torch.obs.devtime import DispatchAccountant
 from nanodiloco_tpu_torch.obs.goodput import GoodputLedger
 from nanodiloco_tpu_torch.obs.tracer import SpanTracer, set_tracer, trace_span
 from nanodiloco_tpu_torch.obs.watchdog import Watchdog, WatchdogConfig
-from nanodiloco_tpu_torch.ops.cuda.flash_attention import launch_counts, variant_counts
+from nanodiloco_tpu_torch.ops.cuda.flash_attention import (
+    launch_counts,
+    shape_counts,
+    variant_counts,
+)
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig, host_dynamics
 from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
 from nanodiloco_tpu_torch.resilience import faults
@@ -815,7 +819,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
     prefetcher = ThreadPoolExecutor(max_workers=1, thread_name_prefix="prefetch")
     pending = None
     telemetry = None
-    launches0 = launch_counts()
+    launches0, variants0, shapes0 = launch_counts(), variant_counts(), shape_counts()
     losses_out: list[list[float]] = []
     round_seconds: list[float] = []
     snapshot_changed: list[bool] = []
@@ -1126,5 +1130,10 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         ),
         "peak_memory_bytes": torch.cuda.max_memory_allocated(device) if on_cuda else None,
         "kernel_launches": {k: v - launches0[k] for k, v in launch_counts().items()},
+        "kernel_variants": {k: {var: n - variants0[k][var] for var, n in v.items()}
+                            for k, v in variant_counts().items()},
+        "kernel_shapes": {k: {key: n - shapes0[k].get(key, 0) for key, n in v.items()
+                              if n > shapes0[k].get(key, 0)}
+                          for k, v in shape_counts().items()},
         "eval_kernel_launches": eval_launches,
     }

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from nanodiloco_tpu.ops.flash_attention import flash_attention as jax_flash_attention
 from nanodiloco_tpu.ops.pallas.flash_attention import _fwd_call, pallas_flash_attention
 from nanodiloco_tpu_torch.models.llama import dense_attention
 from nanodiloco_tpu_torch.ops.cuda import build
@@ -65,6 +66,32 @@ def test_gradients_match_pallas(group, causal):
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     out = flash_attention(tq, tk, tv, causal=causal)
     (out * torch.from_numpy(ct)).sum().backward()
+    for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [16, 80, 96])
+@pytest.mark.parametrize("group, causal", [(1, True), (2, False), (4, True)])
+def test_more_head_dims_match_jax_flash_attention(hd, group, causal):
+    """The head dims the FMA kernels gained (16, 80, 96): the Function's
+    plain forward and backward on the CPU against the JAX dispatcher's scan
+    path (what it runs off the TPU at any head dim), output and dQ/dK/dV,
+    GQA and causal."""
+    b, s, h = 1, 48, 4
+    hkv = h // group
+    q, k, v, ct = arrays((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, h, hd), seed=4)
+
+    def jax_loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal, block_size=16, impl="scan")
+        return jnp.sum(out * ct), out
+
+    with jax.default_matmul_precision("highest"):
+        (_, want_out), want = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
+            *map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal)
+    (out * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=2e-5, atol=2e-5)
     for got, ref in zip((tq.grad, tk.grad, tv.grad), want):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
@@ -125,8 +152,8 @@ def test_dispatcher_rejects_unknown_impl_and_bad_heads():
         (lambda q, k, v: (q.double(), k.double(), v.double()), "not supported"),
         (lambda q, k, v: (q, k.to(torch.bfloat16), v), "share one dtype"),
         (lambda q, k, v: (q.transpose(0, 1), k, v), "contiguous"),
-        (lambda q, k, v: (q[..., :16].contiguous(), k[..., :16].contiguous(),
-                          v[..., :16].contiguous()), "head dim"),
+        (lambda q, k, v: (q[..., :24].contiguous(), k[..., :24].contiguous(),
+                          v[..., :24].contiguous()), "head dim"),
         (lambda q, k, v: (q, torch.zeros(3, 64, 32), torch.zeros(3, 64, 32)), "must divide"),
         # contiguous, but 4 bytes past an aligned start: TMA cannot read it
         (lambda q, k, v: (torch.zeros(q.numel() + 1)[1:].view(q.shape), k, v), "16-byte"),
@@ -140,19 +167,40 @@ def test_wrapper_checks_raise_on_what_the_kernel_does_not_take(bad, match):
 
 def test_cpu_tensors_never_launch():
     fa.reset_launch_counts()
+    fa.reset_shape_counts()
     q = torch.randn(1, 16, 2, 32, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     assert fa.variant_counts() == {name: {"fma": 0, "wgmma": 0} for name in fa.KERNEL_NAMES}
+    assert fa.shape_counts() == {name: {} for name in fa.KERNEL_NAMES}
+
+
+def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
+    """A launch is counted under its shape's key, which parses back; the
+    shape counts survive ``reset_launch_counts`` (a run totals them across
+    parts that reset the others) and clear only on ``reset_shape_counts``."""
+    fa.reset_shape_counts()
+    q = torch.zeros(8, 70, 64, dtype=torch.bfloat16)
+    k = torch.zeros(4, 70, 64, dtype=torch.bfloat16)
+    fa._counted(fa.flash_bwd_dkv, "wgmma", q, k, False)  # what a launch on the card records
+    fa.reset_launch_counts()
+    key = fa.shape_key(torch.bfloat16, 8, 4, 70, 70, 64, False)
+    assert key == "bfloat16/8/4/70/70/64/0"
+    assert fa.shape_counts() == {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {key: 1}}
+    assert fa.parse_shape_key(key) == (torch.bfloat16, 8, 4, 70, 70, 64, False)
+    fa.reset_shape_counts()
+    assert fa.shape_counts() == {name: {} for name in fa.KERNEL_NAMES}
 
 
 @pytest.mark.parametrize("name", fa.KERNEL_NAMES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 at hd 128 goes to the tensor-core kernels for B1, B2 and B3;
-    every float32 case and the other head dims go to the FMA kernels."""
-    tensor_cores = dtype == torch.bfloat16 and hd == 128
+    """bf16 goes to the tensor-core kernels for B1 and B3 at hd 128, 64 and
+    32, and for B2 at hd 128; every float32 case, bf16 at hd 16, 80 and 96,
+    and bf16 B2 at hd 64 and 32 go to the FMA kernels."""
+    tensor_cores = dtype == torch.bfloat16 and (
+        hd == 128 or (hd in (64, 32) and name != "flash_bwd_dq"))
     assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
 
 

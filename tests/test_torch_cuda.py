@@ -11,9 +11,10 @@ Tolerance, as in chip_smoke.py: ``atol * max|ref| + rtol * |ref|``. The
 FMA kernels compute in float32 from the same inputs as the plain versions
 and differ in summation order, ~1e-6 relative in float32, and bf16
 outputs may land one bf16 ulp (2**-7 relative) apart: atol 2e-3, rtol
-1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16, hd 128) also
-round P (B1), dS (B2), P and dS (B3) to bf16 before the last product,
-where the plain versions keep float32: atol 2**-8.
+1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16: B1, B2, B3 at
+hd 128; B1 and B3 at hd 64 and 32) also round P (B1), dS (B2), P and dS
+(B3) to bf16 before the last product, where the plain versions keep
+float32: atol 2**-8.
 """
 
 import pytest
@@ -45,7 +46,8 @@ def close(got, want, dtype, variant="fma"):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, hd", [(torch.float32, 64), (torch.bfloat16, 64),
-                                       (torch.bfloat16, 128)])
+                                       (torch.bfloat16, 128), (torch.float32, 16),
+                                       (torch.bfloat16, 80), (torch.float32, 96)])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kernels_match_plain(dtype, hd, causal):
     """B1, B2, B3 at GQA group 4 and a ragged S of 200; bf16 at hd 128 runs
@@ -72,6 +74,38 @@ def test_kernels_match_plain(dtype, hd, causal):
     }
     if dtype == torch.bfloat16 and hd == 128:
         assert variant == {"flash_fwd": "wgmma", "flash_bwd_dq": "wgmma", "flash_bwd_dkv": "wgmma"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 32])
+@pytest.mark.parametrize("h, hkv, s, causal", [(8, 4, 1024, True), (4, 4, 200, True),
+                                               (4, 2, 77, False)])
+def test_tensor_core_forward_and_dkv_at_hd_64_and_32(hd, h, hkv, s, causal):
+    """bf16 at hd 64 and 32: B1 and B3 launch the tensor-core kernels, B2
+    the FMA kernel, and each matches its plain version (GQA and MHA, a
+    ragged S, causal and not). B3 sums its query group in registers: two
+    launches give dK and dV identical bit for bit."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(2 * h, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k, v = (torch.randn(2 * hkv, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    close(o, o_ref, bf16, "wgmma")
+    close(lse, lse_ref, torch.float32)
+    close(fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),
+          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), bf16, "fma")
+    first = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    second = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    for got, again, want in zip(first, second,
+                                fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)):
+        close(got, want, bf16, "wgmma")
+        assert torch.equal(got, again)
+    assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1},
+                                   "flash_bwd_dq": {"fma": 1, "wgmma": 0},
+                                   "flash_bwd_dkv": {"fma": 0, "wgmma": 2}}
 
 
 @pytest.mark.cuda
@@ -113,7 +147,7 @@ def test_autograd_on_the_card_matches_the_cpu():
 @pytest.mark.cuda
 def test_wrapper_raises_on_what_the_kernel_does_not_take():
     card()
-    q = torch.zeros(4, 64, 16, device="cuda")  # hd 16 is not instantiated
+    q = torch.zeros(4, 64, 40, device="cuda")  # hd 40 is not instantiated
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_fwd(q, q, q, True)
     # a storage offset off the 16-byte grid: raised, never routed elsewhere

@@ -215,14 +215,13 @@ def test_promote_then_rollback_over_the_port_fleet(run, tmp_path, capsys):
         assert ctl.poll_once() is None  # never canaried again
         router.health_tick()  # the canary swapped to 6 and back to 4; r1 never moved
         assert router.fleet_stats()["deploy_generations"] == {"r0": 3, "r1": 1}
-        # the rest of the fleet never saw the poisoned weights. (The
-        # canary's own later streams are not checked here: the KV rows
-        # that the poisoned weights wrote stay non-finite after the
-        # rollback, in the JAX engine as in the port's, the open fault
-        # of ROADMAP Queue C.)
-        code, out = http_post_json(f"http://127.0.0.1:{servers[1].port}/v1/generate", {
-            "token_ids": prompt, "max_new_tokens": 8, "temperature": 0.0, "stop": False})
-        assert code == 200 and out["token_ids"] == jax_solo(d, 4, prompt, 8)
+        # the rest of the fleet never saw the poisoned weights, and the
+        # canary, whose slots served them, keeps no row of theirs (the
+        # port zeroes a slot's rows at admission; the JAX engine does not)
+        for server in (servers[1], servers[0]):
+            code, out = http_post_json(f"http://127.0.0.1:{server.port}/v1/generate", {
+                "token_ids": prompt, "max_new_tokens": 8, "temperature": 0.0, "stop": False})
+            assert code == 200 and out["token_ids"] == jax_solo(d, 4, prompt, 8)
     finally:
         router.stop()
         for s in servers:
@@ -243,13 +242,19 @@ def test_promote_then_rollback_over_the_port_fleet(run, tmp_path, capsys):
     assert listed == ["promote", "rollback"]
 
 
-@pytest.mark.parametrize("kv", [{}, {"kv_block_size": 4}], ids=["dense", "paged"])
-def test_nan_weights_leave_kv_rows_like_jax(run, kv):
+KV_MODES = {"dense": {}, "paged": {"kv_block_size": 4},
+            "paged_int8": {"kv_block_size": 4, "kv_dtype": "int8"}}
+
+
+@pytest.mark.parametrize("kv", KV_MODES.values(), ids=KV_MODES.keys())
+def test_nan_weights_leave_no_stale_kv_rows(run, kv):
     """A replica that serves a request under NaN weights (a canary of a
     poisoned checkpoint), is swapped back and serves again from the same
-    slot gives the JAX engine's streams, dense and paged. (Both engines
-    leave that last stream garbage today: the open fault of ROADMAP
-    Queue C. This test holds only the parity.)"""
+    slot: its first two streams are the JAX engine's, and the third is the
+    same request's stream on a fresh port engine with the clean weights,
+    dense, paged and paged int8. (The JAX engine's third stream is garbage:
+    it keeps the NaN rows the poisoned weights wrote; the port zeroes a
+    slot's rows when it hands the slot to a request.)"""
     from nanodiloco_tpu.serve import GenRequest as JaxRequest
     from nanodiloco_tpu.serve import InferenceEngine as JaxEngine
     from nanodiloco_tpu.serve import Scheduler as JaxScheduler
@@ -258,17 +263,19 @@ def test_nan_weights_leave_kv_rows_like_jax(run, kv):
     cfg, _, snap = _load_checkpoint_snapshot(run["ck"], 4)
     tree = params_to_numpy(snap)
     nan_tree = jax.tree.map(lambda a: np.full_like(a, np.nan), tree)
+    plan = ((None, (5, 9, 2, 11)), (nan_tree, (1, 2, 3, 4, 5, 6, 7, 8)), (tree, (5, 9, 2, 11)))
     streams = {}
-    for name, eng_cls, sched_cls, req_cls, to_params, c, extra in (
+    for name, eng_cls, sched_cls, req_cls, to_params, c, extra, steps in (
             ("jax", JaxEngine, JaxScheduler, JaxRequest,
-             lambda t: jax.tree.map(jnp.asarray, t), JaxConfig(**cfg.to_dict()), {}),
+             lambda t: jax.tree.map(jnp.asarray, t), JaxConfig(**cfg.to_dict()), {}, plan[:2]),
             ("torch", InferenceEngine, Scheduler, GenRequest,
-             lambda t: jax.tree.map(torch.from_numpy, t), cfg, {"device": "cpu"})):
+             lambda t: jax.tree.map(torch.from_numpy, t), cfg, {"device": "cpu"}, plan),
+            ("fresh", InferenceEngine, Scheduler, GenRequest,
+             lambda t: jax.tree.map(torch.from_numpy, t), cfg, {"device": "cpu"}, plan[2:])):
         eng = eng_cls(to_params(tree), c, num_slots=1, max_len=32, **kv, **extra)
         sched = sched_cls(eng)
         out = []
-        for params, prompt in ((None, (5, 9, 2, 11)), (nan_tree, (1, 2, 3, 4, 5, 6, 7, 8)),
-                               (tree, (5, 9, 2, 11))):
+        for params, prompt in steps:
             if params is not None:
                 eng.swap_weights(to_params(params))
             t = sched.submit(req_cls(prompt=prompt, max_new_tokens=6, seed=0))
@@ -278,7 +285,75 @@ def test_nan_weights_leave_kv_rows_like_jax(run, kv):
                     break
             out.append(t.result["tokens"])
         streams[name] = out
-    assert streams["torch"] == streams["jax"]
+    assert streams["torch"][:2] == streams["jax"]
+    # the repaired stream: a fresh engine's, and JAX's first stream (the
+    # same prompt under the same clean weights)
+    assert streams["torch"][2] == streams["fresh"][0] == streams["jax"][0]
+    assert len(streams["fresh"][0]) == 6
+
+
+def _poisoned_engine(kv, **extra):
+    """A 2-slot engine on the CPU whose whole arena holds non-finite rows
+    (int8 rows cannot: their scales do)."""
+    from nanodiloco_tpu_torch.models.llama import init_params
+
+    params = init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    eng = InferenceEngine(params, CFG, num_slots=2, max_len=32, device="cpu", **kv, **extra)
+    for t in (eng.pool or eng.cache).values():
+        t.fill_(127 if t.dtype == torch.int8 else float("nan"))
+    return eng
+
+
+@pytest.mark.parametrize("kv", KV_MODES.values(), ids=KV_MODES.keys())
+def test_admission_zeroes_the_rows_a_slot_reads(kv):
+    """A request served under NaN weights leaves non-finite rows; once it
+    is released, the next request admitted to its slot reads only zeros
+    there (its dense rows, or its freshly allocated blocks in every arena
+    tensor), while a live request in the other slot keeps its rows."""
+    from nanodiloco_tpu_torch.models.llama import init_params, tree_map
+    from nanodiloco_tpu_torch.serve import GenRequest
+
+    params = init_params(torch.Generator().manual_seed(0), CFG, device="cpu")
+    eng = InferenceEngine(params, CFG, num_slots=2, max_len=32, device="cpu", **kv)
+
+    def rows(slot):  # what the slot's attention reads, arena by arena
+        if not eng.paged:
+            return [t[:, slot] for t in eng.cache.values()]
+        return [t[:, eng._slot_blocks[slot]] for t in eng.pool.values()]
+
+    eng.prefill(1, GenRequest(prompt=(7, 8, 9), max_new_tokens=4))
+    live = [r.clone() for r in rows(1)]
+    eng.swap_weights(tree_map(lambda t: torch.full_like(t, float("nan")), params))
+    eng.prefill(0, GenRequest(prompt=(1, 2, 3, 4, 5), max_new_tokens=4))
+    assert any(not torch.isfinite(r.float()).all() for r in rows(0))
+    eng.release(0)
+    eng.swap_weights(params)
+    eng.start_prefill(0, GenRequest(prompt=(1, 2, 3, 4, 5, 6), max_new_tokens=4))
+    assert all(not r.any() for r in rows(0))
+    assert all(torch.equal(a, b) for a, b in zip(rows(1), live))
+    assert all(r.any() for r in live)
+
+
+@pytest.mark.parametrize("kv", [KV_MODES["paged"], KV_MODES["paged_int8"]],
+                         ids=["paged", "paged_int8"])
+def test_the_block_sentinels_read_is_zeroed_when_freed(kv):
+    """Table sentinels read the pool's last block, so every slot's masked
+    rows reach it: when a request that held it releases it, it is zeroed
+    (a block another slot still references is left alone)."""
+    from nanodiloco_tpu_torch.serve import GenRequest
+
+    eng = _poisoned_engine(kv, kv_pool_blocks=4)
+    last = eng.block_pool.num_blocks - 1
+    eng.start_prefill(0, GenRequest(prompt=tuple(range(1, 13)), max_new_tokens=4))
+    assert last in eng._slot_blocks[0]
+    for t in eng.pool.values():  # the rows its poisoned request wrote
+        t[:, eng._slot_blocks[0]] = 127 if t.dtype == torch.int8 else float("nan")
+    eng.block_pool.ref([last])  # a second holder: nothing is freed yet
+    eng.release(0)
+    assert all((t[:, last] != 0).all() for t in eng.pool.values())
+    eng._free_blocks([last])
+    assert all(not t[:, last].any() for t in eng.pool.values())
+    assert eng.block_pool.free_blocks == eng.block_pool.num_blocks
 
 
 @within(120)
