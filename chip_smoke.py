@@ -12,8 +12,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  card at the tolerance of its route, at shapes that cover
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128; ragged S, non-causal, S under one tile,
-                 MHA and GQA): bf16 B1 and B3 at hd 128, 64 and 32 and B2
-                 at hd 128 run the tensor cores, the rest the FMA kernels.
+                 MHA and GQA): bf16 B1, B2 and B3 at hd 128, 64 and 32
+                 run the tensor cores, the rest the FMA kernels.
                  At one shape of every route that no phase is built to
                  run (hd 16, 80, 96 in bf16; hd 32, 80, 96, 128 in f32),
                  CUDA-event times of the kernel, the plain version and the
@@ -226,10 +226,10 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  bench shape (S 1024 x B 8, W 2, H 2, 3 rounds), dense at cf
                  1.25 and ragged: tokens/s, peak memory, t_inner, t_sync
                  beside its byte bound, the analytic MFU, the router stats of
-                 each sync; every kernel launches in every run, B1 and B3
-                 only on the tensor cores and B2 only on the FMA kernel. The
-                 ragged run checkpointed after round 1 and resumed equals the
-                 uninterrupted one bit for bit. One profiled inner step per
+                 each sync; every kernel launches in every run, B1, B2 and
+                 B3 only on the tensor cores. The ragged run checkpointed
+                 after round 1 and resumed equals the uninterrupted one bit
+                 for bit. One profiled inner step per
                  dispatch (kernel ms by class, host syncs, idle share). `python
                  -m nanodiloco_tpu_torch --llama-config-file
                  configs/llama_moe_64e.json --attention flash --dtype
@@ -3316,8 +3316,8 @@ MOE_SMALL_MODES = {
     "expert_choice": dict(router_type="experts_choose"),
 }
 # bench.py's moe-8x-top2 (its single / single_ragged entries) at full width
-# and depth, with flash attention: hd 64 in bf16 runs B1 and B3 on the
-# tensor cores and B2 on the FMA kernel
+# and depth, with flash attention: hd 64 in bf16 runs B1, B2 and B3 on the
+# tensor cores
 MOE_8X = LlamaConfig(vocab_size=32000, hidden_size=512, intermediate_size=1408,
                      num_hidden_layers=6, num_attention_heads=8, num_key_value_heads=4,
                      max_position_embeddings=1024, dtype="bfloat16", loss_chunk=256,
@@ -3556,10 +3556,9 @@ def phase_moe_train(mem: Path, smi: str) -> tuple[dict, dict]:
     must equal the uninterrupted one bit for bit; a torch.profiler step
     of each dispatch; `python -m nanodiloco_tpu_torch --llama-config-file
     configs/llama_moe_64e.json` (ragged, 64 experts, hd 32) in a
-    subprocess, whose B1 and B3 must launch only on the tensor cores and B2
-    only on the FMA kernel. Returns that run's kernel launches by shape
-    and what moe_serve needs (the ragged checkpoint's directory and final
-    snapshot)."""
+    subprocess, whose B1, B2 and B3 must launch only on the tensor cores.
+    Returns that run's kernel launches by shape and what moe_serve needs
+    (the ragged checkpoint's directory and final snapshot)."""
     t_phase = time.perf_counter()
     log_dir = mem / "moe_runs"
     ck_dir = mem / "moe_ck"

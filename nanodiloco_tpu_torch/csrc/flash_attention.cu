@@ -32,10 +32,10 @@
 // float32 FMAs from shared memory (64 x 64 tiles, a 4 x 4 or 4 x hd/16
 // register tile per thread) on the CUDA cores, whose float32 peak is
 // 67 TFLOP/s. They serve every float32 case (wgmma has no float32 path, and
-// TF32 would not hold the float32 tolerance), bf16 at the head dims the
-// tensor-core kernels do not take (16, 80, 96), and bf16 B2 at hd 32 and 64;
-// the rest of bf16 runs on the tensor cores in flash_attention_tc.cu (route
-// table in ops/cuda/flash_attention.py).
+// TF32 would not hold the float32 tolerance) and bf16 at the head dims the
+// tensor-core kernels do not take (16, 80, 96); the rest of bf16 runs on the
+// tensor cores in flash_attention_tc.cu (route table in
+// ops/cuda/flash_attention.py).
 //
 // Head dims: 16, 32, 64, 80, 96 and 128 (the templates take any multiple of
 // 16; these are the ones the launchers instantiate). hd 256 stays refused:
@@ -471,7 +471,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 // dtype 0 = float32, at every head dim above; dtype 1 = bfloat16, at the
 // head dims the tensor-core kernels (flash_attention_tc.cu) do not take:
-// 16, 80 and 96 for B1 and B3, and also 32 and 64 for B2.
+// 16, 80 and 96.
 #define ND_HD(T, HD, LAUNCH, ...) \
   if (hd == HD) return LAUNCH<T, HD>(__VA_ARGS__);
 #define ND_F32(LAUNCH, ...)                  \
@@ -514,10 +514,6 @@ int nd_flash_bwd_dq(int dtype, int hd, const void* q, const void* k,
     ND_F32(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
   } else if (dtype == 1) {
     ND_BF16(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
-    ND_HD(__nv_bfloat16, 32, launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk,
-          causal, scale, st)
-    ND_HD(__nv_bfloat16, 64, launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk,
-          causal, scale, st)
   }
   return -1;
 }

@@ -1,12 +1,12 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1) and
-// dK/dV (B3) at head dims 128, 64 and 32, dQ (B2) at head dim 128. The
-// float32 path, B2 at hd 64 and 32, and the other head dims run on the FMA
-// kernels of flash_attention.cu; ops/cuda/flash_attention.py holds the
-// route table that picks one kernel per (kernel, dtype, head dim).
+// Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1), dQ
+// (B2) and dK/dV (B3) at head dims 128, 64 and 32. The float32 path and the
+// other head dims run on the FMA kernels of flash_attention.cu;
+// ops/cuda/flash_attention.py holds the route table that picks one kernel
+// per (kernel, dtype, head dim).
 //
 // Replaces the Pallas TPU kernels of nanodiloco_tpu/ops/pallas/flash_attention.py:
 //   B1 flash_fwd_tc_kernel<HD>      <- _fwd_call / _fwd_kernel
-//   B2 flash_bwd_dq_tc_kernel       <- _flash_bwd / _bwd_dq_kernel
+//   B2 flash_bwd_dq_tc_kernel<HD>   <- _flash_bwd / _bwd_dq_kernel
 //   B3 flash_bwd_dkv_tc_kernel<HD>  <- _flash_bwd / _bwd_dkv_kernel
 // Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, HD]; k, v, dK, dV
 // [BH / group, Sk, HD] (GQA: query head bh reads KV head bh / group); lse and
@@ -60,9 +60,23 @@
 //       dS = P (dP - delta) in registers, and adds dQ += dS K (RS wgmma, K
 //       MN-major, the same shared tile read through a second descriptor).
 //       64-key tiles, not B1's 128, keep a consumer thread near 150
-//       registers: dQ (64) + S (32) + dP (32) + packed dS (16); 128-key tiles
-//       would need over 224, more than 288 threads can hold without spills.
-//       Each CTA owns its dQ rows: no atomics, deterministic.
+//       registers at hd 128: dQ (64) + S (32) + dP (32) + packed dS (16);
+//       128-key tiles would need over 224, more than 288 threads can hold
+//       without spills. Each CTA owns its dQ rows and sums its K tiles in one
+//       order: no atomics, deterministic.
+//   B2 at HD 64 and 32: the same kernel through Tile<HD>. dQ shrinks to HD / 2
+//       registers and dQ += dS K is m64nHDk16; ptxas reports 158 / 126 / 107
+//       registers at hd 128 / 64 / 32, no spills. Q + dO + the two K/V stages
+//       take 128 / 64 / 32 KB of shared memory. What the smaller head dim
+//       frees is not spent: one CTA an SM and 64-key tiles at every head dim,
+//       chosen by ptxas and a timed run (scripts/torch_flash_ab.py) of the two
+//       ways to spend it. 128-key tiles (S and dP at 64 registers each)
+//       spilled and ran 3-4% slower at hd 64, no faster at hd 32. Two CTAs an
+//       SM (__launch_bounds__ minimum 2) left ptxas 90 registers: it kept dQ
+//       in local memory between K tiles and serialized every wgmma (C7512),
+//       15-21% slower at hd 64; at hd 32 the extra warpgroups won 16% at
+//       moe64e_hd32 despite that but lost at tiny_hd32. The spill-free kernel
+//       stays: the gain was one shape's, on a 0.08 ms kernel (PERF.md).
 // P (B1) and P and dS (B3, B2) are rounded to bf16 as the left operand of the
 // last product, as every tensor-core flash attention does; the plain versions
 // keep them in float32, so the tolerance against them is wider than one
@@ -86,7 +100,6 @@ namespace {
 
 using namespace hopper;
 
-constexpr int kHd = 128;  // B2's only head dim
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
@@ -294,14 +307,20 @@ constexpr int kDqRows = 128;                          // q rows per CTA
 constexpr int kDqKeys = 64;                           // keys per K/V tile
 constexpr int kDqThreads = 288;
 constexpr int kDqStages = 2;
-constexpr uint32_t kDqRowBox = kDqRows * 128;         // a 64-column box of Q or dO: 16 KB
-constexpr uint32_t kDqKeyBox = kDqKeys * 128;         // a 64-column box of K or V: 8 KB
-constexpr uint32_t kDqQ = 0;
-constexpr uint32_t kDqDo = 2 * kDqRowBox;
-constexpr uint32_t kDqKv = 4 * kDqRowBox;             // stage s: K at + 4 s key boxes, V + 2 boxes
-constexpr uint32_t kDqBars = kDqKv + kDqStages * 4 * kDqKeyBox;
-constexpr size_t kDqSmem = 1024 + kDqBars + 64;
 
+template <int HD>
+struct Dq {
+  using T = Tile<HD>;
+  static constexpr uint32_t kRowTile = T::bytes(kDqRows);  // Q or dO: 32 KB at hd 128
+  static constexpr uint32_t kKeyTile = T::bytes(kDqKeys);  // K or V: 16 KB at hd 128
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kDo = kRowTile;
+  static constexpr uint32_t kKv = 2 * kRowTile;  // stage s: K at + 2 s key tiles, V after it
+  static constexpr uint32_t kBars = kKv + kDqStages * 2 * kKeyTile;
+  static constexpr size_t kSmem = 1024 + kBars + 64;
+};
+
+template <int HD>
 __global__ void __launch_bounds__(kDqThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
@@ -310,16 +329,18 @@ __global__ void __launch_bounds__(kDqThreads, 1)
                            const float* __restrict__ lse, const float* __restrict__ delta,
                            __nv_bfloat16* __restrict__ dq, int group, int sq, int sk, int causal,
                            float scale) {
+  using T = Tile<HD>;
+  using L = Dq<HD>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sQ = base + kDqQ, sdO = base + kDqDo;
-  const uint32_t bars = base + kDqBars;
+  const uint32_t sQ = base + L::kQ, sdO = base + L::kDo;
+  const uint32_t bars = base + L::kBars;
   const uint32_t qdo_full = bars;
   // stage s: full at bars + 8 + 8 s, empty at bars + 8 + 8 (kDqStages + s)
   auto full = [&](int s) { return bars + 8 + 8 * s; };
   auto empty = [&](int s) { return bars + 8 + 8 * (kDqStages + s); };
-  auto tile_k = [&](int s) { return base + kDqKv + 4 * kDqKeyBox * s; };
-  auto tile_v = [&](int s) { return base + kDqKv + 4 * kDqKeyBox * s + 2 * kDqKeyBox; };
+  auto tile_k = [&](int s) { return base + L::kKv + 2 * L::kKeyTile * s; };
+  auto tile_v = [&](int s) { return base + L::kKv + 2 * L::kKeyTile * s + L::kKeyTile; };
 
   const int bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
@@ -341,19 +362,19 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     // ---- producer warp: one thread issues every TMA load ----
     if (threadIdx.x == 256) {
       const int bkv = bh / group;
-      mbar_arrive_expect_tx(qdo_full, 4 * kDqRowBox);
-      tma_load_3d(sQ, &q_map, qdo_full, 0, q0, bh);
-      tma_load_3d(sQ + kDqRowBox, &q_map, qdo_full, 64, q0, bh);
-      tma_load_3d(sdO, &do_map, qdo_full, 0, q0, bh);
-      tma_load_3d(sdO + kDqRowBox, &do_map, qdo_full, 64, q0, bh);
+      mbar_arrive_expect_tx(qdo_full, 2 * L::kRowTile);
+      for (int b = 0; b < T::kBoxes; ++b) {
+        tma_load_3d(sQ + b * T::box(kDqRows), &q_map, qdo_full, 64 * b, q0, bh);
+        tma_load_3d(sdO + b * T::box(kDqRows), &do_map, qdo_full, 64 * b, q0, bh);
+      }
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kDqStages;
         mbar_wait(empty(s), ((kt / kDqStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(full(s), 4 * kDqKeyBox);
-        tma_load_3d(tile_k(s), &k_map, full(s), 0, kt * kDqKeys, bkv);
-        tma_load_3d(tile_k(s) + kDqKeyBox, &k_map, full(s), 64, kt * kDqKeys, bkv);
-        tma_load_3d(tile_v(s), &v_map, full(s), 0, kt * kDqKeys, bkv);
-        tma_load_3d(tile_v(s) + kDqKeyBox, &v_map, full(s), 64, kt * kDqKeys, bkv);
+        mbar_arrive_expect_tx(full(s), 2 * L::kKeyTile);
+        for (int b = 0; b < T::kBoxes; ++b) {
+          tma_load_3d(tile_k(s) + b * T::box(kDqKeys), &k_map, full(s), 64 * b, kt * kDqKeys, bkv);
+          tma_load_3d(tile_v(s) + b * T::box(kDqKeys), &v_map, full(s), 64 * b, kt * kDqKeys, bkv);
+        }
       }
     }
   } else {
@@ -368,8 +389,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     // waits for its release.
     const int n_kt_wg = causal ? min(n_kt, min(row_min + 63, last_q) / kDqKeys + 1) : n_kt;
     const float c = scale * kLog2e;
-    const uint32_t qa = sQ + wg * 64 * 128;
-    const uint32_t doa = sdO + wg * 64 * 128;
+    const uint32_t qa = sQ + wg * 64 * T::kSw;
+    const uint32_t doa = sdO + wg * 64 * T::kSw;
 
     // this thread's two rows, in registers for the whole loop; lse = +inf
     // past Sq makes p = exp2(s - lse) exactly 0 there
@@ -382,52 +403,46 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       dlt[h] = row < sq ? delta[at] : 0.f;
     }
 
-    float acc[64];
+    float acc[HD / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 
     mbar_wait(qdo_full, 0);
     for (int kt = 0; kt < n_kt_wg; ++kt) {
       const int s = kt % kDqStages;
       mbar_wait(full(s), (kt / kDqStages) & 1);
 
-      float sc[32], dp[32];
+      float sc[kDqKeys / 2], dp[kDqKeys / 2];
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+      for (int i = 0; i < kDqKeys / 2; ++i) sc[i] = dp[i] = 0.f;
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t off_q = (kk >> 2) * kDqRowBox + (kk & 3) * 32;
-        const uint32_t off_k = (kk >> 2) * kDqKeyBox + (kk & 3) * 32;
-        wgmma_m64n64k16_ss(sc, smem_desc(qa + off_q, 16, 1024),
-                           smem_desc(tile_k(s) + off_k, 16, 1024), kk > 0);
-      }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16_ss(sc, T::kmajor(qa + T::kslice(kk, kDqRows)),
+                           T::kmajor(tile_k(s) + T::kslice(kk, kDqKeys)), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t off_q = (kk >> 2) * kDqRowBox + (kk & 3) * 32;
-        const uint32_t off_k = (kk >> 2) * kDqKeyBox + (kk & 3) * 32;
-        wgmma_m64n64k16_ss(dp, smem_desc(doa + off_q, 16, 1024),
-                           smem_desc(tile_v(s) + off_k, 16, 1024), kk > 0);
-      }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16_ss(dp, T::kmajor(doa + T::kslice(kk, kDqRows)),
+                           T::kmajor(tile_v(s) + T::kslice(kk, kDqKeys)), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(sc);
       fence_regs(dp);
 
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = exp2f(fmaf(sc[i], c, -lse2[(i >> 1) & 1]));
+      for (int i = 0; i < kDqKeys / 2; ++i) sc[i] = exp2f(fmaf(sc[i], c, -lse2[(i >> 1) & 1]));
       const int kb = kt * kDqKeys;
       if (kb + kDqKeys > sk || (causal && kb + kDqKeys - 1 > row_min)) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) {
+        for (int i = 0; i < kDqKeys / 2; ++i) {
           const int col = kb + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
           const int row = row_lo + 8 * ((i >> 1) & 1);
           if (col >= sk || (causal && col > row)) sc[i] = 0.f;
         }
       }
-      uint32_t dsf[16];
+      uint32_t dsf[kDqKeys / 4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kDqKeys / 4; ++j) {
         const int h = j & 1;  // registers 2 j, 2 j + 1 share row half (2 j / 2) % 2
         dsf[j] = pack_bf16(sc[2 * j] * (dp[2 * j] - dlt[h]),
                            sc[2 * j + 1] * (dp[2 * j + 1] - dlt[h]));
@@ -435,9 +450,9 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        wgmma_m64n128k16_rs_tb(acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
-                               smem_desc(tile_k(s) + kk * 16 * 128, kDqKeyBox, 1024), 1);
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+        wgmma_rs_tb<HD>(acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                        T::mnmajor(tile_k(s), kk, kDqKeys), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -450,9 +465,9 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     for (int h = 0; h < 2; ++h) {
       const int row = row_lo + 8 * h;
       if (row >= sq) continue;
-      uint32_t* out = reinterpret_cast<uint32_t*>(dq + (static_cast<size_t>(bh) * sq + row) * kHd);
+      uint32_t* out = reinterpret_cast<uint32_t*>(dq + (static_cast<size_t>(bh) * sq + row) * HD);
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < HD / 8; ++j)
         out[4 * j + (lane & 3)] =
             pack_bf16(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
     }
@@ -676,6 +691,27 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* l
 }
 
 template <int HD>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                 const float* delta, void* dq, int bh, int group, int sq, int sk, int causal,
+                 float scale, cudaStream_t stream) {
+  CUtensorMap qm, km, vm, dom;
+  if (!bf16_rows_map(&qm, q, bh, sq, kDqRows, HD) ||
+      !bf16_rows_map(&km, k, bh / group, sk, kDqKeys, HD) ||
+      !bf16_rows_map(&vm, v, bh / group, sk, kDqKeys, HD) ||
+      !bf16_rows_map(&dom, dout, bh, sq, kDqRows, HD))
+    return kErrTensorMap;
+  constexpr size_t smem = Dq<HD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
+  flash_bwd_dq_tc_kernel<HD><<<grid, kDqThreads, smem, stream>>>(
+      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), group, sq, sk, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int group,
                   int sq, int sk, int causal, float scale, cudaStream_t stream) {
@@ -703,8 +739,7 @@ extern "C" {
 
 const char* nd_tc_error_string(int code) {
   if (code == kErrHeadDim)
-    return "the tensor-core kernels take head dims 32, 64 and 128 (forward, dK/dV) and 128 "
-           "(dQ)";
+    return "the tensor-core kernels take head dims 32, 64 and 128";
   if (code == kErrTensorMap)
     return "cuTensorMapEncodeTiled refused a tensor (alignment, strides or driver)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -724,20 +759,14 @@ int nd_flash_fwd_tc(int hd, const void* q, const void* k, const void* v, void* o
 int nd_flash_bwd_dq_tc(int hd, const void* q, const void* k, const void* v, const void* dout,
                        const float* lse, const float* delta, void* dq, int bh, int group, int sq,
                        int sk, int causal, float scale, void* stream) {
-  if (hd != kHd) return kErrHeadDim;
-  CUtensorMap qm, km, vm, dom;
-  if (!bf16_rows_map(&qm, q, bh, sq, kDqRows, kHd) ||
-      !bf16_rows_map(&km, k, bh / group, sk, kDqKeys, kHd) ||
-      !bf16_rows_map(&vm, v, bh / group, sk, kDqKeys, kHd) ||
-      !bf16_rows_map(&dom, dout, bh, sq, kDqRows, kHd))
-    return kErrTensorMap;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kDqSmem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
-  flash_bwd_dq_tc_kernel<<<grid, kDqThreads, kDqSmem, static_cast<cudaStream_t>(stream)>>>(
-      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), group, sq, sk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 128)
+    return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
+  if (hd == 64)
+    return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
+  if (hd == 32)
+    return launch_dq_tc<32>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
+  return kErrHeadDim;
 }
 
 int nd_flash_bwd_dkv_tc(int hd, const void* q, const void* k, const void* v, const void* dout,

@@ -196,11 +196,10 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 goes to the tensor-core kernels for B1 and B3 at hd 128, 64 and
-    32, and for B2 at hd 128; every float32 case, bf16 at hd 16, 80 and 96,
-    and bf16 B2 at hd 64 and 32 go to the FMA kernels."""
-    tensor_cores = dtype == torch.bfloat16 and (
-        hd == 128 or (hd in (64, 32) and name != "flash_bwd_dq"))
+    """bf16 goes to the tensor-core kernels for B1, B2 and B3 at hd 128, 64
+    and 32; every float32 case and bf16 at hd 16, 80 and 96 go to the FMA
+    kernels."""
+    tensor_cores = dtype == torch.bfloat16 and hd in (128, 64, 32)
     assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
 
 
@@ -220,14 +219,15 @@ def tensor_core_dq(q, k, v, do, lse, delta, causal):
     return (torch.matmul(ds.to(torch.bfloat16).float(), kf) * scale).to(torch.bfloat16)
 
 
+@pytest.mark.parametrize("hd", [128, 64, 32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group, s", [(1, 64), (4, 200)])
-def test_tensor_core_dq_rounding_within_its_tolerance(group, s, causal):
+def test_tensor_core_dq_rounding_within_its_tolerance(group, s, causal, hd):
     """The tolerance chip_smoke.py holds the tensor-core B2 to, (atol 2**-8
     of max|ref|, rtol 2**-7), covers rounding dS to bf16 before the last
     product: the kernel's numerics, emulated on the CPU, stay within it of
-    flash_bwd_dq_plain at hd 128, causal and not, MHA and GQA 4."""
-    bh, hd = 8, 128
+    flash_bwd_dq_plain at hd 128, 64 and 32, causal and not, MHA and GQA 4."""
+    bh = 8
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
         (bh, s, hd), (bh // group, s, hd), (bh // group, s, hd), (bh, s, hd), seed=3))
     o, lse = fa.flash_fwd_plain(q, k, v, causal)
@@ -235,6 +235,35 @@ def test_tensor_core_dq_rounding_within_its_tolerance(group, s, causal):
     want = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal).float()
     got = tensor_core_dq(q, k, v, do, lse, delta, causal).float()
     assert not torch.equal(got, want)  # the rounding of dS shows in dQ
+    torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("hd", [64, 32])
+@pytest.mark.parametrize("group, causal", [(2, True), (1, False)])
+def test_tensor_core_dq_matches_jax_flash_attention(hd, group, causal):
+    """The tensor-core B2's numerics at hd 64 and 32, emulated on the CPU,
+    against dQ from jax.grad through the JAX dispatcher's scan path, on the
+    same bf16-representable inputs, at the tensor-core tolerance."""
+    b, s, h = 1, 64, 4
+    hkv = h // group
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
+        (b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, h, hd), seed=5))
+
+    def jax_loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal, block_size=16, impl="scan")
+        return jnp.sum(out * jnp.asarray(do.float().numpy()))
+
+    with jax.default_matmul_precision("highest"):
+        want = jax.grad(jax_loss)(*(jnp.asarray(x.float().numpy()) for x in (q, k, v)))
+
+    def flat(x):  # [1, S, heads, hd] -> [heads, S, hd]
+        return x[0].transpose(0, 1).contiguous()
+
+    qf, kf, vf, dof = map(flat, (q, k, v, do))
+    o, lse = fa.flash_fwd_plain(qf.float(), kf.float(), vf.float(), causal)
+    delta = (dof.float() * o).sum(-1, keepdim=True)
+    got = tensor_core_dq(qf, kf, vf, dof, lse, delta, causal).float()
+    want = torch.from_numpy(np.asarray(want)[0].transpose(1, 0, 2).copy())
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * want.abs().max().item())
 
 

@@ -12,9 +12,9 @@ FMA kernels compute in float32 from the same inputs as the plain versions
 and differ in summation order, ~1e-6 relative in float32, and bf16
 outputs may land one bf16 ulp (2**-7 relative) apart: atol 2e-3, rtol
 1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16: B1, B2, B3 at
-hd 128; B1 and B3 at hd 64 and 32) also round P (B1), dS (B2), P and dS
-(B3) to bf16 before the last product, where the plain versions keep
-float32: atol 2**-8.
+hd 128, 64 and 32) also round P (B1), dS (B2), P and dS (B3) to bf16
+before the last product, where the plain versions keep float32: atol
+2**-8.
 """
 
 import pytest
@@ -80,11 +80,11 @@ def test_kernels_match_plain(dtype, hd, causal):
 @pytest.mark.parametrize("hd", [64, 32])
 @pytest.mark.parametrize("h, hkv, s, causal", [(8, 4, 1024, True), (4, 4, 200, True),
                                                (4, 2, 77, False)])
-def test_tensor_core_forward_and_dkv_at_hd_64_and_32(hd, h, hkv, s, causal):
-    """bf16 at hd 64 and 32: B1 and B3 launch the tensor-core kernels, B2
-    the FMA kernel, and each matches its plain version (GQA and MHA, a
-    ragged S, causal and not). B3 sums its query group in registers: two
-    launches give dK and dV identical bit for bit."""
+def test_tensor_core_kernels_at_hd_64_and_32(hd, h, hkv, s, causal):
+    """bf16 at hd 64 and 32: B1, B2 and B3 launch the tensor-core kernels,
+    and each matches its plain version (GQA and MHA, a ragged S, causal and
+    not). B3 sums its query group in registers: two launches give dK and dV
+    identical bit for bit."""
     gen = card()
     bf16 = torch.bfloat16
     q, do = (torch.randn(2 * h, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
@@ -96,7 +96,7 @@ def test_tensor_core_forward_and_dkv_at_hd_64_and_32(hd, h, hkv, s, causal):
     close(o, o_ref, bf16, "wgmma")
     close(lse, lse_ref, torch.float32)
     close(fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),
-          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), bf16, "fma")
+          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), bf16, "wgmma")
     first = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
     second = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
     for got, again, want in zip(first, second,
@@ -104,19 +104,20 @@ def test_tensor_core_forward_and_dkv_at_hd_64_and_32(hd, h, hkv, s, causal):
         close(got, want, bf16, "wgmma")
         assert torch.equal(got, again)
     assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1},
-                                   "flash_bwd_dq": {"fma": 1, "wgmma": 0},
+                                   "flash_bwd_dq": {"fma": 0, "wgmma": 1},
                                    "flash_bwd_dkv": {"fma": 0, "wgmma": 2}}
 
 
 @pytest.mark.cuda
-def test_tensor_core_dq_is_bitwise_deterministic():
+@pytest.mark.parametrize("hd", [128, 64, 32])
+def test_tensor_core_dq_is_bitwise_deterministic(hd):
     """Each CTA of the tensor-core B2 owns its dQ rows and sums over the K
     tiles in one fixed order, without atomics: two launches at a ragged GQA
     shape (group 4, S 1000, causal) give dQ identical bit for bit."""
     gen = card()
-    q, do = (torch.randn(8, 1000, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    q, do = (torch.randn(8, 1000, hd, generator=gen, device="cuda").to(torch.bfloat16)
              for _ in range(2))
-    k, v = (torch.randn(2, 1000, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(2, 1000, hd, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(2))
     o, lse = fa.flash_fwd_plain(q, k, v, True)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
