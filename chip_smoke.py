@@ -12,10 +12,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  card at the tolerance of its route, at shapes that cover
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128; ragged S, non-causal, S under one tile,
-                 MHA and GQA): bf16 B1, B2 and B3 at hd 128, 64 and 32
-                 run the tensor cores, the rest the FMA kernels.
+                 MHA and GQA): bf16 B1, B2 and B3 at hd 128, 64 and 32,
+                 and B1 and B3 at hd 96 and 80, run the tensor cores, the
+                 rest the FMA kernels.
                  At one shape of every route that no phase is built to
-                 run (hd 16, 80, 96 in bf16; hd 32, 80, 96, 128 in f32),
+                 run (hd 16, 80, 96 in bf16, the last two at Phi-2's and
+                 Phi-3-mini's width; hd 32, 80, 96, 128 in f32),
                  CUDA-event times of the kernel, the plain version and the
                  PyTorch library call, the least time the card could take
                  (bound_ms), TFLOP/s and the share of the bound. From here
@@ -252,8 +254,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  path trains (bf16 hd 128, 64, 32; f32 hd 64, 16).
 
 Then the kernels line ({"kernels": [...]}: one entry per kernel and shape
-of the main path, with its launches there, in all and by phase), the
-nvidia-smi line, and last
+of the main path, with its launches there, in all and by phase; beside it
+"not_on_main_path": the same entries, with 0 launches, for the routes no
+phase runs, timed in phase 3), the nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, and the files
 of phases 13-20 in a directory of its own under /dev/shm (a tmpfs: the
@@ -366,7 +369,10 @@ PEAK_BYTES = 3.35e12
 #   moe_hd64: moe-8x-top2 in moe_train (W 2 x b 8);
 #   moe64e_hd32: llama_moe_64e through the CLI in moe_train (W 2 x b 8, MHA);
 #   tiny_hd32: bench.py's tiny model on one device (b 8);
-#   small_f32_hd64 / moe_small_f32_hd16: train_small's and moe_small's rounds.
+#   small_f32_hd64 / moe_small_f32_hd16: train_small's and moe_small's rounds;
+#   phi3_hd96 / phi2_hd80: Phi-3-mini's and Phi-2's attention (hidden 3072
+#   and 2560 over 32 heads, MHA) at B 2, S 2048, causal: hd 96 and 80 at a
+#   model's width, which no phase trains.
 # The kernels line does not come from these: the main path's own shapes are
 # counted as it runs (fa.shape_counts) and held and timed after it
 # (kernels_main). Here the first shape of every route that no phase is
@@ -385,6 +391,8 @@ SHAPES = [
     ("noncausal_bf16_hd32", torch.bfloat16, 2, 4, 4, 192, 32, False),
     ("ragged_gqa2_bf16_hd32", torch.bfloat16, 1, 4, 2, 77, 32, True),
     ("ragged_gqa2_bf16_hd16", torch.bfloat16, 2, 4, 2, 200, 16, True),
+    ("phi3_hd96", torch.bfloat16, 2, 32, 32, 2048, 96, True),
+    ("phi2_hd80", torch.bfloat16, 2, 32, 32, 2048, 80, True),
     ("noncausal_bf16_hd80", torch.bfloat16, 1, 4, 4, 77, 80, False),
     ("gqa4_bf16_hd96", torch.bfloat16, 1, 8, 2, 256, 96, True),
     ("small_f32_hd64", torch.float32, 2, 4, 2, 200, 64, True),
@@ -588,22 +596,29 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
     return out
 
 
-def phase_kernels() -> None:
+def phase_kernels() -> list[dict]:
     """Each kernel against its plain version at every shape of SHAPES, on
     its route's tolerance; timed at the first shape of every route that no
     phase is built to run (the others are timed at the main path's own
-    shapes, in kernels_main)."""
+    shapes, in kernels_main). Returns those routes' entries for the kernels
+    line, in its format, with no launches on the main path."""
     covered = {(dtype, hd) for _, dtype, *_, hd, _ in SHAPES}
     missing = {(dtype, hd) for _, dtype, hd in fa.ROUTES} - covered
     if missing:
         fail("kernels", f"route-table rows without a shape: {sorted(map(str, missing))}")
     timed = set(MAIN_PATH_ROUTES)
+    off_path = []
     for name, dtype, b, h, hkv, s, hd, causal in SHAPES:
         line = hold("kernels", name, dtype, b * h, b * hkv, s, hd, causal,
                     timed=(dtype, hd) not in timed)
         timed.add((dtype, hd))
         emit(phase="kernels", ok=True, shape=name, B=b, H=h, Hkv=hkv, **line)
+        for kname, t in line.get("timing", {}).items():
+            off_path.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]],
+                             "replaces": REPLACES[kname], "shape": name, "launches": 0,
+                             "launches_by_phase": {}, **t})
         torch.cuda.empty_cache()
+    return off_path
 
 
 def phase_kernels_main(path: dict) -> list[dict]:
@@ -3772,7 +3787,7 @@ def main() -> None:
          built={n: r["seconds"] for n, r in report.items()}, dir=str(build.build_dir()),
          tokenshard=str(tokenshard.lib_path()))
 
-    phase_kernels()
+    off_path = phase_kernels()
     # the main path: every launch from here on is counted by shape, and each
     # phase's share (with what its child processes report) goes to `path`
     fa.reset_shape_counts()
@@ -3835,7 +3850,9 @@ def main() -> None:
         shutil.rmtree(mem, ignore_errors=True)
     shutil.rmtree(WORK, ignore_errors=True)
 
-    emit(kernels=phase_kernels_main(path))
+    # the kernels line: every kernel at every shape the main path ran, and
+    # (not_on_main_path) the routes no phase runs, timed in the kernels phase
+    emit(kernels=phase_kernels_main(path), not_on_main_path=off_path)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

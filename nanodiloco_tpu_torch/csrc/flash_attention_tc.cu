@@ -1,8 +1,8 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1), dQ
-// (B2) and dK/dV (B3) at head dims 128, 64 and 32. The float32 path and the
-// other head dims run on the FMA kernels of flash_attention.cu;
-// ops/cuda/flash_attention.py holds the route table that picks one kernel
-// per (kernel, dtype, head dim).
+// Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1) and
+// dK/dV (B3) at head dims 128, 96, 80, 64 and 32, dQ (B2) at 128, 64 and 32.
+// The float32 path and the other cases run on the FMA kernels of
+// flash_attention.cu; ops/cuda/flash_attention.py holds the route table that
+// picks one kernel per (kernel, dtype, head dim).
 //
 // Replaces the Pallas TPU kernels of nanodiloco_tpu/ops/pallas/flash_attention.py:
 //   B1 flash_fwd_tc_kernel<HD>      <- _fwd_call / _fwd_kernel
@@ -52,6 +52,35 @@
 //       (__launch_bounds__ minimum 2). B1 keeps one CTA an SM: its S tile
 //       (64 registers) and packed P (32) do not shrink with HD, and two CTAs
 //       of 288 threads would leave 113 registers a thread.
+//   HD 96 and 80: a 192-byte row of hd 96 is no whole number of 128-byte
+//       swizzle atoms, so the tile is three 32-column boxes with the 64-byte
+//       swizzle, as at hd 32 (the atom CUTLASS's shared-memory selector
+//       picks for a 96-wide major dimension). K-major k-slices step 32 bytes
+//       inside a box and jump a box after two; the MN-major operand of the
+//       m64n96k16 products (O += P V; dV += P^T dO, dK += dS^T Q) spans the
+//       three boxes, stepped by the descriptor's LBO = one box. hd 80 runs in
+//       that tile, as FlashAttention-2 runs hd 80 in its hd-96 kernel
+//       (Tile<80>::kN = 96): the tensor map keeps the tensor's 80 columns
+//       (160-byte rows), so TMA fills columns 80-95 of the third box with
+//       zeros. Q K^T, K Q^T and V dO^T take the 5 k-slices that hold data;
+//       the m64n96 products compute 16 zero columns too (10% more of B1's
+//       and B3's operations), and the epilogues store only the tensor's 80
+//       columns at its own row stride (HD, not kN): nothing is written past
+//       a row. Padding hd 96 to 128 in hd 128's tile was the alternative: a
+//       third more work on the second products, for no new layout.
+//       Occupancy, B3 (ptxas -v, cuobjdump -sass and two A/B calls of
+//       scripts/torch_flash_ab.py between variant trees on one H100;
+//       PERF.md section 6): two CTAs an SM cap B3 at 168 registers a thread,
+//       where dK and dV alone hold 96; at hd 96 and 80 ptxas then spilled
+//       168 bytes (27 LDL, 26 STL in the SASS) and serialized the wgmma
+//       (C7512). One CTA an SM takes 220 (hd 96) / 208 (hd 80) registers
+//       and spills nothing. The spilling pair ran 1-5% faster at Phi-3-mini's
+//       and Phi-2's width (B 2 x 32 heads, S 2048), in every turn of both
+//       calls, and 20-30% slower at an 8-CTA edge shape in one of them. The
+//       spill-free kernel stays (kMinBlocks 1 at hd 80 and above): what the
+//       pair shows is that a second warpgroup on the SM pays even with
+//       spills, which a CTA of two consumer warpgroups would get without
+//       them (ROADMAP, later kernel work).
 //   B2: B1's grid and threads, with the online softmax replaced by the saved
 //       lse. Q and dO stay resident (loaded once by TMA); the producer streams
 //       64-key K and V tiles through a two-stage ring. Per tile each consumer
@@ -103,14 +132,17 @@ using namespace hopper;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory geometry of a bf16 tile of HD columns (hopper.cuh): rows of
-// kSw bytes in boxes of min(HD, 64) columns, kSw also the swizzle.
+// Shared-memory geometry of the bf16 tile that holds a tensor of HD columns
+// (hopper.cuh): kN columns (HD; 96 at hd 80, the last 16 zeros), rows of kSw
+// bytes in boxes of kCols = kSw / 2 columns, kSw also the swizzle.
 template <int HD>
 struct Tile {
-  static constexpr int kSw = HD >= 64 ? 128 : 64;
-  static constexpr int kBoxes = HD * 2 / kSw;  // TMA boxes a row: 2 at hd 128, else 1
+  static constexpr int kN = HD == 80 ? 96 : HD;
+  static constexpr int kSw = kN % 64 == 0 ? 128 : 64;
+  static constexpr int kCols = kSw / 2;
+  static constexpr int kBoxes = kN / kCols;  // boxes a row: 2 at hd 128, 3 at 96 and 80, else 1
   __host__ __device__ static constexpr uint32_t box(int rows) { return rows * kSw; }
-  __host__ __device__ static constexpr uint32_t bytes(int rows) { return rows * HD * 2; }
+  __host__ __device__ static constexpr uint32_t bytes(int rows) { return rows * kN * 2; }
   // byte offset of k-slice kk (16 columns) of a K-major tile of `rows` rows
   __host__ __device__ static constexpr uint32_t kslice(int kk, int rows) {
     return (kk / (kSw / 32)) * box(rows) + (kk % (kSw / 32)) * 32;
@@ -185,16 +217,16 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       const int bkv = bh / group;
       mbar_arrive_expect_tx(q_full, L::kTile);
       for (int b = 0; b < T::kBoxes; ++b)
-        tma_load_3d(sQ + b * T::box(kFwdRows), &q_map, q_full, 64 * b, q0, bh);
+        tma_load_3d(sQ + b * T::box(kFwdRows), &q_map, q_full, T::kCols * b, q0, bh);
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt & 1;
         mbar_wait(empty(s), ((kt >> 1) & 1) ^ 1);
         mbar_arrive_expect_tx(full(s), 2 * L::kTile);
         for (int b = 0; b < T::kBoxes; ++b) {
-          tma_load_3d(tile_k(s) + b * T::box(kFwdKeys), &k_map, full(s), 64 * b, kt * kFwdKeys,
-                      bkv);
-          tma_load_3d(tile_v(s) + b * T::box(kFwdKeys), &v_map, full(s), 64 * b, kt * kFwdKeys,
-                      bkv);
+          tma_load_3d(tile_k(s) + b * T::box(kFwdKeys), &k_map, full(s), T::kCols * b,
+                      kt * kFwdKeys, bkv);
+          tma_load_3d(tile_v(s) + b * T::box(kFwdKeys), &v_map, full(s), T::kCols * b,
+                      kt * kFwdKeys, bkv);
         }
       }
     }
@@ -208,9 +240,9 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     const float c = scale * kLog2e;
     const uint32_t qa = sQ + wg * 64 * T::kSw;
 
-    float acc[HD / 2];
+    float acc[T::kN / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::kN / 2; ++i) acc[i] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     mbar_wait(q_full, 0);
@@ -263,7 +295,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         l[h] += p;  // this thread's share; the four lanes of a row add up at the end
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < T::kN / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
       uint32_t pf[32];
 #pragma unroll
       for (int j = 0; j < 32; ++j) pf[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
@@ -271,8 +303,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kFwdKeys / 16; ++kk)
-        wgmma_rs_tb<HD>(acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
-                        T::mnmajor(tile_v(s), kk, kFwdKeys), 1);
+        wgmma_rs_tb<T::kN>(acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                           T::mnmajor(tile_v(s), kk, kFwdKeys), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -364,16 +396,18 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       const int bkv = bh / group;
       mbar_arrive_expect_tx(qdo_full, 2 * L::kRowTile);
       for (int b = 0; b < T::kBoxes; ++b) {
-        tma_load_3d(sQ + b * T::box(kDqRows), &q_map, qdo_full, 64 * b, q0, bh);
-        tma_load_3d(sdO + b * T::box(kDqRows), &do_map, qdo_full, 64 * b, q0, bh);
+        tma_load_3d(sQ + b * T::box(kDqRows), &q_map, qdo_full, T::kCols * b, q0, bh);
+        tma_load_3d(sdO + b * T::box(kDqRows), &do_map, qdo_full, T::kCols * b, q0, bh);
       }
       for (int kt = 0; kt < n_kt; ++kt) {
         const int s = kt % kDqStages;
         mbar_wait(empty(s), ((kt / kDqStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full(s), 2 * L::kKeyTile);
         for (int b = 0; b < T::kBoxes; ++b) {
-          tma_load_3d(tile_k(s) + b * T::box(kDqKeys), &k_map, full(s), 64 * b, kt * kDqKeys, bkv);
-          tma_load_3d(tile_v(s) + b * T::box(kDqKeys), &v_map, full(s), 64 * b, kt * kDqKeys, bkv);
+          tma_load_3d(tile_k(s) + b * T::box(kDqKeys), &k_map, full(s), T::kCols * b,
+                      kt * kDqKeys, bkv);
+          tma_load_3d(tile_v(s) + b * T::box(kDqKeys), &v_map, full(s), T::kCols * b,
+                      kt * kDqKeys, bkv);
         }
       }
     }
@@ -403,9 +437,9 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       dlt[h] = row < sq ? delta[at] : 0.f;
     }
 
-    float acc[HD / 2];
+    float acc[T::kN / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < T::kN / 2; ++i) acc[i] = 0.f;
 
     mbar_wait(qdo_full, 0);
     for (int kt = 0; kt < n_kt_wg; ++kt) {
@@ -451,8 +485,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk)
-        wgmma_rs_tb<HD>(acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
-                        T::mnmajor(tile_k(s), kk, kDqKeys), 1);
+        wgmma_rs_tb<T::kN>(acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                           T::mnmajor(tile_k(s), kk, kDqKeys), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(acc);
@@ -493,9 +527,9 @@ struct Dkv {
   static constexpr uint32_t kRows = 6 * kTile;        // stage s: lse at + 512 s, delta + 256
   static constexpr uint32_t kBars = kRows + 1024;
   static constexpr size_t kSmem = 1024 + kBars + 64;
-  // two CTAs an SM below hd 128 (the source note); one at hd 128, where a
-  // cap of two spilled and serialized the wgmma
-  static constexpr int kMinBlocks = HD == 128 ? 1 : 2;
+  // two CTAs an SM at hd 64 and 32; one at hd 128, 96 and 80, where a cap
+  // of two (168 registers) spilled and serialized the wgmma (the source note)
+  static constexpr int kMinBlocks = HD >= 80 ? 1 : 2;
 };
 
 template <int HD>
@@ -550,8 +584,8 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
     if (lane == 0) {
       mbar_arrive_expect_tx(kv_full, 2 * L::kTile);
       for (int b = 0; b < T::kBoxes; ++b) {
-        tma_load_3d(sK + b * T::box(kDkvKeys), &k_map, kv_full, 64 * b, k0, bkv);
-        tma_load_3d(sV + b * T::box(kDkvKeys), &v_map, kv_full, 64 * b, k0, bkv);
+        tma_load_3d(sK + b * T::box(kDkvKeys), &k_map, kv_full, T::kCols * b, k0, bkv);
+        tma_load_3d(sV + b * T::box(kDkvKeys), &v_map, kv_full, T::kCols * b, k0, bkv);
       }
     }
     for (int it = 0; it < n_it; ++it) {
@@ -571,8 +605,8 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
       if (lane == 0) {
         mbar_arrive_expect_tx(full(s), 2 * L::kTile);
         for (int b = 0; b < T::kBoxes; ++b) {
-          tma_load_3d(tile_q(s) + b * T::box(kDkvQ), &q_map, full(s), 64 * b, q0, bh);
-          tma_load_3d(tile_do(s) + b * T::box(kDkvQ), &do_map, full(s), 64 * b, q0, bh);
+          tma_load_3d(tile_q(s) + b * T::box(kDkvQ), &q_map, full(s), T::kCols * b, q0, bh);
+          tma_load_3d(tile_do(s) + b * T::box(kDkvQ), &do_map, full(s), T::kCols * b, q0, bh);
         }
       } else {
         mbar_arrive(full(s));
@@ -585,9 +619,9 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
     const int key_lo = k0 + 16 * warp + (lane >> 2);  // and key_lo + 8
     const float c = scale * kLog2e;
 
-    float dk_acc[HD / 2], dv_acc[HD / 2];
+    float dk_acc[T::kN / 2], dv_acc[T::kN / 2];
 #pragma unroll
-    for (int i = 0; i < HD / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < T::kN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
     mbar_wait(kv_full, 0);
     for (int it = 0; it < n_it; ++it) {
@@ -636,12 +670,12 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDkvQ / 16; ++kk)
-        wgmma_rs_tb<HD>(dv_acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
-                        T::mnmajor(tile_do(s), kk, kDkvQ), 1);
+        wgmma_rs_tb<T::kN>(dv_acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                           T::mnmajor(tile_do(s), kk, kDkvQ), 1);
 #pragma unroll
       for (int kk = 0; kk < kDkvQ / 16; ++kk)
-        wgmma_rs_tb<HD>(dk_acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
-                        T::mnmajor(tile_q(s), kk, kDkvQ), 1);
+        wgmma_rs_tb<T::kN>(dk_acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
+                           T::mnmajor(tile_q(s), kk, kDkvQ), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(dv_acc);
@@ -675,10 +709,11 @@ constexpr int kErrTensorMap = -2;
 template <int HD>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                   int group, int sq, int sk, int causal, float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
   CUtensorMap qm, km, vm;
-  if (!bf16_rows_map(&qm, q, bh, sq, kFwdRows, HD) ||
-      !bf16_rows_map(&km, k, bh / group, sk, kFwdKeys, HD) ||
-      !bf16_rows_map(&vm, v, bh / group, sk, kFwdKeys, HD))
+  if (!bf16_rows_map(&qm, q, bh, sq, kFwdRows, HD, T::kCols) ||
+      !bf16_rows_map(&km, k, bh / group, sk, kFwdKeys, HD, T::kCols) ||
+      !bf16_rows_map(&vm, v, bh / group, sk, kFwdKeys, HD, T::kCols))
     return kErrTensorMap;
   constexpr size_t smem = Fwd<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
@@ -694,11 +729,12 @@ template <int HD>
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* dq, int bh, int group, int sq, int sk, int causal,
                  float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
   CUtensorMap qm, km, vm, dom;
-  if (!bf16_rows_map(&qm, q, bh, sq, kDqRows, HD) ||
-      !bf16_rows_map(&km, k, bh / group, sk, kDqKeys, HD) ||
-      !bf16_rows_map(&vm, v, bh / group, sk, kDqKeys, HD) ||
-      !bf16_rows_map(&dom, dout, bh, sq, kDqRows, HD))
+  if (!bf16_rows_map(&qm, q, bh, sq, kDqRows, HD, T::kCols) ||
+      !bf16_rows_map(&km, k, bh / group, sk, kDqKeys, HD, T::kCols) ||
+      !bf16_rows_map(&vm, v, bh / group, sk, kDqKeys, HD, T::kCols) ||
+      !bf16_rows_map(&dom, dout, bh, sq, kDqRows, HD, T::kCols))
     return kErrTensorMap;
   constexpr size_t smem = Dq<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
@@ -715,11 +751,12 @@ template <int HD>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                   const float* lse, const float* delta, void* dk, void* dv, int bh, int group,
                   int sq, int sk, int causal, float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
   CUtensorMap qm, km, vm, dom;
-  if (!bf16_rows_map(&qm, q, bh, sq, kDkvQ, HD) ||
-      !bf16_rows_map(&km, k, bh / group, sk, kDkvKeys, HD) ||
-      !bf16_rows_map(&vm, v, bh / group, sk, kDkvKeys, HD) ||
-      !bf16_rows_map(&dom, dout, bh, sq, kDkvQ, HD))
+  if (!bf16_rows_map(&qm, q, bh, sq, kDkvQ, HD, T::kCols) ||
+      !bf16_rows_map(&km, k, bh / group, sk, kDkvKeys, HD, T::kCols) ||
+      !bf16_rows_map(&vm, v, bh / group, sk, kDkvKeys, HD, T::kCols) ||
+      !bf16_rows_map(&dom, dout, bh, sq, kDkvQ, HD, T::kCols))
     return kErrTensorMap;
   constexpr size_t smem = Dkv<HD>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<HD>,
@@ -739,7 +776,8 @@ extern "C" {
 
 const char* nd_tc_error_string(int code) {
   if (code == kErrHeadDim)
-    return "the tensor-core kernels take head dims 32, 64 and 128";
+    return "the tensor-core kernels take head dims 32, 64, 80, 96 and 128 (forward, dK/dV) "
+           "and 32, 64 and 128 (dQ)";
   if (code == kErrTensorMap)
     return "cuTensorMapEncodeTiled refused a tensor (alignment, strides or driver)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -751,6 +789,8 @@ int nd_flash_fwd_tc(int hd, const void* q, const void* k, const void* v, void* o
                     int bh, int group, int sq, int sk, int causal, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch_fwd_tc<128>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
+  if (hd == 96) return launch_fwd_tc<96>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
+  if (hd == 80) return launch_fwd_tc<80>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
   if (hd == 64) return launch_fwd_tc<64>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
   if (hd == 32) return launch_fwd_tc<32>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
   return kErrHeadDim;
@@ -776,6 +816,12 @@ int nd_flash_bwd_dkv_tc(int hd, const void* q, const void* k, const void* v, con
   if (hd == 128)
     return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
                               scale, st);
+  if (hd == 96)
+    return launch_dkv_tc<96>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
+                             scale, st);
+  if (hd == 80)
+    return launch_dkv_tc<80>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
+                             scale, st);
   if (hd == 64)
     return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
                              scale, st);

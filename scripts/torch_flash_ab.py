@@ -16,7 +16,12 @@ parent commit unpacked with ``git archive``). ``--shape`` names shapes of
 - ``moe64e_hd32``: bf16, B 16, H 8, Hkv 8, S 1024, hd 32, causal
   (configs/llama_moe_64e.json at the same W 2 x b 8);
 - ``tiny_hd32``: bf16, B 8, H 4, Hkv 4, S 1024, hd 32, causal (bench.py's
-  tiny model on one device).
+  tiny model on one device);
+- ``phi3_hd96`` / ``phi2_hd80``: bf16, B 2, H 32, Hkv 32, S 2048, hd 96 /
+  80, causal (Phi-3-mini's and Phi-2's hidden 3072 and 2560 over 32 heads);
+- ``gqa4_bf16_hd96`` (B 1, H 8, Hkv 2, S 256, causal) and
+  ``noncausal_bf16_hd80`` (B 1, H 4, Hkv 4, S 77, not causal): chip_smoke.py's
+  edge shapes of the hd-96 and hd-80 routes.
 
 B counts every worker's sequences: the model folds W x b into B before
 attention.
@@ -47,6 +52,10 @@ SHAPES = {
     "moe_hd64": ("bfloat16", 16, 8, 4, 1024, 64, True),
     "moe64e_hd32": ("bfloat16", 16, 8, 8, 1024, 32, True),
     "tiny_hd32": ("bfloat16", 8, 4, 4, 1024, 32, True),
+    "phi3_hd96": ("bfloat16", 2, 32, 32, 2048, 96, True),
+    "phi2_hd80": ("bfloat16", 2, 32, 32, 2048, 80, True),
+    "gqa4_bf16_hd96": ("bfloat16", 1, 8, 2, 256, 96, True),
+    "noncausal_bf16_hd80": ("bfloat16", 1, 4, 4, 77, 80, False),
 }
 
 # run inside each turn's process, with the checkout's root first on sys.path

@@ -196,10 +196,11 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 goes to the tensor-core kernels for B1, B2 and B3 at hd 128, 64
-    and 32; every float32 case and bf16 at hd 16, 80 and 96 go to the FMA
-    kernels."""
-    tensor_cores = dtype == torch.bfloat16 and hd in (128, 64, 32)
+    """bf16 goes to the tensor-core kernels for B1 and B3 at hd 128, 96, 80,
+    64 and 32 and for B2 at hd 128, 64 and 32; every float32 case, bf16 at
+    hd 16 and bf16 B2 at hd 80 and 96 go to the FMA kernels."""
+    head_dims = (128, 64, 32) if name == "flash_bwd_dq" else (128, 96, 80, 64, 32)
+    tensor_cores = dtype == torch.bfloat16 and hd in head_dims
     assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
 
 
@@ -265,6 +266,132 @@ def test_tensor_core_dq_matches_jax_flash_attention(hd, group, causal):
     got = tensor_core_dq(qf, kf, vf, dof, lse, delta, causal).float()
     want = torch.from_numpy(np.asarray(want)[0].transpose(1, 0, 2).copy())
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * want.abs().max().item())
+
+
+def tensor_core_fwd(q, k, v, causal):
+    """The tensor-core B1's numerics in plain float32: S from the bf16 inputs
+    with float32 sums, the online softmax over 128-key tiles (the kernel's
+    K/V tile), P rounded to bf16 before O += P V (it is the register operand
+    of that wgmma) while the row sum l adds the float32 P, then O / l rounded
+    to bf16 as the epilogue does. Returns (O, lse [BH, Sq, 1])."""
+    g = q.shape[0] // k.shape[0]
+    kf, vf = (x.float().repeat_interleave(g, dim=0) for x in (k, v))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(q.float(), kf.transpose(1, 2)) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(s.shape[1:], dtype=torch.bool).triu(1), -math.inf)
+    m = torch.full(s.shape[:2], -math.inf)
+    l = torch.zeros(s.shape[:2])
+    acc = torch.zeros(q.shape)
+    for j0 in range(0, s.shape[2], 128):
+        sj = s[..., j0:j0 + 128]
+        m_new = torch.maximum(m, sj.amax(-1))
+        m_safe = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
+        corr = torch.exp(m - m_safe)
+        p = torch.exp(sj - m_safe[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p.to(torch.bfloat16).float(),
+                                                   vf[:, j0:j0 + 128])
+        m = m_new
+    o = (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(l, -math.inf))
+    return o, lse[..., None]
+
+
+def tensor_core_dkv(q, k, v, do, lse, delta, causal):
+    """The tensor-core B3's numerics in plain float32: S and dP from the
+    bf16 inputs with float32 sums, P = exp(S scale - lse) and
+    dS = P (dP - delta) in float32, then P and dS rounded to bf16 before
+    dV += P^T dO and dK += dS^T Q (the register operands of those wgmmas),
+    summed over each KV head's query group, scaled (dK) and rounded to bf16
+    as the epilogue does."""
+    g = q.shape[0] // k.shape[0]
+    kf, vf = (x.float().repeat_interleave(g, dim=0) for x in (k, v))
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.exp(torch.matmul(q.float(), kf.transpose(1, 2)) * scale - lse)
+    if causal:
+        p = p.tril()
+    ds = p * (torch.matmul(do.float(), vf.transpose(1, 2)) - delta)
+    dv = torch.matmul(p.to(torch.bfloat16).float().transpose(1, 2), do.float())
+    dk = torch.matmul(ds.to(torch.bfloat16).float().transpose(1, 2), q.float()) * scale
+
+    def group_sum(x):
+        return x.reshape(k.shape[0], g, *x.shape[1:]).sum(1).to(torch.bfloat16)
+
+    return group_sum(dk), group_sum(dv)
+
+
+def tensor_core_close(got, want):
+    """The tensor-core tolerance: atol 2**-8 of max|want|, rtol 2**-7."""
+    want = want.float()
+    torch.testing.assert_close(got.float(), want, rtol=2.0 ** -7,
+                               atol=2.0 ** -8 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("hd", [128, 96, 80, 64, 32])
+@pytest.mark.parametrize("group, s, causal", [(1, 64, True), (4, 200, True), (2, 200, False)])
+def test_tensor_core_fwd_and_dkv_rounding_within_their_tolerance(group, s, causal, hd):
+    """The tolerance chip_smoke.py holds the tensor-core B1 and B3 to
+    (atol 2**-8 of max|ref|, rtol 2**-7) covers rounding P (B1), P and dS
+    (B3) to bf16 before the last product: the kernels' numerics, emulated
+    on the CPU, stay within it of flash_fwd_plain and flash_bwd_dkv_plain at
+    every head dim they serve (hd 80 as hd 80: its tile's zero columns add
+    exactly 0), over one and two 128-key tiles, MHA and GQA, causal and
+    not."""
+    bh = 8
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
+        (bh, s, hd), (bh // group, s, hd), (bh // group, s, hd), (bh, s, hd), seed=6))
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    o, lse = tensor_core_fwd(q, k, v, causal)
+    tensor_core_close(o, o_ref)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    want = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+    got = tensor_core_dkv(q, k, v, do, lse_ref, delta, causal)
+    assert not torch.equal(got[1], want[1])  # the rounding of P shows in dV
+    for g, w in zip(got, want):
+        tensor_core_close(g, w)
+
+
+def jax_flash_grads(q, k, v, do, causal):
+    """(O, (dQ, dK, dV)) of the JAX dispatcher's scan path on the CPU, from
+    [1, S, heads, hd] bf16-representable inputs, in float32."""
+    def jax_loss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=causal, block_size=16, impl="scan")
+        return jnp.sum(out * jnp.asarray(do.float().numpy())), out
+
+    with jax.default_matmul_precision("highest"):
+        (_, out), grads = jax.value_and_grad(jax_loss, argnums=(0, 1, 2), has_aux=True)(
+            *(jnp.asarray(x.float().numpy()) for x in (q, k, v)))
+    return out, grads
+
+
+def heads_first(x):
+    """[1, S, heads, hd] (torch or a JAX array) -> [heads, S, hd]."""
+    x = torch.from_numpy(np.asarray(x).copy()) if not isinstance(x, torch.Tensor) else x
+    return x[0].transpose(0, 1).contiguous()
+
+
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("group, causal", [(4, True), (1, False), (2, True)])
+def test_tensor_core_fwd_and_dkv_match_jax_flash_attention(hd, group, causal):
+    """The tensor-core B1's and B3's numerics at hd 96 and 80, emulated on
+    the CPU, against the output and dK/dV of jax.grad through the JAX
+    dispatcher's scan path, on the same bf16-representable inputs, at the
+    tensor-core tolerance; S 144 spans two of B1's 128-key tiles."""
+    b, s, h = 1, 144, 4
+    hkv = h // group
+    q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
+        (b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, h, hd), seed=7))
+    want_out, (_, want_dk, want_dv) = jax_flash_grads(q, k, v, do, causal)
+    qf, kf, vf, dof = map(heads_first, (q, k, v, do))
+    o, _ = tensor_core_fwd(qf, kf, vf, causal)
+    tensor_core_close(o, heads_first(want_out))
+    o_ref, lse = fa.flash_fwd_plain(qf.float(), kf.float(), vf.float(), causal)
+    delta = (dof.float() * o_ref).sum(-1, keepdim=True)
+    dk, dv = tensor_core_dkv(qf, kf, vf, dof, lse, delta, causal)
+    tensor_core_close(dk, heads_first(want_dk))
+    tensor_core_close(dv, heads_first(want_dv))
 
 
 def test_tensor_core_build_failure_raises(tmp_path, monkeypatch):

@@ -14,7 +14,8 @@ outputs may land one bf16 ulp (2**-7 relative) apart: atol 2e-3, rtol
 1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16: B1, B2, B3 at
 hd 128, 64 and 32) also round P (B1), dS (B2), P and dS (B3) to bf16
 before the last product, where the plain versions keep float32: atol
-2**-8.
+2**-8. B1 and B3 take the tensor cores at hd 96 and 80 too (hd 80 in the
+hd-96 tile), where B2 stays on the FMA kernel.
 """
 
 import pytest
@@ -106,6 +107,106 @@ def test_tensor_core_kernels_at_hd_64_and_32(hd, h, hkv, s, causal):
     assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1},
                                    "flash_bwd_dq": {"fma": 0, "wgmma": 1},
                                    "flash_bwd_dkv": {"fma": 0, "wgmma": 2}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("h, hkv, s, causal", [(8, 2, 1000, True), (4, 4, 200, False),
+                                               (8, 2, 77, False), (4, 4, 40, True)])
+def test_tensor_core_kernels_at_hd_96_and_80(hd, h, hkv, s, causal):
+    """bf16 at hd 96 and 80 (hd 80 read into the hd-96 tile, its stores
+    kept to 80 columns): B1 and B3 launch the tensor-core kernels, B2 the
+    FMA kernel, and each matches its plain version (GQA 4 and MHA, ragged S
+    1000, 200 and 77, S 40 under one tile, causal and not). B3 sums its
+    query group in registers: two launches give dK and dV identical bit for
+    bit. Outputs are allocated with a guard row after them, which must stay
+    as it was written: the hd-80 epilogues write inside their tensors."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(2 * h, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k, v = (torch.randn(2 * hkv, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    close(o, o_ref, bf16, "wgmma")
+    close(lse, lse_ref, torch.float32)
+    close(fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),
+          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), bf16, "fma")
+    first = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    second = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+    for got, again, want in zip(first, second,
+                                fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)):
+        close(got, want, bf16, "wgmma")
+        assert torch.equal(got, again)
+    assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1},
+                                   "flash_bwd_dq": {"fma": 1, "wgmma": 0},
+                                   "flash_bwd_dkv": {"fma": 0, "wgmma": 2}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [96, 80])
+def test_tensor_core_stores_stay_inside_their_tensors(hd, monkeypatch):
+    """The epilogues of B1 (O) and B3 (dK, dV) write only inside their
+    tensors: each output is the head of a larger buffer filled with a
+    marker, and what follows it comes back unchanged. At hd 80 an epilogue
+    that stored the tile's 96 columns, or strode rows by 96, would write
+    past the last row."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(8, 77, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k, v = (torch.randn(2, 77, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, True)
+    delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
+    guard = 4096  # marker elements after each output
+    bufs = []
+    empty_like = torch.empty_like
+
+    def guarded_like(t, **kw):
+        if t.dtype != bf16:
+            return empty_like(t, **kw)
+        buf = torch.full((t.numel() + guard,), 7.0, device=t.device, dtype=bf16)
+        bufs.append((buf, t.numel()))
+        return buf[:t.numel()].view(t.shape)
+
+    monkeypatch.setattr(torch, "empty_like", guarded_like)
+    o, _ = fa.flash_fwd(q, k, v, True)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, True)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert len(bufs) == 3
+    for buf, n in bufs:
+        assert torch.equal(buf[n:], torch.full((guard,), 7.0, device="cuda", dtype=bf16))
+    close(o, o_ref, bf16, "wgmma")
+    for got, want in zip((dk, dv), fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, True)):
+        close(got, want, bf16, "wgmma")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [128, 96, 80, 64, 32])
+def test_tensor_core_forward_fully_masked_row_gives_zeros_not_nan(hd):
+    """A query row whose every score is -inf (its first column -inf, the
+    rest 0, every key's first column positive) keeps m = -inf in the
+    tensor-core B1: its O row is zeros and its lse -inf, never NaN, and the
+    other rows match the plain version."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q = torch.randn(4, 200, hd, generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn(2, 200, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k[..., 0] = k[..., 0].abs() + 0.5
+    q[1, 150] = 0.0
+    q[1, 150, 0] = -float("inf")
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, True)
+    assert fa.variant_counts()["flash_fwd"] == {"fma": 0, "wgmma": 1}
+    assert not o.isnan().any() and not lse.isnan().any()
+    assert torch.equal(o[1, 150], torch.zeros(hd, device="cuda", dtype=bf16))
+    assert lse[1, 150, 0].item() == -float("inf")
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, True)
+    keep = torch.ones(4, 200, dtype=torch.bool, device="cuda")
+    keep[1, 150] = False
+    close(o[keep], o_ref[keep], bf16, "wgmma")
+    close(lse[keep], lse_ref[keep], torch.float32)
 
 
 @pytest.mark.cuda
