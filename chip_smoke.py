@@ -12,14 +12,19 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  card at the tolerance of its route, at shapes that cover
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128; ragged S, non-causal, S under one tile,
-                 MHA and GQA): bf16 B1, B2 and B3 at hd 128, 64 and 32,
-                 and B1 and B3 at hd 96 and 80, run the tensor cores, the
-                 rest the FMA kernels.
+                 MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80, 64
+                 and 32 run the tensor cores, the rest the FMA kernels.
+                 Each kernel launches twice: the first launch's outputs
+                 head buffers whose tails hold a marker that must come
+                 back unchanged (no store past a tensor), and the second
+                 must give the same bits (no atomics).
                  At one shape of every route that no phase is built to
                  run (hd 16, 80, 96 in bf16, the last two at Phi-2's and
                  Phi-3-mini's width; hd 32, 80, 96, 128 in f32),
                  CUDA-event times of the kernel, the plain version and the
-                 PyTorch library call, the least time the card could take
+                 PyTorch library call (ms: calls back to back, what a
+                 caller sees; device_ms: a CUDA graph of them, the
+                 device's time alone), the least time the card could take
                  (bound_ms), TFLOP/s and the share of the bound. From here
                  on every launch is counted by shape (fa.shape_counts),
                  and the child processes that train report theirs.
@@ -458,6 +463,45 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def device_ms(fn, stream: torch.cuda.Stream, runs: int = 20, reps: int = 10) -> float:
+    """The device's own time per call, with no host in it: ``reps`` calls
+    of ``fn`` captured in one CUDA graph on ``stream`` (after warm-up calls
+    there), the graph replayed between two CUDA events, median over
+    ``runs`` replays. A backward must be captured on the stream its forward
+    ran on (autograd runs it there), so ``stream`` is the caller's."""
+    t0 = time.perf_counter()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+        # relaxed: the capture takes what goes onto the stream and leaves
+        # this thread free to make other CUDA calls (the launchers set
+        # their kernel's shared-memory attribute on every call)
+        graph.capture_begin(capture_error_mode="relaxed")
+        try:
+            for _ in range(reps):
+                fn()
+        finally:
+            graph.capture_end()
+    graph.replay()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    graph.reset()
+    device_ms.seconds += time.perf_counter() - t0
+    return statistics.median(times)
+
+
+device_ms.seconds = 0.0  # host seconds this run spent in device_ms
+
+
 def cuda_ms(fn, warmup: int = 3, runs: int = 20, reps: int = 10) -> float:
     """Median over ``runs`` samples of the CUDA-event time of ``reps`` calls
     back to back, per call. Back to back, the host's share of a call (the
@@ -540,14 +584,52 @@ def check_routes(phase: str, dtype, hd: int) -> None:
     check_variants(phase, fa.variant_counts(), dtype, hd)
 
 
+GUARD = 4096  # marker elements after each output of a guarded launch
+
+
+def launch_twice(phase: str, tag: str, call) -> tuple:
+    """``call()`` (a wrapper's launch) twice. The first time every output
+    the wrapper allocates with ``torch.empty_like`` is the head of a buffer
+    whose GUARD elements after it hold a marker; fails ``phase`` unless
+    each marker comes back as written (an epilogue that stored past its
+    tensor, such as an hd-80 row stored at the tile's 96 columns, would
+    change it), or unless the second launch gives the same bits (the
+    kernels sum in a fixed order, without atomics). Returns the first
+    launch's outputs."""
+    bufs = []
+    empty_like = torch.empty_like
+
+    def guarded_like(t):
+        buf = torch.full((t.numel() + GUARD,), 7.0, device=t.device, dtype=t.dtype)
+        bufs.append((buf, t.numel()))
+        return buf[:t.numel()].view(t.shape)
+
+    torch.empty_like = guarded_like
+    try:
+        first = call()
+    finally:
+        torch.empty_like = empty_like
+    second = call()
+    if not bufs:
+        fail(phase, f"{tag}: the wrapper allocated no output through torch.empty_like")
+    if any(not bool((buf[n:] == 7.0).all()) for buf, n in bufs):
+        fail(phase, f"{tag}: a kernel wrote past its output")
+    if not all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+               for a, b in zip(first, second)):
+        fail(phase, f"{tag}: two launches gave different bits")
+    return first
+
+
 def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, causal: bool,
          kernels=fa.KERNEL_NAMES, timed: bool = False) -> dict:
     """Each of ``kernels`` against its plain version at q [bh, s, hd], k and
-    v [bh_kv, s, hd], on its route's tolerance (fails ``phase`` past it);
-    with ``timed``, CUDA-event times of the kernel, its plain version and
-    the library call beside the bounds. The backward kernels take the
-    plain forward's (O, lse), so each is held against its plain version on
-    identical inputs. Returns the shape's JSON fields."""
+    v [bh_kv, s, hd], on its route's tolerance (fails ``phase`` past it),
+    launched twice (``launch_twice``: no store past an output, the same
+    bits twice); with ``timed``, CUDA-event times of the kernel, its plain
+    version and the library call beside the bounds (``time_kernels``). The
+    backward kernels take the plain forward's (O, lse), so each is held
+    against its plain version on identical inputs. Returns the shape's
+    JSON fields."""
     variant = {kname: fa.ROUTES[kname, dtype, hd] for kname in kernels}
     tol = {kname: TOL[dtype, v] for kname, v in variant.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -561,16 +643,18 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
     delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
     checks = {}
     if "flash_fwd" in kernels:
-        o, lse = fa.flash_fwd(q, k, v, causal)
+        o, lse = launch_twice(phase, f"{tag} B1", lambda: fa.flash_fwd(q, k, v, causal))
         checks["flash_fwd"] = [within(phase, f"{tag} O", o, o_ref, tol["flash_fwd"]),
                                within(phase, f"{tag} lse", lse, lse_ref,
                                       TOL[torch.float32, "fma"])]
     if "flash_bwd_dq" in kernels:
-        dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal)
+        (dq,) = launch_twice(phase, f"{tag} B2", lambda: (
+            fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),))
         dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
         checks["flash_bwd_dq"] = [within(phase, f"{tag} dQ", dq, dq_ref, tol["flash_bwd_dq"])]
     if "flash_bwd_dkv" in kernels:
-        dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
+        dk, dv = launch_twice(phase, f"{tag} B3",
+                              lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal))
         dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
         checks["flash_bwd_dkv"] = [
             within(phase, f"{tag} dK", dk, dk_ref, tol["flash_bwd_dkv"]),
@@ -589,7 +673,8 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
         for kname in kernels:
             t = timing[kname]
             rate = {"tflops": bnd[kname]["flops"] / (t["ms"] * 1e-3) / 1e12,
-                    "bound_share": bnd[kname]["bound_ms"] / t["ms"]}
+                    "bound_share": bnd[kname]["bound_ms"] / t["ms"],
+                    "device_bound_share": bnd[kname]["bound_ms"] / t["device_ms"]}
             out["timing"][kname] = {"variant": variant[kname], "dtype": out["dtype"], "hd": hd,
                                     "max_abs_err": errs[kname], **t, **bnd[kname], **rate}
     torch.cuda.synchronize()
@@ -658,10 +743,14 @@ def phase_kernels_main(path: dict) -> list[dict]:
 
 
 def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
-    """{kernel: ms, plain_ms, library_ms} at one shape. The library call is
-    torch's fused attention on the same inputs in its [B, H, S, hd] layout
-    (q as [BH_kv, group, S, hd], k and v as [BH_kv, 1, S, hd]): its forward
-    for B1, one backward (dQ, dK and dV) for B2 and B3."""
+    """{kernel: ms, device_ms, plain_ms, library_ms, library_device_ms} at
+    one shape: ``ms`` (cuda_ms) is what a caller sees of calls back to
+    back, ``device_ms`` the device's time alone (a CUDA graph of the same
+    calls). The library call is torch's fused attention on the same inputs
+    in its [B, H, S, hd] layout (q as [BH_kv, group, S, hd], k and v as
+    [BH_kv, 1, S, hd]): its forward for B1, one backward (dQ, dK and dV)
+    for B2 and B3; its graph captures the backward of a forward run on the
+    graph's stream."""
     calls = {
         "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
                       lambda: fa.flash_fwd_plain(q, k, v, causal)),
@@ -675,18 +764,33 @@ def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
     ql = q.view(bh_kv, bh // bh_kv, s, hd).detach().requires_grad_(True)
     kl = k.view(bh_kv, 1, s, hd).detach().requires_grad_(True)
     vl = v.view(bh_kv, 1, s, hd).detach().requires_grad_(True)
-    library = {}
+    # the graphs' stream, and leaves of their own made on it: a leaf's
+    # gradient accumulator keeps the stream it was made on, and a captured
+    # backward may not wait on another stream
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().requires_grad_(True) for x in (ql, kl, vl)]
+    library, library_device = {}, {}
     if "flash_fwd" in kernels:
         library["flash_fwd"] = cuda_ms(lambda: sdpa(ql, kl, vl, is_causal=causal,
                                                     enable_gqa=True))
+        library_device["flash_fwd"] = device_ms(
+            lambda: sdpa(*leaves, is_causal=causal, enable_gqa=True), side)
     if {"flash_bwd_dq", "flash_bwd_dkv"} & set(kernels):
         out = sdpa(ql, kl, vl, is_causal=causal, enable_gqa=True)
         dol = do.view(bh_kv, bh // bh_kv, s, hd)
         library["flash_bwd_dq"] = library["flash_bwd_dkv"] = cuda_ms(
             lambda: torch.autograd.grad(out, (ql, kl, vl), dol, retain_graph=True))
+        with torch.cuda.stream(side):
+            out_side = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+        library_device["flash_bwd_dq"] = library_device["flash_bwd_dkv"] = device_ms(
+            lambda: torch.autograd.grad(out_side, leaves, dol, retain_graph=True), side)
     return {name: {"ms": cuda_ms(calls[name][0]),
+                   "device_ms": device_ms(calls[name][0], side),
                    "plain_ms": cuda_ms(calls[name][1], runs=5, reps=1),
-                   "library_ms": library[name]}
+                   "library_ms": library[name],
+                   "library_device_ms": library_device[name]}
             for name in kernels}
 
 
@@ -3852,7 +3956,8 @@ def main() -> None:
 
     # the kernels line: every kernel at every shape the main path ran, and
     # (not_on_main_path) the routes no phase runs, timed in the kernels phase
-    emit(kernels=phase_kernels_main(path), not_on_main_path=off_path)
+    emit(kernels=phase_kernels_main(path), not_on_main_path=off_path,
+         device_ms_seconds=device_ms.seconds)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -33,10 +33,10 @@
 // register tile per thread) on the CUDA cores, whose float32 peak is
 // 67 TFLOP/s. They serve every float32 case (wgmma has no float32 path, and
 // TF32 would not hold the float32 tolerance) and bf16 where the tensor-core
-// kernels do not: all three kernels at hd 16, and dQ (B2) at hd 80 and 96.
-// The rest of bf16 runs on the tensor cores in flash_attention_tc.cu (route
-// table in ops/cuda/flash_attention.py), and is not instantiated here: a
-// bf16 launch at another head dim returns -1, never a second route.
+// kernels do not: all three kernels at hd 16. The rest of bf16 runs on the
+// tensor cores in flash_attention_tc.cu (route table in
+// ops/cuda/flash_attention.py), and is not instantiated here: a bf16 launch
+// at another head dim returns -1, never a second route.
 //
 // Head dims: 16, 32, 64, 80, 96 and 128 (the templates take any multiple of
 // 16; these are the ones the launchers instantiate). hd 256 stays refused:
@@ -471,8 +471,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // dtype 0 = float32, at every head dim above; dtype 1 = bfloat16, where no
-// tensor-core kernel (flash_attention_tc.cu) serves: hd 16 for all three
-// kernels, and hd 80 and 96 for dQ.
+// tensor-core kernel (flash_attention_tc.cu) serves: hd 16.
 #define ND_HD(T, HD, LAUNCH, ...) \
   if (hd == HD) return LAUNCH<T, HD>(__VA_ARGS__);
 #define ND_F32(LAUNCH, ...)                  \
@@ -483,10 +482,6 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   ND_HD(float, 96, LAUNCH, __VA_ARGS__)      \
   ND_HD(float, 128, LAUNCH, __VA_ARGS__)
 #define ND_BF16(LAUNCH, ...) ND_HD(__nv_bfloat16, 16, LAUNCH, __VA_ARGS__)
-#define ND_BF16_DQ(LAUNCH, ...)                      \
-  ND_BF16(LAUNCH, __VA_ARGS__)                       \
-  ND_HD(__nv_bfloat16, 80, LAUNCH, __VA_ARGS__)      \
-  ND_HD(__nv_bfloat16, 96, LAUNCH, __VA_ARGS__)
 
 extern "C" {
 
@@ -515,7 +510,7 @@ int nd_flash_bwd_dq(int dtype, int hd, const void* q, const void* k,
   if (dtype == 0) {
     ND_F32(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
   } else if (dtype == 1) {
-    ND_BF16_DQ(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
+    ND_BF16(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
   }
   return -1;
 }

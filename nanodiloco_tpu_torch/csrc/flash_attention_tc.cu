@@ -1,8 +1,8 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1) and
-// dK/dV (B3) at head dims 128, 96, 80, 64 and 32, dQ (B2) at 128, 64 and 32.
-// The float32 path and the other cases run on the FMA kernels of
-// flash_attention.cu; ops/cuda/flash_attention.py holds the route table that
-// picks one kernel per (kernel, dtype, head dim).
+// Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1), dQ
+// (B2) and dK/dV (B3) at head dims 128, 96, 80, 64 and 32. The float32 path
+// and bf16 at hd 16 run on the FMA kernels of flash_attention.cu;
+// ops/cuda/flash_attention.py holds the route table that picks one kernel per
+// (kernel, dtype, head dim).
 //
 // Replaces the Pallas TPU kernels of nanodiloco_tpu/ops/pallas/flash_attention.py:
 //   B1 flash_fwd_tc_kernel<HD>      <- _fwd_call / _fwd_kernel
@@ -106,6 +106,15 @@
 //       15-21% slower at hd 64; at hd 32 the extra warpgroups won 16% at
 //       moe64e_hd32 despite that but lost at tiny_hd32. The spill-free kernel
 //       stays: the gain was one shape's, on a 0.08 ms kernel (PERF.md).
+//   B2 at HD 96 and 80: the same kernel through Tile<96> (hd 80 read into it,
+//       as in B1 and B3). S = Q K^T and dP = dO V^T take the HD / 16 k-slices
+//       that hold data (6, 5); dQ += dS K is m64n96k16, K MN-major across the
+//       three boxes. At hd 80 K's columns 80-95 are TMA zeros, so dQ's are
+//       zeros, and the epilogue stores HD columns at row stride HD. dQ holds
+//       48 registers a thread; ptxas reports 160 (hd 96) / 156 (hd 80), no
+//       spills. Two CTAs an SM left ptxas 96 registers: it spilled 340 bytes
+//       (70 LDL, 53 STL in the SASS) and serialized the wgmma (C7512), so one
+//       CTA an SM stays here too.
 // P (B1) and P and dS (B3, B2) are rounded to bf16 as the left operand of the
 // last product, as every tensor-core flash attention does; the plain versions
 // keep them in float32, so the tolerance against them is wider than one
@@ -776,8 +785,7 @@ extern "C" {
 
 const char* nd_tc_error_string(int code) {
   if (code == kErrHeadDim)
-    return "the tensor-core kernels take head dims 32, 64, 80, 96 and 128 (forward, dK/dV) "
-           "and 32, 64 and 128 (dQ)";
+    return "the tensor-core kernels take head dims 32, 64, 80, 96 and 128";
   if (code == kErrTensorMap)
     return "cuTensorMapEncodeTiled refused a tensor (alignment, strides or driver)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -802,6 +810,10 @@ int nd_flash_bwd_dq_tc(int hd, const void* q, const void* k, const void* v, cons
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (hd == 128)
     return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
+  if (hd == 96)
+    return launch_dq_tc<96>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
+  if (hd == 80)
+    return launch_dq_tc<80>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
   if (hd == 64)
     return launch_dq_tc<64>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
   if (hd == 32)

@@ -14,13 +14,13 @@ that serves each (kernel, dtype, head dim), at head dims 16, 32, 64, 80,
 96 and 128 (``HEAD_DIMS``; any other raises):
 
 - ``wgmma``: tensor-core kernels, wgmma fed by TMA
-  (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: B1
-  and B3 at hd 128, 96, 80, 64 and 32 (hd 80 in the hd-96 tile, its
-  last 16 columns zeros), B2 at hd 128, 64 and 32;
+  (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: all
+  three kernels at hd 128, 96, 80, 64 and 32 (hd 80 in the hd-96 tile,
+  its last 16 columns zeros);
 - ``fma``: float32 FMA kernels from shared memory for every other case
   (``nanodiloco_tpu_torch/csrc/flash_attention.cu``): every float32 row
   (wgmma has no float32 path, and TF32 would not hold the float32
-  tolerance), bf16 at hd 16 and bf16 B2 at hd 80 and 96.
+  tolerance) and bf16 at hd 16.
 
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
@@ -52,18 +52,14 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 VARIANTS = ("fma", "wgmma")
-# the head dims each tensor-core kernel takes, in bf16 only
-_TENSOR_CORE_HEAD_DIMS = {
-    "flash_fwd": (32, 64, 80, 96, 128),
-    "flash_bwd_dq": (32, 64, 128),
-    "flash_bwd_dkv": (32, 64, 80, 96, 128),
-}
+# the head dims the tensor-core kernels take, in bf16 only (all three alike)
+_TENSOR_CORE_HEAD_DIMS = (32, 64, 80, 96, 128)
 # the variant that serves each (kernel, dtype, head dim): the tensor cores
-# for bf16 where a tensor-core kernel takes the head dim, the FMA kernels
-# everywhere else (every float32 row included)
+# for bf16 where they take the head dim, the FMA kernels everywhere else
+# (every float32 row included)
 ROUTES = {
     (name, dtype, hd): (
-        "wgmma" if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS[name] else "fma"
+        "wgmma" if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS else "fma"
     )
     for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS
 }

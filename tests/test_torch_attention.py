@@ -196,12 +196,14 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 goes to the tensor-core kernels for B1 and B3 at hd 128, 96, 80,
-    64 and 32 and for B2 at hd 128, 64 and 32; every float32 case, bf16 at
-    hd 16 and bf16 B2 at hd 80 and 96 go to the FMA kernels."""
-    head_dims = (128, 64, 32) if name == "flash_bwd_dq" else (128, 96, 80, 64, 32)
-    tensor_cores = dtype == torch.bfloat16 and hd in head_dims
+    """bf16 goes to the tensor-core kernels for B1, B2 and B3 alike, at hd
+    128, 96, 80, 64 and 32; every float32 case and bf16 at hd 16 go to the
+    FMA kernels."""
+    tensor_cores = dtype == torch.bfloat16 and hd in (128, 96, 80, 64, 32)
     assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
+    # B2 takes the tensor cores exactly where B1 and B3 do
+    assert {fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES} == {
+        fa.ROUTES[name, dtype, hd]}
 
 
 def tensor_core_dq(q, k, v, do, lse, delta, causal):
@@ -220,14 +222,15 @@ def tensor_core_dq(q, k, v, do, lse, delta, causal):
     return (torch.matmul(ds.to(torch.bfloat16).float(), kf) * scale).to(torch.bfloat16)
 
 
-@pytest.mark.parametrize("hd", [128, 64, 32])
+@pytest.mark.parametrize("hd", [128, 96, 80, 64, 32])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group, s", [(1, 64), (4, 200)])
 def test_tensor_core_dq_rounding_within_its_tolerance(group, s, causal, hd):
     """The tolerance chip_smoke.py holds the tensor-core B2 to, (atol 2**-8
     of max|ref|, rtol 2**-7), covers rounding dS to bf16 before the last
     product: the kernel's numerics, emulated on the CPU, stay within it of
-    flash_bwd_dq_plain at hd 128, 64 and 32, causal and not, MHA and GQA 4."""
+    flash_bwd_dq_plain at hd 128, 96, 80, 64 and 32, causal and not, MHA
+    and GQA 4."""
     bh = 8
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
         (bh, s, hd), (bh // group, s, hd), (bh // group, s, hd), (bh, s, hd), seed=3))
@@ -239,12 +242,12 @@ def test_tensor_core_dq_rounding_within_its_tolerance(group, s, causal, hd):
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("hd", [64, 32])
+@pytest.mark.parametrize("hd", [96, 80, 64, 32])
 @pytest.mark.parametrize("group, causal", [(2, True), (1, False)])
 def test_tensor_core_dq_matches_jax_flash_attention(hd, group, causal):
-    """The tensor-core B2's numerics at hd 64 and 32, emulated on the CPU,
-    against dQ from jax.grad through the JAX dispatcher's scan path, on the
-    same bf16-representable inputs, at the tensor-core tolerance."""
+    """The tensor-core B2's numerics at hd 96, 80, 64 and 32, emulated on the
+    CPU, against dQ from jax.grad through the JAX dispatcher's scan path, on
+    the same bf16-representable inputs, at the tensor-core tolerance."""
     b, s, h = 1, 64, 4
     hkv = h // group
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(

@@ -12,10 +12,9 @@ FMA kernels compute in float32 from the same inputs as the plain versions
 and differ in summation order, ~1e-6 relative in float32, and bf16
 outputs may land one bf16 ulp (2**-7 relative) apart: atol 2e-3, rtol
 1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16: B1, B2, B3 at
-hd 128, 64 and 32) also round P (B1), dS (B2), P and dS (B3) to bf16
-before the last product, where the plain versions keep float32: atol
-2**-8. B1 and B3 take the tensor cores at hd 96 and 80 too (hd 80 in the
-hd-96 tile), where B2 stays on the FMA kernel.
+hd 128, 96, 80, 64 and 32; hd 80 in the hd-96 tile) also round P (B1), dS
+(B2), P and dS (B3) to bf16 before the last product, where the plain
+versions keep float32: atol 2**-8.
 """
 
 import pytest
@@ -115,12 +114,10 @@ def test_tensor_core_kernels_at_hd_64_and_32(hd, h, hkv, s, causal):
                                                (8, 2, 77, False), (4, 4, 40, True)])
 def test_tensor_core_kernels_at_hd_96_and_80(hd, h, hkv, s, causal):
     """bf16 at hd 96 and 80 (hd 80 read into the hd-96 tile, its stores
-    kept to 80 columns): B1 and B3 launch the tensor-core kernels, B2 the
-    FMA kernel, and each matches its plain version (GQA 4 and MHA, ragged S
-    1000, 200 and 77, S 40 under one tile, causal and not). B3 sums its
-    query group in registers: two launches give dK and dV identical bit for
-    bit. Outputs are allocated with a guard row after them, which must stay
-    as it was written: the hd-80 epilogues write inside their tensors."""
+    kept to 80 columns): B1, B2 and B3 launch the tensor-core kernels, and
+    each matches its plain version (GQA 4 and MHA, ragged S 1000, 200 and
+    77, S 40 under one tile, causal and not). B3 sums its query group in
+    registers: two launches give dK and dV identical bit for bit."""
     gen = card()
     bf16 = torch.bfloat16
     q, do = (torch.randn(2 * h, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
@@ -132,7 +129,7 @@ def test_tensor_core_kernels_at_hd_96_and_80(hd, h, hkv, s, causal):
     close(o, o_ref, bf16, "wgmma")
     close(lse, lse_ref, torch.float32)
     close(fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),
-          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), bf16, "fma")
+          fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal), bf16, "wgmma")
     first = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
     second = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal)
     for got, again, want in zip(first, second,
@@ -140,15 +137,15 @@ def test_tensor_core_kernels_at_hd_96_and_80(hd, h, hkv, s, causal):
         close(got, want, bf16, "wgmma")
         assert torch.equal(got, again)
     assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1},
-                                   "flash_bwd_dq": {"fma": 1, "wgmma": 0},
+                                   "flash_bwd_dq": {"fma": 0, "wgmma": 1},
                                    "flash_bwd_dkv": {"fma": 0, "wgmma": 2}}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [96, 80])
 def test_tensor_core_stores_stay_inside_their_tensors(hd, monkeypatch):
-    """The epilogues of B1 (O) and B3 (dK, dV) write only inside their
-    tensors: each output is the head of a larger buffer filled with a
+    """The epilogues of B1 (O), B2 (dQ) and B3 (dK, dV) write only inside
+    their tensors: each output is the head of a larger buffer filled with a
     marker, and what follows it comes back unchanged. At hd 80 an epilogue
     that stored the tile's 96 columns, or strode rows by 96, would write
     past the last row."""
@@ -171,13 +168,15 @@ def test_tensor_core_stores_stay_inside_their_tensors(hd, monkeypatch):
 
     monkeypatch.setattr(torch, "empty_like", guarded_like)
     o, _ = fa.flash_fwd(q, k, v, True)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, True)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, True)
     monkeypatch.undo()
     torch.cuda.synchronize()
-    assert len(bufs) == 3
+    assert len(bufs) == 4
     for buf, n in bufs:
         assert torch.equal(buf[n:], torch.full((guard,), 7.0, device="cuda", dtype=bf16))
     close(o, o_ref, bf16, "wgmma")
+    close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, True), bf16, "wgmma")
     for got, want in zip((dk, dv), fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, True)):
         close(got, want, bf16, "wgmma")
 
@@ -210,7 +209,7 @@ def test_tensor_core_forward_fully_masked_row_gives_zeros_not_nan(hd):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [128, 64, 32])
+@pytest.mark.parametrize("hd", [128, 96, 80, 64, 32])
 def test_tensor_core_dq_is_bitwise_deterministic(hd):
     """Each CTA of the tensor-core B2 owns its dQ rows and sums over the K
     tiles in one fixed order, without atomics: two launches at a ragged GQA
@@ -227,6 +226,31 @@ def test_tensor_core_dq_is_bitwise_deterministic(hd):
     second = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
     assert fa.variant_counts()["flash_bwd_dq"] == {"fma": 0, "wgmma": 2}
     assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_tensor_core_dq_row_without_probability_gives_zeros_not_nan(causal):
+    """B2 at hd 80 and a ragged S of 77 (one 128-row tile, rows 77-127 past
+    Sq): the kernel gives rows past Sq lse = +inf, so their p = exp(s - lse)
+    is 0. A row inside Sq handed lse = +inf takes that same path: its dQ
+    row is exactly zero, never NaN, and the other rows match the plain
+    version."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(4, 77, 80, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k, v = (torch.randn(2, 77, 80, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    lse[1, 40] = float("inf")
+    fa.reset_launch_counts()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    assert fa.variant_counts()["flash_bwd_dq"] == {"fma": 0, "wgmma": 1}
+    assert not dq.isnan().any()
+    assert torch.equal(dq[1, 40], torch.zeros(80, device="cuda", dtype=bf16))
+    want = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    assert torch.equal(want[1, 40], torch.zeros(80, device="cuda", dtype=bf16))
+    close(dq, want, bf16, "wgmma")
 
 
 @pytest.mark.cuda
