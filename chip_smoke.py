@@ -13,7 +13,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128; ragged S, non-causal, S under one tile,
                  MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80, 64
-                 and 32 run the tensor cores, the rest the FMA kernels.
+                 and 32 run wgmma, float32 B2 and B3 at every head dim
+                 three-product TF32 on mma.sync (tf32x3), the rest the
+                 FMA kernels.
                  Each kernel launches twice: the first launch's outputs
                  head buffers whose tails hold a marker that must come
                  back unchanged (no store past a tensor), and the second
@@ -25,7 +27,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  PyTorch library call (ms: calls back to back, what a
                  caller sees; device_ms: a CUDA graph of them, the
                  device's time alone), the least time the card could take
-                 (bound_ms), TFLOP/s and the share of the bound. From here
+                 (bound_ms), TFLOP/s and the share of the bound. At
+                 gqa4_f32, the names of the CUDA kernels that SDPA's
+                 float32 backward runs (torch.profiler): its backend. From here
                  on every launch is counted by shape (fa.shape_counts),
                  and the child processes that train report theirs.
 4. train_small - two DiLoCo rounds at a small float32 size from one
@@ -218,7 +222,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  the fleet from 1 to 2 replicas (the new child serves), idle
                  drains it back to 1.
 18. moe_small   - every MoE mode at a small float32 size (2 layers, hidden
-                 64, 4/2 heads: hd 16, the FMA kernels; vocab 384; 4 experts
+                 64, 4/2 heads: hd 16 in f32; vocab 384; 4 experts
                  top-2; TF32 off) from one parameter tree, two DiLoCo rounds
                  (W 2, H 2, grad_accum 2) on the card twice and on the CPU:
                  token-choice dense at cf 1.25 and at cf 0.25 (the capacity
@@ -226,8 +230,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  identical; card and CPU losses and snapshots agree within
                  train_small's 1e-3; the router probe on one snapshot agrees
                  (dropped within one assignment, entropy 1e-5); top-k ties
-                 come out lower index first on both; B1, B2, B3 launch, all
-                 on the FMA kernels.
+                 come out lower index first on both; B1, B2, B3 launch, B1
+                 on the FMA kernel, B2 and B3 on tf32x3.
 19. moe_train   - train() on bench.py's moe-8x-top2 (vocab 32000, hidden 512,
                  6 layers, 8/4 heads: hd 64 bf16; 8 experts top-2) at its
                  bench shape (S 1024 x B 8, W 2, H 2, 3 rounds), dense at cf
@@ -362,9 +366,14 @@ REPLACES = {
 SOURCE = {  # by variant
     "fma": "nanodiloco_tpu_torch/csrc/flash_attention.cu",
     "wgmma": "nanodiloco_tpu_torch/csrc/flash_attention_tc.cu",
+    "tf32x3": "nanodiloco_tpu_torch/csrc/flash_attention_tf32.cu",
 }
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3. The
+# float32 peak is the rate at which the card computes float32-accurate
+# products: three TF32 products each (3xTF32, as torch's memory-efficient
+# attention computes them) at the tensor cores' 495 TFLOP/s, above the CUDA
+# cores' 67; every float32 row is bound by it, the FMA kernels' included
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # (name, dtype, B, H, Hkv, S, hd, causal): every route-table row's edge
 # shapes (ragged S, non-causal, S under one tile, MHA, GQA) and the shapes
@@ -375,6 +384,9 @@ PEAK_BYTES = 3.35e12
 #   moe64e_hd32: llama_moe_64e through the CLI in moe_train (W 2 x b 8, MHA);
 #   tiny_hd32: bench.py's tiny model on one device (b 8);
 #   small_f32_hd64 / moe_small_f32_hd16: train_small's and moe_small's rounds;
+#   tiny_f32_hd32: TINY_LLAMA (configs/llama_default.json) in the float32 it
+#   trains in, at the reference CLI's --per-device-batch-size 8
+#   --seq-length 1024: a grid the tf32x3 kernels fill without a split;
 #   phi3_hd96 / phi2_hd80: Phi-3-mini's and Phi-2's attention (hidden 3072
 #   and 2560 over 32 heads, MHA) at B 2, S 2048, causal: hd 96 and 80 at a
 #   model's width, which no phase trains.
@@ -403,6 +415,7 @@ SHAPES = [
     ("small_f32_hd64", torch.float32, 2, 4, 2, 200, 64, True),
     ("mha_f32", torch.float32, 2, 4, 4, 256, 64, True),
     ("gqa4_f32", torch.float32, 1, 8, 2, 320, 128, True),
+    ("tiny_f32_hd32", torch.float32, 8, 4, 4, 1024, 32, True),
     ("noncausal_gqa2_f32", torch.float32, 2, 4, 2, 192, 32, False),
     ("ragged_f32", torch.float32, 1, 4, 1, 1000, 128, True),
     ("ragged_noncausal_f32", torch.float32, 1, 2, 2, 77, 64, False),
@@ -428,13 +441,22 @@ MAIN_PATH_ROUTES = ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16
 # times that at the worst of millions of outputs: ATOL 2**-8 of max|plain|
 # for those kernels, about twice the largest need measured on the card
 # (2.04e-3, dK at the MHA S=256 shape, where the FMA kernels' 2e-3 failed).
+# The float32 backward on the tensor cores (tf32x3) holds the FMA kernels'
+# own float32 tolerance: each product is three TF32 products of the
+# operands' hi and lo parts, which drops lo·lo (about 2**-22 relative) and
+# sums in another order (tests/test_torch_attention_tf32.py models it on the
+# CPU: under 1e-6 of max|plain|, where one TF32 product needs ~1e-3).
 TOL = {
     (torch.float32, "fma"): (1e-4, 1e-4),
+    (torch.float32, "tf32x3"): (1e-4, 1e-4),
     (torch.bfloat16, "fma"): (2e-3, 2.0**-7),
     (torch.bfloat16, "wgmma"): (2.0**-8, 2.0**-7),
 }
 TOL_REASON = {
     (torch.float32, "fma"): "f32 on both sides, summation order only",
+    (torch.float32, "tf32x3"): "three TF32 products (hi hi + hi lo + lo hi) of each f32 "
+                               "product, lo lo (~2**-22 relative) dropped, f32 sums in "
+                               "another order",
     (torch.bfloat16, "fma"): "bf16 outputs of f32 sums: one bf16 ulp apart at most",
     (torch.bfloat16, "wgmma"): "bf16 outputs one ulp apart, plus P (B1), dS (B2), P and dS "
                                "(B3) rounded to bf16 (2**-8) before the last product where "
@@ -681,6 +703,29 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
     return out
 
 
+def sdpa_backward_kernels(dtype, b: int, h: int, hkv: int, s: int, hd: int,
+                          causal: bool) -> list[str]:
+    """The CUDA kernels one backward of scaled_dot_product_attention runs at
+    this shape (torch.profiler, after a warm-up backward): which backend
+    SDPA takes, the yardstick of B2 + B3."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q = torch.randn(b, h, s, hd, generator=gen, device="cuda").to(dtype).requires_grad_(True)
+    k, v = (torch.randn(b, hkv, s, hd, generator=gen, device="cuda").to(dtype)
+            .requires_grad_(True) for _ in range(2))
+    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                           enable_gqa=True)
+    do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+    torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def phase_kernels() -> list[dict]:
     """Each kernel against its plain version at every shape of SHAPES, on
     its route's tolerance; timed at the first shape of every route that no
@@ -697,6 +742,9 @@ def phase_kernels() -> list[dict]:
         line = hold("kernels", name, dtype, b * h, b * hkv, s, hd, causal,
                     timed=(dtype, hd) not in timed)
         timed.add((dtype, hd))
+        if name == "gqa4_f32":
+            line["sdpa_backward_kernels"] = sdpa_backward_kernels(dtype, b, h, hkv, s, hd,
+                                                                  causal)
         emit(phase="kernels", ok=True, shape=name, B=b, H=h, Hkv=hkv, **line)
         for kname, t in line.get("timing", {}).items():
             off_path.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]],
@@ -794,7 +842,8 @@ def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
             for name in kernels}
 
 
-# train_small's size: float32, hd 64, so the FMA kernels run
+# train_small's size: float32, hd 64, so B1 runs the FMA kernel and B2, B3
+# three-product TF32 (tf32x3)
 SMALL_MODEL = LlamaConfig(vocab_size=384, hidden_size=256, intermediate_size=512,
                           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
                           attention_impl="flash", remat=True, loss_chunk=128)
@@ -826,9 +875,10 @@ def phase_train_small() -> None:
     """Two DiLoCo rounds at a small float32 size from one parameter tree,
     on the card (through the kernels) and on the CPU (through their plain
     versions): the per-step [W] losses and the final snapshot must agree.
-    Both sides run float32 matmuls in full float32 (TF32 off) and differ
-    only in summation order, which four AdamW steps amplify to ~1e-5
-    relative; 1e-3 bounds it."""
+    Both sides run float32 matmuls in full float32 (cuBLAS's TF32 off; the
+    attention backward's three TF32 products keep float32's accuracy but
+    for ~2**-22) and differ in summation order, which four AdamW steps
+    amplify to ~1e-5 relative; 1e-3 bounds it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     model, dcfg, rounds = SMALL_MODEL, DilocoConfig(**SMALL_DILOCO), small_rounds()
     params = init_params(torch.Generator().manual_seed(0), model, device="cpu")
@@ -1030,7 +1080,7 @@ def phase_train(smi: str) -> dict:
     if min(launches.values()) == 0:
         fail("train", f"a kernel was not launched on the main path: {launches}")
     # the bf16 hd-128 round: every kernel only through the tensor cores
-    if any(v["fma"] or not v["wgmma"] for v in variants.values()):
+    if any(not v["wgmma"] or sum(v.values()) != v["wgmma"] for v in variants.values()):
         fail("train", f"the main path did not run the routed variants: {variants}")
     # the evals: forward only, B1 on the tensor cores
     ev = summary["eval_kernel_launches"]
@@ -3424,8 +3474,8 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
 
 # -- Mixture-of-Experts --------------------------------------------------------
 
-# moe_small's size: float32, TF32 off, hidden 64 over 4/2 heads (hd 16,
-# the FMA kernels), 4 experts top-2
+# moe_small's size: float32, TF32 off, hidden 64 over 4/2 heads (hd 16:
+# B1 on the FMA kernel, B2 and B3 on tf32x3), 4 experts top-2
 MOE_SMALL = dataclasses.replace(SMALL_MODEL, hidden_size=64, intermediate_size=128,
                                 num_experts=4, num_experts_per_tok=2)
 MOE_SMALL_MODES = {

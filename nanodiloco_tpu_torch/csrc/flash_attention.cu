@@ -31,12 +31,14 @@
 // work is bound by operations. These kernels compute those products as
 // float32 FMAs from shared memory (64 x 64 tiles, a 4 x 4 or 4 x hd/16
 // register tile per thread) on the CUDA cores, whose float32 peak is
-// 67 TFLOP/s. They serve every float32 case (wgmma has no float32 path, and
-// TF32 would not hold the float32 tolerance) and bf16 where the tensor-core
-// kernels do not: all three kernels at hd 16. The rest of bf16 runs on the
-// tensor cores in flash_attention_tc.cu (route table in
-// ops/cuda/flash_attention.py), and is not instantiated here: a bf16 launch
-// at another head dim returns -1, never a second route.
+// 67 TFLOP/s. They serve what no tensor-core kernel does (route table in
+// ops/cuda/flash_attention.py): the float32 forward, B1, at every head dim,
+// and all three kernels in bf16 at hd 16. The float32 backward (B2, B3) runs
+// three-product TF32 on the tensor cores (flash_attention_tf32.cu: one TF32
+// product would not hold the float32 tolerance, three do), and the rest of
+// bf16 runs wgmma (flash_attention_tc.cu). Neither is instantiated here: a
+// float32 B2 or B3 launch, or a bf16 launch at another head dim, returns -1,
+// never a second route.
 //
 // Head dims: 16, 32, 64, 80, 96 and 128 (the templates take any multiple of
 // 16; these are the ones the launchers instantiate). hd 256 stays refused:
@@ -470,8 +472,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype 0 = float32, at every head dim above; dtype 1 = bfloat16, where no
-// tensor-core kernel (flash_attention_tc.cu) serves: hd 16.
+// dtype 0 = float32, at every head dim above (B1 only); dtype 1 = bfloat16,
+// where no tensor-core kernel (flash_attention_tc.cu) serves: hd 16.
 #define ND_HD(T, HD, LAUNCH, ...) \
   if (hd == HD) return LAUNCH<T, HD>(__VA_ARGS__);
 #define ND_F32(LAUNCH, ...)                  \
@@ -507,9 +509,7 @@ int nd_flash_bwd_dq(int dtype, int hd, const void* q, const void* k,
                     const float* delta, void* dq, int bh, int group, int sq,
                     int sk, int causal, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    ND_F32(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
-  } else if (dtype == 1) {
+  if (dtype == 1) {
     ND_BF16(launch_dq, q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st)
   }
   return -1;
@@ -520,9 +520,7 @@ int nd_flash_bwd_dkv(int dtype, int hd, const void* q, const void* k,
                      const float* delta, void* dk, void* dv, int bh, int group,
                      int sq, int sk, int causal, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    ND_F32(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal, scale, st)
-  } else if (dtype == 1) {
+  if (dtype == 1) {
     ND_BF16(launch_dkv, q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal, scale,
             st)
   }

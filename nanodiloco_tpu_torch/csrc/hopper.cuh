@@ -1,6 +1,7 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory addresses,
 // mbarriers, TMA tile loads, wgmma with shared-memory descriptors, bf16
-// fragments in registers, and the host-side TMA descriptor encoder.
+// fragments in registers, cp.async, three-product TF32 on mma.sync, and the
+// host-side TMA descriptor encoder.
 //
 // Tiles are bf16 rows of N = 128, 96, 64 or 32 elements (the tile's width:
 // the head dim, or 96 for an hd-80 tensor, whose columns 80-95 TMA fills with
@@ -317,6 +318,81 @@ __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], uint32_t a0, uint
     static_assert(N == 32, "wgmma_rs_tb: N is 128, 96, 64 or 32");
     wgmma_m64n32k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
   }
+}
+
+// ---------------------------------------------------------------------------
+// cp.async: 16 or 4 bytes from global to shared memory, per thread. A
+// `src_bytes` below the copy's size fills the rest with zeros (0: all zeros,
+// nothing read). Completion is tracked per thread by commit groups.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Three-product TF32 ("3xTF32") on mma.sync: float32 products on the tensor
+// cores at about float32's accuracy. x splits into hi = tf32(x) and
+// lo = tf32(x - hi) (x - hi is exact in float32), and a * b is taken as
+// lo_a hi_b + hi_a lo_b + hi_a hi_b, summed small terms first into one
+// float32 accumulator (CUTLASS's OpMultiplyAddFastF32 order); the dropped
+// lo_a lo_b is about 2^-22 of |a b|. One product alone (hi_a hi_b) keeps
+// TF32's 2^-11.
+//
+// m16n8k8 fragments of warp lane l (g = l / 4, t = l % 4), one 32-bit value
+// a register:
+//   A [16 x 8] (row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+//     a3 (g + 8, t + 4);
+//   B [8 x 8] (k x n, "col"): b0 (t, g), b1 (t + 4, g);
+//   C, D [16 x 8] float32: c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t),
+//     c3 (g + 8, 2t + 1).
+// A product's k order is free as long as A and B agree, so an accumulator
+// tile is the A fragment of the next product over its columns as they lie:
+// take k = t as column 2t and k = t + 4 as column 2t + 1 (a0 = c0, a1 = c2,
+// a2 = c1, a3 = c3) and read B's rows 2t and 2t + 1 to match.
+// ---------------------------------------------------------------------------
+// x rounded to TF32 (10 mantissa bits): to nearest, ties away from zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D[16 x 8] += A[16 x 8] B[8 x 8] in TF32 with a float32 accumulator.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D += A B as 3xTF32, from the split fragments of A and B.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                           const uint32_t (&b_lo)[2]) {
+  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+  mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 
 // ---------------------------------------------------------------------------

@@ -9,7 +9,7 @@ B2  ``flash_bwd_dq``            replaces ``_flash_bwd`` / ``_bwd_dq_kernel``
 B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 ==  ==========================  ==============================================
 
-Each kernel comes in up to two variants, and ``ROUTES`` names the one
+Each kernel comes in up to three variants, and ``ROUTES`` names the one
 that serves each (kernel, dtype, head dim), at head dims 16, 32, 64, 80,
 96 and 128 (``HEAD_DIMS``; any other raises):
 
@@ -17,10 +17,18 @@ that serves each (kernel, dtype, head dim), at head dims 16, 32, 64, 80,
   (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: all
   three kernels at hd 128, 96, 80, 64 and 32 (hd 80 in the hd-96 tile,
   its last 16 columns zeros);
-- ``fma``: float32 FMA kernels from shared memory for every other case
-  (``nanodiloco_tpu_torch/csrc/flash_attention.cu``): every float32 row
-  (wgmma has no float32 path, and TF32 would not hold the float32
-  tolerance) and bf16 at hd 16.
+- ``tf32x3``: the float32 backward, B2 and B3 at every head dim, on the
+  tensor cores as three-product TF32 with mma.sync
+  (``nanodiloco_tpu_torch/csrc/flash_attention_tf32.cu``). One TF32
+  product keeps 10 mantissa bits and would not hold the float32
+  tolerance; hi·hi + hi·lo + lo·hi of each operand's split keeps about
+  2^-22. wgmma's tf32 takes K-major operands only, where dV, dK and dQ
+  read dO, Q and K along their rows. Each launch splits its loop into
+  ``bwd_splits`` parts (CTAs) so that small shapes fill the card, and a
+  second pass sums the parts in a fixed order (no atomics);
+- ``fma``: float32 FMA kernels from shared memory for the rest
+  (``nanodiloco_tpu_torch/csrc/flash_attention.cu``): the float32
+  forward at every head dim and all three kernels in bf16 at hd 16.
 
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
@@ -51,18 +59,24 @@ from nanodiloco_tpu_torch.ops.online_softmax import NEG_INF, block_update
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-VARIANTS = ("fma", "wgmma")
-# the head dims the tensor-core kernels take, in bf16 only (all three alike)
+VARIANTS = ("fma", "wgmma", "tf32x3")
+# the head dims the wgmma kernels take, in bf16 only (all three alike)
 _TENSOR_CORE_HEAD_DIMS = (32, 64, 80, 96, 128)
-# the variant that serves each (kernel, dtype, head dim): the tensor cores
-# for bf16 where they take the head dim, the FMA kernels everywhere else
-# (every float32 row included)
-ROUTES = {
-    (name, dtype, hd): (
-        "wgmma" if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS else "fma"
-    )
-    for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS
-}
+
+
+def _route(name: str, dtype, hd: int) -> str:
+    if dtype == torch.bfloat16:
+        return "wgmma" if hd in _TENSOR_CORE_HEAD_DIMS else "fma"
+    return "fma" if name == "flash_fwd" else "tf32x3"
+
+
+# the variant that serves each (kernel, dtype, head dim): wgmma for bf16
+# where it takes the head dim, 3xTF32 for the float32 backward, the FMA
+# kernels for the rest (the float32 forward, bf16 at hd 16)
+ROUTES = {(name, dtype, hd): _route(name, dtype, hd)
+          for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS}
+# the H100's SMs: one wave of the tf32x3 kernels at one CTA an SM
+SMS = 132
 _MAX_GRID_Y = 65535
 # K/V rows per step of the plain versions (their memory is O(S x block))
 PLAIN_BLOCK = 512
@@ -96,13 +110,48 @@ def _tc_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _tf32_lib() -> ctypes.CDLL:
+    lib = build.library("flash_attention_tf32")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nd_flash_bwd_dq_tf32.argtypes = [I] + [P] * 8 + [I] * 5 + [F, I, P]
+    lib.nd_flash_bwd_dkv_tf32.argtypes = [I] + [P] * 9 + [I] * 5 + [F, I, P]
+    for fn in (lib.nd_flash_bwd_dq_tf32, lib.nd_flash_bwd_dkv_tf32):
+        fn.restype = I
+    lib.nd_tf32_error_string.argtypes = [I]
+    lib.nd_tf32_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _raise_on(rc: int, name: str, variant: str = "fma") -> None:
     if rc != 0:
         if variant == "wgmma":
             msg = _tc_lib().nd_tc_error_string(rc).decode()
+        elif variant == "tf32x3":
+            msg = _tf32_lib().nd_tf32_error_string(rc).decode()
         else:
             msg = _lib().nd_error_string(rc).decode()
         raise RuntimeError(f"{name} ({variant}) kernel launch failed ({rc}): {msg}")
+
+
+def _splits(ctas: int, pairs: int) -> int:
+    """Parts to split each CTA's loop of ``pairs`` steps into, one CTA
+    each: the fewest that give at least two waves of ``SMS`` CTAs, and
+    never more parts than steps. It depends on the shape alone, so two
+    launches sum in the same order."""
+    return max(1, min(pairs, -(-2 * SMS // max(ctas, 1))))
+
+
+def bwd_splits(name: str, bh: int, bh_kv: int, sq: int, sk: int, causal: bool) -> int:
+    """The split count of a tf32x3 launch of ``name`` (``flash_bwd_dq`` or
+    ``flash_bwd_dkv``): B2 has one CTA per (head, 64-row q tile), looping
+    over up to ``nk`` K tiles (under the causal mask, the last q tile's);
+    B3 one per (KV head, 64-key tile), looping over ``group x nq`` (query
+    head, q tile) pairs."""
+    nq, nk = -(-sq // 64), -(-sk // 64)
+    if name == "flash_bwd_dq":
+        return _splits(bh * nq, min(nk, nq) if causal else nk)
+    return _splits(bh_kv * nk, (bh // bh_kv) * nq)
 
 
 def shape_key(dtype, bh: int, bh_kv: int, sq: int, sk: int, hd: int, causal: bool) -> str:
@@ -286,7 +335,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
             delta.data_ptr(), dq.data_ptr())
     shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        if variant == "wgmma":
+        if variant == "tf32x3":
+            splits = bwd_splits("flash_bwd_dq", bh, k.shape[0], sq, k.shape[1], causal)
+            ws = (torch.empty((splits, bh, sq, hd), device=q.device, dtype=torch.float32)
+                  if splits > 1 else None)
+            rc = _tf32_lib().nd_flash_bwd_dq_tf32(
+                hd, *ptrs, None if ws is None else ws.data_ptr(), *shape, splits, _stream(q))
+        elif variant == "wgmma":
             rc = _tc_lib().nd_flash_bwd_dq_tc(hd, *ptrs, *shape, _stream(q))
         else:
             rc = _lib().nd_flash_bwd_dq(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
@@ -309,7 +364,14 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
     with torch.cuda.device(q.device):
-        if variant == "wgmma":
+        if variant == "tf32x3":
+            bh_kv, sk = k.shape[:2]
+            splits = bwd_splits("flash_bwd_dkv", bh, bh_kv, sq, sk, causal)
+            ws = (torch.empty((splits, 2, bh_kv, sk, hd), device=q.device, dtype=torch.float32)
+                  if splits > 1 else None)
+            rc = _tf32_lib().nd_flash_bwd_dkv_tf32(
+                hd, *ptrs, None if ws is None else ws.data_ptr(), *shape, splits, _stream(q))
+        elif variant == "wgmma":
             rc = _tc_lib().nd_flash_bwd_dkv_tc(hd, *ptrs, *shape, _stream(q))
         else:
             rc = _lib().nd_flash_bwd_dkv(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
@@ -345,7 +407,7 @@ def launch_counts() -> dict[str, int]:
 
 def variant_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel by variant, e.g.
-    ``{"flash_fwd": {"fma": 0, "wgmma": 4}, ...}``."""
+    ``{"flash_fwd": {"fma": 0, "wgmma": 4, "tf32x3": 0}, ...}``."""
     return {fn.__name__: dict(fn.variant_launches) for fn in KERNELS}
 
 

@@ -21,7 +21,16 @@ parent commit unpacked with ``git archive``). ``--shape`` names shapes of
   80, causal (Phi-3-mini's and Phi-2's hidden 3072 and 2560 over 32 heads);
 - ``gqa4_bf16_hd96`` (B 1, H 8, Hkv 2, S 256, causal) and
   ``noncausal_bf16_hd80`` (B 1, H 4, Hkv 4, S 77, not causal): chip_smoke.py's
-  edge shapes of the hd-96 and hd-80 routes.
+  edge shapes of the hd-96 and hd-80 routes;
+- ``small_f32_hd64``: float32, B 2, H 4, Hkv 2, S 200, hd 64, causal
+  (chip_smoke.py's train_small and diloco_options_small);
+- ``gqa4_f32``: float32, B 1, H 8, Hkv 2, S 320, hd 128, causal;
+- ``tiny_f32_hd32``: float32, B 8, H 4, Hkv 4, S 1024, hd 32, causal
+  (configs/llama_default.json in float32 at the reference CLI's batch 8,
+  S 1024);
+- ``moe_small_f32_hd16``: float32, B 2, H 4, Hkv 2, S 200, hd 16, causal
+  (chip_smoke.py's moe_small);
+- ``phi3_f32_hd96`` / ``phi2_f32_hd80``: phi3_hd96 and phi2_hd80 in float32.
 
 B counts every worker's sequences: the model folds W x b into B before
 attention.
@@ -30,7 +39,10 @@ Each turn is a fresh process that builds that checkout's kernels from its
 own sources and prints, per shape, the CUDA-event median over 20 samples
 of 10 launches back to back, per launch (chip_smoke.py's timing), for each
 kernel, and for ``scaled_dot_product_attention`` on the same inputs (the
-yardstick: its forward, and one backward for dQ, dK and dV together). The
+yardstick: its forward, and one backward for dQ, dK and dV together); and
+under ``<name>_device`` the device's time alone (chip_smoke.py's
+``device_ms``: 10 calls captured in one CUDA graph, replayed between CUDA
+events, median of 20). The
 script prints one JSON line with every turn and the per-shape, per-kernel
 median over each tree's turns, and the card's name and power limit. Needs
 a CUDA card; fails without one.
@@ -56,6 +68,12 @@ SHAPES = {
     "phi2_hd80": ("bfloat16", 2, 32, 32, 2048, 80, True),
     "gqa4_bf16_hd96": ("bfloat16", 1, 8, 2, 256, 96, True),
     "noncausal_bf16_hd80": ("bfloat16", 1, 4, 4, 77, 80, False),
+    "small_f32_hd64": ("float32", 2, 4, 2, 200, 64, True),
+    "gqa4_f32": ("float32", 1, 8, 2, 320, 128, True),
+    "tiny_f32_hd32": ("float32", 8, 4, 4, 1024, 32, True),
+    "moe_small_f32_hd16": ("float32", 2, 4, 2, 200, 16, True),
+    "phi3_f32_hd96": ("float32", 2, 32, 32, 2048, 96, True),
+    "phi2_f32_hd80": ("float32", 2, 32, 32, 2048, 80, True),
 }
 
 # run inside each turn's process, with the checkout's root first on sys.path
@@ -84,6 +102,31 @@ def median_ms(fn):
     return statistics.median(times)
 
 
+def device_ms(fn, stream):
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        for _ in range(3):
+            fn()
+        graph.capture_begin(capture_error_mode="relaxed")
+        try:
+            for _ in range(10):
+                fn()
+        finally:
+            graph.capture_end()
+    graph.replay()
+    times = []
+    for _ in range(20):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / 10)
+    graph.reset()
+    return statistics.median(times)
+
+
 out = {}
 for name, (dtype, b, h, hkv, s, hd, causal) in json.loads(sys.argv[2]).items():
     dtype = getattr(torch, dtype)
@@ -105,6 +148,17 @@ for name, (dtype, b, h, hkv, s, hd, causal) in json.loads(sys.argv[2]).items():
                                                 retain_graph=True),
     }
     out[name] = {kname: median_ms(fn) for kname, fn in calls.items()}
+    # the graphs' stream, and SDPA leaves made on it (a captured backward
+    # runs on its leaves' accumulators' stream)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = [x.detach().requires_grad_(True) for x in (ql, kl, vl)]
+        ref_side = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+    calls["sdpa_fwd"] = lambda: sdpa(*leaves, is_causal=causal, enable_gqa=True)
+    calls["sdpa_bwd"] = lambda: torch.autograd.grad(ref_side, leaves, do.view(b, h, s, hd),
+                                                    retain_graph=True)
+    out[name].update({f"{kname}_device": device_ms(fn, side) for kname, fn in calls.items()})
     out[name]["variants"] = {kname: fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES}
 print(json.dumps(out))
 """

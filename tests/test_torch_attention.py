@@ -171,7 +171,8 @@ def test_cpu_tensors_never_launch():
     q = torch.randn(1, 16, 2, 32, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    assert fa.variant_counts() == {name: {"fma": 0, "wgmma": 0} for name in fa.KERNEL_NAMES}
+    assert fa.variant_counts() == {name: {"fma": 0, "wgmma": 0, "tf32x3": 0}
+                                   for name in fa.KERNEL_NAMES}
     assert fa.shape_counts() == {name: {} for name in fa.KERNEL_NAMES}
 
 
@@ -196,14 +197,19 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 goes to the tensor-core kernels for B1, B2 and B3 alike, at hd
-    128, 96, 80, 64 and 32; every float32 case and bf16 at hd 16 go to the
-    FMA kernels."""
-    tensor_cores = dtype == torch.bfloat16 and hd in (128, 96, 80, 64, 32)
-    assert fa.ROUTES[name, dtype, hd] == ("wgmma" if tensor_cores else "fma")
-    # B2 takes the tensor cores exactly where B1 and B3 do
-    assert {fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES} == {
-        fa.ROUTES[name, dtype, hd]}
+    """bf16 goes to the wgmma kernels for B1, B2 and B3 alike, at hd 128,
+    96, 80, 64 and 32, and to the FMA kernels at hd 16; in float32 the
+    backward (B2, B3) goes to three-product TF32 on the tensor cores at
+    every head dim, and the forward (B1) to the FMA kernel."""
+    if dtype == torch.bfloat16:
+        want = "wgmma" if hd in (128, 96, 80, 64, 32) else "fma"
+        # B2 takes the tensor cores exactly where B1 and B3 do
+        assert {fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES} == {want}
+    else:
+        want = "fma" if name == "flash_fwd" else "tf32x3"
+        # the backward pair shares one route
+        assert fa.ROUTES["flash_bwd_dq", dtype, hd] == fa.ROUTES["flash_bwd_dkv", dtype, hd]
+    assert fa.ROUTES[name, dtype, hd] == want
 
 
 def tensor_core_dq(q, k, v, do, lse, delta, causal):
@@ -413,6 +419,21 @@ def test_tensor_core_build_failure_raises(tmp_path, monkeypatch):
     finally:
         fa._tc_lib.cache_clear()
         build.library.cache_clear()
+
+
+def test_tf32_launch_failure_raises(monkeypatch):
+    """A tf32x3 launcher's non-zero return code raises with that library's
+    message (a split count out of range: -2); nothing falls back."""
+
+    class Lib:
+        @staticmethod
+        def nd_tf32_error_string(rc):
+            return b"split count out of [1, 65535]"
+
+    monkeypatch.setattr(fa, "_tf32_lib", lambda: Lib)
+    fa._raise_on(0, "flash_bwd_dkv", "tf32x3")
+    with pytest.raises(RuntimeError, match=r"flash_bwd_dkv \(tf32x3\).*split count"):
+        fa._raise_on(-2, "flash_bwd_dkv", "tf32x3")
 
 
 def test_tensor_core_launch_failure_raises(monkeypatch):
