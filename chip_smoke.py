@@ -13,9 +13,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128; ragged S, non-causal, S under one tile,
                  MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80, 64
-                 and 32 run wgmma, float32 B2 and B3 at every head dim
-                 three-product TF32 on mma.sync (tf32x3), the rest the
-                 FMA kernels.
+                 and 32 run wgmma, the rest (every float32 row, bf16
+                 at hd 16) three-product TF32 on mma.sync (tf32x3).
+                 The dispatcher at head dims outside the six (ROADMAP
+                 C3: 48 in float32 and bf16, 8 in bf16), zero-padded to
+                 the next: output and gradients against the plain
+                 versions at the true head dim.
                  Each kernel launches twice: the first launch's outputs
                  head buffers whose tails hold a marker that must come
                  back unchanged (no store past a tensor), and the second
@@ -28,8 +31,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  caller sees; device_ms: a CUDA graph of them, the
                  device's time alone), the least time the card could take
                  (bound_ms), TFLOP/s and the share of the bound. At
-                 gqa4_f32, the names of the CUDA kernels that SDPA's
-                 float32 backward runs (torch.profiler): its backend. From here
+                 gqa4_f32 and mha_f32_hd96, the names of the CUDA kernels
+                 that SDPA's float32 forward and backward run
+                 (torch.profiler): its backend. From here
                  on every launch is counted by shape (fa.shape_counts),
                  and the child processes that train report theirs.
 4. train_small - two DiLoCo rounds at a small float32 size from one
@@ -230,8 +234,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  identical; card and CPU losses and snapshots agree within
                  train_small's 1e-3; the router probe on one snapshot agrees
                  (dropped within one assignment, entropy 1e-5); top-k ties
-                 come out lower index first on both; B1, B2, B3 launch, B1
-                 on the FMA kernel, B2 and B3 on tf32x3.
+                 come out lower index first on both; B1, B2, B3 launch,
+                 all three on tf32x3.
 19. moe_train   - train() on bench.py's moe-8x-top2 (vocab 32000, hidden 512,
                  6 layers, 8/4 heads: hd 64 bf16; 8 experts top-2) at its
                  bench shape (S 1024 x B 8, W 2, H 2, 3 rounds), dense at cf
@@ -363,16 +367,16 @@ REPLACES = {
     "flash_bwd_dq": "nanodiloco_tpu/ops/pallas/flash_attention.py:254",
     "flash_bwd_dkv": "nanodiloco_tpu/ops/pallas/flash_attention.py:292",
 }
-SOURCE = {  # by variant
-    "fma": "nanodiloco_tpu_torch/csrc/flash_attention.cu",
-    "wgmma": "nanodiloco_tpu_torch/csrc/flash_attention_tc.cu",
-    "tf32x3": "nanodiloco_tpu_torch/csrc/flash_attention_tf32.cu",
+SOURCE = {  # by variant, then kernel
+    "wgmma": dict.fromkeys(fa.KERNEL_NAMES, "nanodiloco_tpu_torch/csrc/flash_attention_tc.cu"),
+    "tf32x3": {name: f"nanodiloco_tpu_torch/csrc/flash_attention_tf32_{part}.cu"
+               for name, part in zip(fa.KERNEL_NAMES, ("fwd", "dq", "dkv"))},
 }
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3. The
 # float32 peak is the rate at which the card computes float32-accurate
 # products: three TF32 products each (3xTF32, as torch's memory-efficient
 # attention computes them) at the tensor cores' 495 TFLOP/s, above the CUDA
-# cores' 67; every float32 row is bound by it, the FMA kernels' included
+# cores' 67; every float32 row is bound by it
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # (name, dtype, B, H, Hkv, S, hd, causal): every route-table row's edge
@@ -430,34 +434,35 @@ SHAPES = [
 MAIN_PATH_ROUTES = ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 32),
                     (torch.float32, 64), (torch.float32, 16))
 # |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|, elementwise, per
-# (dtype, variant). The FMA kernels compute in float32 from the same inputs
-# as the plain versions and differ only in summation order: ~1e-6 relative
-# in float32, and in bf16 the two float32 results may round to neighbouring
-# bf16 values (RTOL 2**-7). The tensor-core kernels also round P (B1), dS
-# (B2) and P and dS (B3) to bf16 (relative error <= 2**-9 each) as the left
-# operand of the last product, where the plain versions keep float32 (rounding
-# error up to 2**-8 of each term). Summed over a row of random-signed terms
-# that adds an error of about 2**-8 / sqrt(3) of the output's rms, a few
-# times that at the worst of millions of outputs: ATOL 2**-8 of max|plain|
-# for those kernels, about twice the largest need measured on the card
-# (2.04e-3, dK at the MHA S=256 shape, where the FMA kernels' 2e-3 failed).
-# The float32 backward on the tensor cores (tf32x3) holds the FMA kernels'
-# own float32 tolerance: each product is three TF32 products of the
-# operands' hi and lo parts, which drops lo·lo (about 2**-22 relative) and
-# sums in another order (tests/test_torch_attention_tf32.py models it on the
-# CPU: under 1e-6 of max|plain|, where one TF32 product needs ~1e-3).
+# (dtype, variant). tf32x3 in float32: each product is three TF32 products
+# of the operands' hi and lo parts, which drops lo·lo (about 2**-22
+# relative) and sums in another order than the plain versions
+# (tests/test_torch_attention_tf32.py and test_torch_attention_tf32_fwd.py
+# model it on the CPU: under 1e-6 of max|plain|, where one TF32 product
+# needs ~1e-3): the float32 tolerance, 1e-4. tf32x3 in bf16 (hd 16): the
+# inputs are exact in TF32 and P and dS keep both parts, so the sums are
+# float32-accurate and only their rounding to bf16 parts them from the
+# plain versions' (one bf16 ulp, RTOL 2**-7). The wgmma kernels also round
+# P (B1), dS (B2) and P and dS (B3) to bf16 (relative error <= 2**-9 each)
+# as the left operand of the last product, where the plain versions keep
+# float32 (rounding error up to 2**-8 of each term). Summed over a row of
+# random-signed terms that adds an error of about 2**-8 / sqrt(3) of the
+# output's rms, a few times that at the worst of millions of outputs: ATOL
+# 2**-8 of max|plain| for those kernels, about twice the largest need
+# measured on the card (2.04e-3, dK at the MHA S=256 shape, where 2e-3
+# failed).
 TOL = {
-    (torch.float32, "fma"): (1e-4, 1e-4),
     (torch.float32, "tf32x3"): (1e-4, 1e-4),
-    (torch.bfloat16, "fma"): (2e-3, 2.0**-7),
+    (torch.bfloat16, "tf32x3"): (2e-3, 2.0**-7),
     (torch.bfloat16, "wgmma"): (2.0**-8, 2.0**-7),
 }
 TOL_REASON = {
-    (torch.float32, "fma"): "f32 on both sides, summation order only",
     (torch.float32, "tf32x3"): "three TF32 products (hi hi + hi lo + lo hi) of each f32 "
                                "product, lo lo (~2**-22 relative) dropped, f32 sums in "
                                "another order",
-    (torch.bfloat16, "fma"): "bf16 outputs of f32 sums: one bf16 ulp apart at most",
+    (torch.bfloat16, "tf32x3"): "bf16 inputs exact in TF32, P and dS with both parts: "
+                                "f32-accurate sums rounded to bf16, one bf16 ulp apart "
+                                "at most",
     (torch.bfloat16, "wgmma"): "bf16 outputs one ulp apart, plus P (B1), dS (B2), P and dS "
                                "(B3) rounded to bf16 (2**-8) before the last product where "
                                "plain keeps f32",
@@ -668,7 +673,7 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
         o, lse = launch_twice(phase, f"{tag} B1", lambda: fa.flash_fwd(q, k, v, causal))
         checks["flash_fwd"] = [within(phase, f"{tag} O", o, o_ref, tol["flash_fwd"]),
                                within(phase, f"{tag} lse", lse, lse_ref,
-                                      TOL[torch.float32, "fma"])]
+                                      TOL[torch.float32, "tf32x3"])]
     if "flash_bwd_dq" in kernels:
         (dq,) = launch_twice(phase, f"{tag} B2", lambda: (
             fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),))
@@ -703,27 +708,81 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
     return out
 
 
-def sdpa_backward_kernels(dtype, b: int, h: int, hkv: int, s: int, hd: int,
-                          causal: bool) -> list[str]:
-    """The CUDA kernels one backward of scaled_dot_product_attention runs at
-    this shape (torch.profiler, after a warm-up backward): which backend
-    SDPA takes, the yardstick of B2 + B3."""
+# head dims outside fa.HEAD_DIMS (ROADMAP C3), which the dispatcher pads to
+# the next one: 48 -> 64 (float32 tf32x3, bf16 wgmma), 8 -> 16 (bf16 tf32x3)
+PADDED = ((torch.float32, 48), (torch.bfloat16, 48), (torch.bfloat16, 8))
+
+
+def hold_padded(dtype, hd: int) -> dict:
+    """The dispatcher (``cuda_flash_attention``) at a head dim outside
+    fa.HEAD_DIMS, B 2, S 200, 4/2 heads, causal: its output and dQ, dK, dV
+    against the plain versions at the true head dim, on the padded route's
+    tolerance (the gradients on the kernel's own lse and delta, as autograd
+    hands them over). Returns the line's fields."""
+    b, s, h, hkv = 2, 200, 4, 2
+    width = next(d for d in fa.HEAD_DIMS if d >= hd)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, ct = (torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    out = fa.cuda_flash_attention(*leaves, causal=True)
+    out.backward(ct)
+
+    def flat(x):  # [B, S, heads, hd] -> [B x heads, S, hd]
+        return x.transpose(1, 2).reshape(-1, s, hd).contiguous()
+
+    got = dict(zip(("O", "dQ", "dK", "dV"), map(flat, (out, *(x.grad for x in leaves)))))
+    if any(x.shape[-1] != hd for x in got.values()):
+        fail("kernels", f"padded hd {hd}: outputs of {[x.shape for x in got.values()]}")
+    qf, kf, vf, dof = map(flat, (q, k, v, ct))
+    o_pad, lse = fa.flash_fwd(*(torch.nn.functional.pad(x, (0, width - hd)) for x in (qf, kf, vf)),
+                              True, hd ** -0.5)
+    delta = (dof.float() * o_pad[..., :hd].float()).sum(-1, keepdim=True)
+    want = dict(zip(("O", "dQ", "dK", "dV"), (
+        fa.flash_fwd_plain(qf, kf, vf, True)[0],
+        fa.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, True),
+        *fa.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, True))))
+    variant = fa.ROUTES["flash_fwd", dtype, width]
+    checks = {name: within("kernels", f"padded hd {hd} {name}", got[name], want[name],
+                           TOL[dtype, variant]) for name in got}
+    torch.cuda.synchronize()
+    return {"dtype": str(dtype).removeprefix("torch."), "hd": hd, "padded_to": width,
+            "variant": variant, "max_abs_err": {n: e for n, (e, _) in checks.items()},
+            "atol_of_max_needed": {n: need for n, (_, need) in checks.items()}}
+
+
+def sdpa_kernels(dtype, b: int, h: int, hkv: int, s: int, hd: int,
+                 causal: bool) -> dict[str, list[str]]:
+    """The CUDA kernels one forward and one backward of
+    scaled_dot_product_attention run at this shape (torch.profiler, after a
+    warm-up of each): which backend SDPA takes, the yardstick of B1 and of
+    B2 + B3."""
     from torch.profiler import ProfilerActivity, profile
+
+    def names(fn) -> list[str]:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sorted({e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     q = torch.randn(b, h, s, hd, generator=gen, device="cuda").to(dtype).requires_grad_(True)
     k, v = (torch.randn(b, hkv, s, hd, generator=gen, device="cuda").to(dtype)
             .requires_grad_(True) for _ in range(2))
-    out = torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                           enable_gqa=True)
+
+    def forward():
+        return torch.nn.functional.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                enable_gqa=True)
+
+    out = forward()
     do = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
-    torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(out, (q, k, v), do, retain_graph=True)
-        torch.cuda.synchronize()
-    return sorted({e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA})
+    return {"forward": names(forward),
+            "backward": names(lambda: torch.autograd.grad(out, (q, k, v), do,
+                                                          retain_graph=True))}
 
 
 def phase_kernels() -> list[dict]:
@@ -742,15 +801,16 @@ def phase_kernels() -> list[dict]:
         line = hold("kernels", name, dtype, b * h, b * hkv, s, hd, causal,
                     timed=(dtype, hd) not in timed)
         timed.add((dtype, hd))
-        if name == "gqa4_f32":
-            line["sdpa_backward_kernels"] = sdpa_backward_kernels(dtype, b, h, hkv, s, hd,
-                                                                  causal)
+        if name in ("gqa4_f32", "mha_f32_hd96"):
+            line["sdpa_kernels"] = sdpa_kernels(dtype, b, h, hkv, s, hd, causal)
         emit(phase="kernels", ok=True, shape=name, B=b, H=h, Hkv=hkv, **line)
         for kname, t in line.get("timing", {}).items():
-            off_path.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]],
+            off_path.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]][kname],
                              "replaces": REPLACES[kname], "shape": name, "launches": 0,
                              "launches_by_phase": {}, **t})
         torch.cuda.empty_cache()
+    for dtype, hd in PADDED:
+        emit(phase="kernels", ok=True, shape=f"padded_hd{hd}", **hold_padded(dtype, hd))
     return off_path
 
 
@@ -782,7 +842,7 @@ def phase_kernels_main(path: dict) -> list[dict]:
         emit(phase="kernels_main", ok=True, shape=key, launches=at[key], **out)
         for kname in kernels:
             t = out["timing"][kname]
-            line.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]],
+            line.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]][kname],
                          "replaces": REPLACES[kname], "shape": key,
                          "launches": sum(at[key][kname].values()),
                          "launches_by_phase": at[key][kname], **t})
@@ -842,8 +902,8 @@ def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
             for name in kernels}
 
 
-# train_small's size: float32, hd 64, so B1 runs the FMA kernel and B2, B3
-# three-product TF32 (tf32x3)
+# train_small's size: float32, hd 64, so B1, B2 and B3 run three-product
+# TF32 (tf32x3)
 SMALL_MODEL = LlamaConfig(vocab_size=384, hidden_size=256, intermediate_size=512,
                           num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
                           attention_impl="flash", remat=True, loss_chunk=128)
@@ -1084,7 +1144,7 @@ def phase_train(smi: str) -> dict:
         fail("train", f"the main path did not run the routed variants: {variants}")
     # the evals: forward only, B1 on the tensor cores
     ev = summary["eval_kernel_launches"]
-    if (not ev["flash_fwd"]["wgmma"] or ev["flash_fwd"]["fma"]
+    if (not ev["flash_fwd"]["wgmma"]
             or any(sum(ev[k].values()) for k in ("flash_bwd_dq", "flash_bwd_dkv"))):
         fail("train", f"the evals did not run B1 (wgmma) alone: {ev}")
     if not math.isfinite(summary.get("eval_loss", math.nan)):
@@ -3475,7 +3535,7 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
 # -- Mixture-of-Experts --------------------------------------------------------
 
 # moe_small's size: float32, TF32 off, hidden 64 over 4/2 heads (hd 16:
-# B1 on the FMA kernel, B2 and B3 on tf32x3), 4 experts top-2
+# B1, B2 and B3 on tf32x3), 4 experts top-2
 MOE_SMALL = dataclasses.replace(SMALL_MODEL, hidden_size=64, intermediate_size=128,
                                 num_experts=4, num_experts_per_tok=2)
 MOE_SMALL_MODES = {

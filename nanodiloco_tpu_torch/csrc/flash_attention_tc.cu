@@ -1,6 +1,7 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1), dQ
 // (B2) and dK/dV (B3) at head dims 128, 96, 80, 64 and 32. The float32 path
-// and bf16 at hd 16 run on the FMA kernels of flash_attention.cu;
+// and bf16 at hd 16 run the three-product TF32 kernels of
+// flash_attention_tf32_{fwd,dq,dkv}.cu;
 // ops/cuda/flash_attention.py holds the route table that picks one kernel per
 // (kernel, dtype, head dim).
 //
@@ -16,8 +17,8 @@
 // two, B2 three and B3 four S x S x hd products per head on O(S x hd) bytes,
 // some 300x above the card's ~295 flop/byte ridge; at moe-8x-top2's shape
 // (S 1024, hd 64) still ~100x: all are bound by operations, and only the
-// tensor cores (wgmma, 989 TFLOP/s in bf16) come near that bound. The FMA
-// kernels they replace ran on the CUDA cores (67 TFLOP/s in f32) and reached
+// tensor cores (wgmma, 989 TFLOP/s in bf16) come near that bound. The first
+// kernels of the port, float32 FMAs on the CUDA cores (67 TFLOP/s), reached
 // about 22 of those.
 //
 // Design (the PTX building blocks and the tile layouts are in hopper.cuh):
@@ -31,8 +32,8 @@
 //       in, row max and sum over the four lanes that share a row); P is packed
 //       to bf16 in registers and O += P V is an RS wgmma (m64nHDk16) with V
 //       MN-major (trans-b).
-//   B3: one CTA per (KV head, 64-key tile), in the transposed form of the
-//       FMA kernel so that no score tile goes through shared memory. K and V
+//   B3: one CTA per (KV head, 64-key tile), keys as the rows of S^T, so
+//       that no score tile goes through shared memory. K and V
 //       stay resident; a producer warp streams (Q, dO) tiles by TMA and
 //       (lse, delta) rows by plain loads for each of the `group` query heads,
 //       from the causal diagonal down, through a two-stage ring. One consumer

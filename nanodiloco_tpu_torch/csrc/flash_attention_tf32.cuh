@@ -1,0 +1,422 @@
+// Flash attention on Hopper (sm_90a) as three-product TF32 ("3xTF32") on the
+// tensor cores: the forward (B1), dQ (B2) and dK/dV (B3) for float32 at every
+// head dim, and for bf16 at hd 16 (bf16 above hd 16 runs the wgmma kernels of
+// flash_attention_tc.cu; ops/cuda/flash_attention.py's route table picks one
+// kernel per (kernel, dtype, head dim)). This header holds what the three
+// share; each kernel has a source of its own, so that nvcc builds them in
+// parallel.
+//
+// Replaces the Pallas TPU kernels of nanodiloco_tpu/ops/pallas/flash_attention.py:
+//   B1 flash_fwd_tf32_kernel     <- _fwd_call / _fwd_kernel     (flash_attention_tf32_fwd.cu)
+//   B2 flash_bwd_dq_tf32_kernel  <- _flash_bwd / _bwd_dq_kernel  (flash_attention_tf32_dq.cu)
+//   B3 flash_bwd_dkv_tf32_kernel <- _flash_bwd / _bwd_dkv_kernel (flash_attention_tf32_dkv.cu)
+// Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, HD]; k, v, dK, dV
+// [BH / group, Sk, HD] (GQA: query head bh reads KV head bh / group, K/V are
+// never expanded); lse and delta [BH, Sq] float32. Head dims 16, 32, 64, 80,
+// 96 and 128 in float32, 16 in bf16.
+//
+// Bound on the H100. B1 does 2, B2 3 and B3 4 S x S x HD products per head on
+// O(S x HD) bytes: operations bound all three. The CUDA cores' float32 peak
+// is 67 TFLOP/s; the tensor cores take TF32 at 495. One TF32 product keeps 10
+// mantissa bits (2^-11), which does not hold the float32 tolerance (1e-4 of
+// max|ref|); three products (hopper.cuh: lo hi + hi lo + hi hi, small terms
+// first) keep about 2^-22, and give float32-accurate products at 495 / 3 =
+// 165 TFLOP/s. That is how torch's memory-efficient attention computes its
+// float32 products (cutlass OpMultiplyAddFastF32 on GemmShape<16, 8, 8>).
+// The products are mma.sync m16n8k8, not wgmma: wgmma's tf32 takes both
+// operands K-major only, and O += P V, dV += P^T dO, dK += dS^T Q, dQ += dS K
+// read V, dO, Q and K along their rows (MN-major), which would need a
+// transposed copy of every tile; mma.sync's B fragment reads any layout from
+// shared memory.
+//
+// bf16 inputs. A bf16 value has 8 significant bits, TF32 11, so every bf16
+// input is exact in TF32: its hi part is the value and its lo part is 0, and
+// every product term with a bf16 lo is exactly zero. The bf16 instances skip
+// those terms: Q K^T and dO V^T take one product (hi hi), the products of a
+// float32 P or dS with a bf16 operand two (lo hi + hi hi). That is what the
+// three-product kernel gives on the inputs cast to float32, bit for bit, at
+// less than half the work. bf16 tiles land by cp.async in a staging tile and
+// are widened to float32 once, where float32 tiles are split; dQ, dK, dV and
+// O are rounded to bf16 as they are stored. The bf16 instances serve hd 16
+// only, which wgmma's m64nNk16 tiles do not take.
+//
+// Design. 128 threads, four warps of 16 rows of a 64-row tile. Every tile
+// lies row-major in shared memory with a row stride of HD + 4 floats
+// (= 4 mod 8): both fragment reads, (row g, column t) and (row 2t, column g),
+// then hit 32 different banks, without a swizzle.
+//   B1: a CTA owns one 64-row q tile of one head and walks its K tiles up to
+//       the causal diagonal. Q is split once into hi and lo tiles; K and V
+//       stream in by cp.async, double-buffered. S = Q K^T comes out of
+//       mma.sync; the online softmax runs on it in registers, in exp2 with
+//       scale * log2 e folded in (a row's 64 columns lie across the four
+//       lanes of a quad: its max is two __shfl_xor_sync steps, its sum is
+//       kept per lane and added up once at the end); P is split in registers
+//       and is the A operand of O += P V.
+//   B3: a CTA owns one 64-key tile of one KV head and walks a contiguous
+//       part of its list of (group member, q tile) pairs, from the diagonal
+//       down. K and V are split into hi and lo once, in shared memory; each
+//       pair's Q, dO, lse and delta arrive by cp.async (double-buffered
+//       below hd 128: the next pair's copies fly during this pair's
+//       products; single at hd 128, where K and V's hi and lo and one Q and
+//       dO tile take 203 KB). S^T = K Q^T and dP^T = V dO^T come out of
+//       mma.sync with K and V as A; P^T and dS^T stay in registers, split
+//       there, and are the A operand of dV += P^T dO and dK += dS^T Q.
+//   B2: a CTA owns one 64-row q tile of one head and walks a contiguous
+//       part of its K tiles; Q and dO are split once, K and V stream in by
+//       cp.async; dS stays in registers as the A operand of dQ += dS K.
+// Up to hd 64 each streamed tile is split once a step into hi and lo tiles
+// beside it; at hd 80-128, where those do not fit beside double buffers,
+// its fragments are split as they are read (each element once a read by
+// each of the four warps). The split is what the loops issue most:
+// cvt.rna.tf32.f32 is four instructions in SASS (add, isfinite test,
+// select, mask), a split seven.
+// A ragged length is masked inside: rows past the end load as zeros
+// (cp.async with src-size 0), their scores as -inf (B1) or their p as 0 (B2,
+// B3). A fully masked row keeps m = -inf in B1 and ends with O = 0 and
+// lse = -inf (O is divided by max(l, 1e-30)), never NaN; a row whose lse is
+// +inf gets p = 0 and a zero dQ row.
+//
+// Grids that fill the card without atomics. The backward wrapper splits each
+// CTA's loop into `splits` contiguous parts, one CTA each (grid z), so that
+// small shapes launch at least two waves of 132 CTAs. With splits > 1 each
+// part stores its float32 partial to a workspace [splits, outs, n], and
+// sum_parts_kernel adds the parts in a fixed order, scales and stores: two
+// launches give the same bits (bit-exact resume needs that). With
+// splits == 1 a CTA stores its output directly. B1 is one launch, unsplit:
+// split the same way (partial O, m and l merged by a second pass), it took
+// half the device time at small grids, but the workspace and the second
+// launch cost a caller more host time than that saves, and at those grids
+// the caller, not the card, sets the pace (PERF.md, Findings).
+//
+// hd 256 stays refused. At 64-row tiles a float32 tile at a row stride of
+// 260 floats is 66.6 KB: B3 holds K and V's hi and lo and one Q and dO tile,
+// 399 KB, and B1 Q's hi and lo and one K and V tile, 266 KB, against the
+// 227 KB a block may use; and B3's dK and dV accumulators alone would take
+// 256 of the 255 registers a thread has. It needs smaller tiles (32 rows) or
+// a head dim split across warps, not another instantiation.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
+
+namespace {
+
+using hopper::cp_async16;
+using hopper::cp_async4;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::mma_split;
+using hopper::smem_addr;
+using hopper::split_tf32;
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;     // rows of every q and K tile
+constexpr int kThreads = 128;  // four warps, 16 rows of a tile each
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <typename T, int HD>
+struct Layout {
+  // bf16 inputs are exact in TF32: no lo parts, no products of them
+  static constexpr bool kExact = std::is_same<T, bf16>::value;
+  static constexpr int kLd = HD + 4;                // row stride in floats, = 4 mod 8
+  static constexpr int kFloats = kTile * kLd;       // one tile
+  static constexpr int kLoFloats = kExact ? 0 : kFloats;  // a tile's lo part
+  // a bf16 tile's staging copy ([64][HD] bf16, where cp.async lands it), in
+  // floats; a float32 tile lands in its hi tile
+  static constexpr int kRawFloats = kExact ? kTile * HD / 2 : 0;
+  static constexpr int kStages = HD == 128 ? 1 : 2;  // backward: buffers of each streamed tile
+  // streamed tiles split once a step into hi and lo tiles (else as each
+  // fragment is read: 4 warps x 1-2 reads of every element), where the
+  // extra tiles fit: up to hd 64
+  static constexpr bool kPresplit = HD <= 64;
+  static constexpr int kSteps = HD / 8;             // k-steps (or n-tiles) over HD
+  // k-steps of the first products unrolled; not at hd 128, where two
+  // spill (ptxas: 255 registers, 16 bytes)
+  static constexpr int kUnroll = HD == 128 ? 1 : 2;
+  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
+  static_assert(!kExact || kPresplit, "bf16 tiles are widened once a step");
+};
+
+// One operand tile in shared memory: its hi and lo tiles, and where cp.async
+// lands its raw values (the hi tile itself in float32, a staging tile in bf16).
+struct Tile {
+  float* hi;
+  float* lo;
+  float* raw;
+};
+
+// Rows [row0, row0 + 64) of a row-major [n_rows, HD] matrix into a tile's raw
+// copy by cp.async, 16 bytes a copy; rows at or past n_rows are zeros.
+template <typename T, int HD>
+__device__ __forceinline__ void load_tile(float* raw, const T* __restrict__ src, int row0,
+                                          int n_rows) {
+  using L = Layout<T, HD>;
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = HD / kVec;
+  constexpr int kRawLd = L::kExact ? HD : L::kLd;  // elements
+  T* dst = reinterpret_cast<T*>(raw);
+#pragma unroll
+  for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
+    const int r = c / kPerRow;
+    const int col = (c % kPerRow) * kVec;
+    const bool in = row0 + r < n_rows;
+    const T* p = src + static_cast<size_t>(in ? row0 + r : 0) * HD + col;
+    cp_async16(smem_addr(dst + r * kRawLd + col), p, in ? 16 : 0);
+  }
+}
+
+// A landed tile into its hi part (in place) and its lo part; a bf16 tile
+// widened from its staging copy into its hi tile (it has no lo part). With
+// kInfSafe an infinite value gets lo = 0 (x - hi would be NaN), so that a
+// q row of -inf gives scores of -inf, as in the plain version (two
+// instructions an element: B1 asks for it on its Q tile, split once).
+template <typename T, int HD, bool kInfSafe = false>
+__device__ __forceinline__ void split_tile(Tile t) {
+  using L = Layout<T, HD>;
+  if constexpr (L::kExact) {
+    constexpr int kPerRow = HD / 8;
+#pragma unroll
+    for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
+      const int r = c / kPerRow;
+      const int col = (c % kPerRow) * 8;
+      // 8 bf16; a bf16 is the high half of its float32
+      const uint4 x = *reinterpret_cast<const uint4*>(
+          reinterpret_cast<const bf16*>(t.raw) + r * HD + col);
+      float* h = t.hi + r * L::kLd + col;
+      *reinterpret_cast<float4*>(h) =
+          make_float4(__uint_as_float(x.x << 16), __uint_as_float(x.x & 0xFFFF0000u),
+                      __uint_as_float(x.y << 16), __uint_as_float(x.y & 0xFFFF0000u));
+      *reinterpret_cast<float4*>(h + 4) =
+          make_float4(__uint_as_float(x.z << 16), __uint_as_float(x.z & 0xFFFF0000u),
+                      __uint_as_float(x.w << 16), __uint_as_float(x.w & 0xFFFF0000u));
+    }
+  } else {
+    constexpr int kPerRow = HD / 4;
+#pragma unroll
+    for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
+      const int e = (c / kPerRow) * L::kLd + (c % kPerRow) * 4;
+      float4 x = *reinterpret_cast<float4*>(t.hi + e);
+      uint32_t h[4], l[4];
+      split_tf32(x.x, h[0], l[0]);
+      split_tf32(x.y, h[1], l[1]);
+      split_tf32(x.z, h[2], l[2]);
+      split_tf32(x.w, h[3], l[3]);
+      if constexpr (kInfSafe) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) l[i] = isinf(__uint_as_float(h[i])) ? 0u : l[i];
+      }
+      *reinterpret_cast<uint4*>(t.hi + e) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(t.lo + e) = make_uint4(l[0], l[1], l[2], l[3]);
+    }
+  }
+}
+
+// The A fragment (hi, lo) of rows [r0, r0 + 16), k-step kk, of a split tile
+// (lo zero for bf16, never read).
+template <typename T, int HD>
+__device__ __forceinline__ void a_frag(const float* hi, const float* lo, int r0, int kk,
+                                       uint32_t (&a_hi)[4], uint32_t (&a_lo)[4]) {
+  using L = Layout<T, HD>;
+  const int lane = threadIdx.x & 31;
+  const int e = (r0 + (lane >> 2)) * L::kLd + kk * 8 + (lane & 3);
+  const int offs[4] = {0, 8 * L::kLd, 4, 8 * L::kLd + 4};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    a_hi[i] = __float_as_uint(hi[e + offs[i]]);
+    a_lo[i] = L::kExact ? 0u : __float_as_uint(lo[e + offs[i]]);
+  }
+}
+
+// B fragment elements e0, e1 of a streamed tile, split: from its hi and lo
+// tiles where the layout splits it once a step (kPresplit), else from its raw
+// tile as it is read.
+template <typename T, int HD>
+__device__ __forceinline__ void b_pair(Tile x, int e0, int e1, uint32_t (&b_hi)[2],
+                                       uint32_t (&b_lo)[2]) {
+  using L = Layout<T, HD>;
+  if constexpr (L::kPresplit) {
+    b_hi[0] = __float_as_uint(x.hi[e0]);
+    b_hi[1] = __float_as_uint(x.hi[e1]);
+    b_lo[0] = L::kExact ? 0u : __float_as_uint(x.lo[e0]);
+    b_lo[1] = L::kExact ? 0u : __float_as_uint(x.lo[e1]);
+  } else {
+    split_tf32(x.hi[e0], b_hi[0], b_lo[0]);
+    split_tf32(x.hi[e1], b_hi[1], b_lo[1]);
+  }
+}
+
+// The split B fragment of X^T for S = A X^T: X's rows [n0, n0 + 8) are the
+// n columns, its columns 8 kk .. 8 kk + 7 the k rows.
+template <typename T, int HD>
+__device__ __forceinline__ void bt_frag(Tile x, int n0, int kk, uint32_t (&b_hi)[2],
+                                        uint32_t (&b_lo)[2]) {
+  const int lane = threadIdx.x & 31;
+  const int e = (n0 + (lane >> 2)) * Layout<T, HD>::kLd + kk * 8 + (lane & 3);
+  b_pair<T, HD>(x, e, e + 4, b_hi, b_lo);
+}
+
+// The split B fragment of X for D = A X over k rows [k0, k0 + 8) in the
+// permuted order (k = t is row k0 + 2t, k = t + 4 row k0 + 2t + 1) and
+// columns [n0, n0 + 8).
+template <typename T, int HD>
+__device__ __forceinline__ void b_frag(Tile x, int k0, int n0, uint32_t (&b_hi)[2],
+                                       uint32_t (&b_lo)[2]) {
+  constexpr int kLd = Layout<T, HD>::kLd;
+  const int lane = threadIdx.x & 31;
+  const int e = (k0 + 2 * (lane & 3)) * kLd + n0 + (lane >> 2);
+  b_pair<T, HD>(x, e, e + kLd, b_hi, b_lo);
+}
+
+// An accumulator tile [16 x 8] as the split A fragment of the next product
+// (k = t is its column 2t, k = t + 4 its column 2t + 1).
+__device__ __forceinline__ void acc_frag(const float (&c)[4], uint32_t (&a_hi)[4],
+                                         uint32_t (&a_lo)[4]) {
+  split_tf32(c[0], a_hi[0], a_lo[0]);
+  split_tf32(c[2], a_hi[1], a_lo[1]);
+  split_tf32(c[1], a_hi[2], a_lo[2]);
+  split_tf32(c[3], a_hi[3], a_lo[3]);
+}
+
+__device__ __forceinline__ void store_pair(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// acc[n][*] (rows r0 + g, r0 + g + 8 of a [rows, HD] matrix at `out`, row
+// stride HD) times `scale`, stored as pairs; rows at or past n_rows are not
+// stored.
+template <typename OutT, int HD>
+__device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[HD / 8][4], int r0,
+                                           int n_rows, float scale) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + (lane >> 2) + 8 * h;
+    if (row >= n_rows) continue;
+    OutT* p = out + static_cast<size_t>(row) * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      store_pair(p + 8 * n, acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
+  }
+}
+
+// Zeros in rows r0 + g, r0 + g + 8 of `out` (an empty part's partial). Not
+// inlined: inlined, it takes B3's registers at hd 128 past the 255 a thread
+// has (ptxas spills 20 bytes).
+template <typename OutT, int HD>
+__device__ __noinline__ void store_zero_rows(OutT* out, int r0, int n_rows) {
+  const float zero[HD / 8][4] = {};
+  store_rows<OutT, HD>(out, zero, r0, n_rows, 1.f);
+}
+
+// A backward output's rows at `out` + `off` elements: the output itself (T)
+// when the launch has one part, else this part's float32 partial in the
+// workspace (the launcher passes whichever it is, and the scale).
+template <typename T, int HD>
+__device__ __forceinline__ void store_out(void* out, size_t off, const float (&acc)[HD / 8][4],
+                                          int r0, int n_rows, float scale, int splits) {
+  if (std::is_same<T, float>::value || splits > 1)
+    store_rows<float, HD>(static_cast<float*>(out) + off, acc, r0, n_rows, scale);
+  else
+    store_rows<T, HD>(static_cast<T*>(out) + off, acc, r0, n_rows, scale);
+}
+
+template <typename T, int HD>
+__device__ __forceinline__ void store_zero_out(void* out, size_t off, int r0, int n_rows,
+                                               int splits) {
+  if (std::is_same<T, float>::value || splits > 1)
+    store_zero_rows<float, HD>(static_cast<float*>(out) + off, r0, n_rows);
+  else
+    store_zero_rows<T, HD>(static_cast<T*>(out) + off, r0, n_rows);
+}
+
+// ---------------------------------------------------------------------------
+// The second pass of a split backward launch: out_o[j] = scale_o * sum over
+// parts p in order 0, 1, ... of ws[p][o][j], for outputs o < outs (1 or 2),
+// in float4s, so two launches give the same bits.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(bf16* p, float4 x) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(x.x, x.y);
+  q[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sum_parts_kernel(const float4* __restrict__ ws, int splits, size_t n4, int outs,
+                     T* __restrict__ out0, float scale0, T* __restrict__ out1, float scale1) {
+  const size_t total = n4 * outs;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int o = i >= n4;
+    const size_t j = i - o * n4;
+    float4 acc = ws[o * n4 + j];
+    for (int p = 1; p < splits; ++p) {
+      const float4 x = ws[(static_cast<size_t>(p) * outs + o) * n4 + j];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const float s = o ? scale1 : scale0;
+    store4((o ? out1 : out0) + 4 * j, make_float4(acc.x * s, acc.y * s, acc.z * s, acc.w * s));
+  }
+}
+
+template <typename T>
+int sum_parts(const float* ws, int splits, size_t n, int outs, T* out0, float scale0, T* out1,
+              float scale1, cudaStream_t stream) {
+  const size_t n4 = n / 4;  // n = rows x HD, HD a multiple of 16
+  const size_t blocks = (n4 * outs + 255) / 256;
+  sum_parts_kernel<T><<<static_cast<unsigned>(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(ws), splits, n4, outs, out0, scale0, out1, scale1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sources' launchers each return cudaGetLastError() after their launches
+// (0 = launched); -1 for a dtype or head dim not instantiated, -2 for a split
+// count out of range or a split launch without a workspace.
+inline bool bad_split(int splits, const void* ws) {
+  return splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr);
+}
+
+}  // namespace
+
+// dtype 0 = float32 at every head dim; dtype 1 = bf16 at hd 16, the head dim
+// no wgmma kernel (flash_attention_tc.cu) takes
+#define ND_TF32(LAUNCH, ...)                                   \
+  if (dtype == 0) {                                            \
+    switch (hd) {                                              \
+      case 16: return LAUNCH<float, 16>(__VA_ARGS__);          \
+      case 32: return LAUNCH<float, 32>(__VA_ARGS__);          \
+      case 64: return LAUNCH<float, 64>(__VA_ARGS__);          \
+      case 80: return LAUNCH<float, 80>(__VA_ARGS__);          \
+      case 96: return LAUNCH<float, 96>(__VA_ARGS__);          \
+      case 128: return LAUNCH<float, 128>(__VA_ARGS__);        \
+      default: return -1;                                      \
+    }                                                          \
+  }                                                            \
+  if (dtype == 1 && hd == 16) return LAUNCH<bf16, 16>(__VA_ARGS__); \
+  return -1;
+
+// Every tf32x3 library exports this: the message of a launcher's return code.
+extern "C" const char* nd_tf32_error_string(int code) {
+  if (code == -1)
+    return "dtype or head dim not instantiated (float32: 16, 32, 64, 80, 96, 128; bfloat16: 16)";
+  if (code == -2) return "split count out of [1, 65535], or a split launch without a workspace";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

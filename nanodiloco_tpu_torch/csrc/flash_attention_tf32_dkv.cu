@@ -1,0 +1,255 @@
+// dK and dV (B3) on Hopper (sm_90a) as three-product TF32: replaces
+// _flash_bwd / _bwd_dkv_kernel of nanodiloco_tpu/ops/pallas/flash_attention.py
+// for float32 at every head dim and bf16 at hd 16. It does four S x S x HD
+// products per head on O(S x HD) bytes: operations bound it. The design, the
+// bound and the bf16 instances: flash_attention_tf32.cuh.
+
+#include "flash_attention_tf32.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// B3: dK and dV. grid (BH / group, nk, splits). Part z of K tile y walks
+// pairs [z n / splits, (z + 1) n / splits) of the n = group x (nq - qt0)
+// pairs (g, qt), g-major, qt0 = y under the causal mask (q tiles wholly
+// above the diagonal contribute nothing), else 0. Its dK and dV go to
+// dk + z * part_stride and dv + z * part_stride, dK times dk_scale: the
+// outputs (T) with one part, else float32 partials in the workspace.
+// ---------------------------------------------------------------------------
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkv_tf32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const T* __restrict__ dout,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              void* __restrict__ dk, void* __restrict__ dv, size_t part_stride,
+                              int group, int sq, int sk, int causal, float scale, float dk_scale,
+                              int splits) {
+  using L = Layout<T, HD>;
+  constexpr bool E = L::kExact;
+  extern __shared__ __align__(16) float smem[];
+  float* sKhi = smem;
+  float* sKlo = sKhi + L::kFloats;
+  float* sVhi = sKlo + L::kLoFloats;
+  float* sVlo = sVhi + L::kFloats;
+  float* sQ = sVlo + L::kLoFloats;            // [kStages] raw (or hi) tiles
+  float* sdO = sQ + L::kStages * L::kFloats;  // [kStages] raw (or hi) tiles
+  float* sQlo = sdO + L::kStages * L::kFloats;  // [kStages] lo tiles, if kPresplit
+  float* sdOlo = sQlo + (L::kPresplit ? L::kStages * L::kLoFloats : 0);
+  // [kStages][lse 64, delta 64], then bf16's staging tiles K, V, Q[], dO[]
+  float* sRows = sdOlo + (L::kPresplit ? L::kStages * L::kLoFloats : 0);
+  float* sRaw = sRows + L::kStages * 2 * kTile;
+  const Tile tK = {sKhi, sKlo, E ? sRaw : sKhi};
+  const Tile tV = {sVhi, sVlo, E ? sRaw + L::kRawFloats : sVhi};
+  auto q_tile = [&](int s) -> Tile {
+    return {sQ + s * L::kFloats, sQlo + s * L::kLoFloats,
+            E ? sRaw + (2 + s) * L::kRawFloats : sQ + s * L::kFloats};
+  };
+  auto do_tile = [&](int s) -> Tile {
+    return {sdO + s * L::kFloats, sdOlo + s * L::kLoFloats,
+            E ? sRaw + (2 + L::kStages + s) * L::kRawFloats : sdO + s * L::kFloats};
+  };
+
+  const int bkv = blockIdx.x;
+  const int k0 = blockIdx.y * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int nq = (sq + kTile - 1) / kTile;
+  const int qt0 = causal ? blockIdx.y : 0;
+  const int per_head = max(nq - qt0, 0);
+  const int n = group * per_head;
+  const int i0 = static_cast<int>(static_cast<long long>(blockIdx.z) * n / splits);
+  const int i1 = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * n / splits);
+  const int r0 = warp * 16;  // this warp's key rows in the tile
+  if (i0 == i1) {  // an empty part (causal K tiles near the end have few pairs)
+    const size_t off = blockIdx.z * part_stride + static_cast<size_t>(bkv) * sk * HD;
+    store_zero_out<T, HD>(dk, off, k0 + r0, sk, splits);
+    store_zero_out<T, HD>(dv, off, k0 + r0, sk, splits);
+    return;
+  }
+
+  load_tile<T, HD>(tK.raw, k + static_cast<size_t>(bkv) * sk * HD, k0, sk);
+  load_tile<T, HD>(tV.raw, v + static_cast<size_t>(bkv) * sk * HD, k0, sk);
+  cp_async_commit();
+
+  // pair i's Q, dO, lse and delta into buffer `stage`
+  auto load_pair = [&](int i, int stage) {
+    const size_t bh = static_cast<size_t>(bkv) * group + i / per_head;
+    const int q0 = (qt0 + i % per_head) * kTile;
+    load_tile<T, HD>(q_tile(stage).raw, q + bh * sq * HD, q0, sq);
+    load_tile<T, HD>(do_tile(stage).raw, dout + bh * sq * HD, q0, sq);
+    const int r = threadIdx.x & 63;
+    const bool in = q0 + r < sq;
+    const float* src = (threadIdx.x < 64 ? lse : delta) + bh * sq + (in ? q0 + r : 0);
+    cp_async4(smem_addr(sRows + stage * 2 * kTile + threadIdx.x), src, in ? 4 : 0);
+  };
+  load_pair(i0, 0);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and V have landed
+  __syncthreads();
+  split_tile<T, HD>(tK);
+  split_tile<T, HD>(tV);
+
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int n8 = 0; n8 < HD / 8; ++n8)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) dk_acc[n8][r] = dv_acc[n8][r] = 0.f;
+
+  // this thread's key rows attend to the queries [q_lo, q_lo + q_span)
+  int q_lo[2], q_span[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kr = k0 + r0 + g4 + 8 * h;
+    q_lo[h] = causal ? kr : 0;
+    q_span[h] = kr < sk ? max(sq - q_lo[h], 0) : 0;
+  }
+  const float scale2 = scale * kLog2e;
+  for (int i = i0; i < i1; ++i) {
+    const int stage = L::kStages == 1 ? 0 : (i - i0) & 1;
+    if constexpr (L::kStages == 2) {
+      if (i + 1 < i1) load_pair(i + 1, stage ^ 1);
+      cp_async_commit();   // empty when there is no next pair
+      cp_async_wait<1>();  // pair i has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const Tile cQ = q_tile(stage);
+    const Tile cdO = do_tile(stage);
+    if constexpr (L::kPresplit) {
+      split_tile<T, HD>(cQ);
+      split_tile<T, HD>(cdO);
+      __syncthreads();
+    }
+    const float* cLse = sRows + stage * 2 * kTile;
+    const float* cDelta = cLse + kTile;
+    const int q0 = (qt0 + i % per_head) * kTile;
+
+    // S^T = K Q^T, then P^T in place
+    float p[8][4], ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) p[j][r] = ds[j][r] = 0.f;
+#pragma unroll(L::kUnroll)
+    for (int kk = 0; kk < L::kSteps; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      a_frag<T, HD>(sKhi, sKlo, r0, kk, a_hi, a_lo);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b_hi[2], b_lo[2];
+        bt_frag<T, HD>(cQ, 8 * j, kk, b_hi, b_lo);
+        mma_split<!E, !E>(p[j], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+    // dP^T = V dO^T
+#pragma unroll(L::kUnroll)
+    for (int kk = 0; kk < L::kSteps; ++kk) {
+      uint32_t a_hi[4], a_lo[4];
+      a_frag<T, HD>(sVhi, sVlo, r0, kk, a_hi, a_lo);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b_hi[2], b_lo[2];
+        bt_frag<T, HD>(cdO, 8 * j, kk, b_hi, b_lo);
+        mma_split<!E, !E>(ds[j], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+    // P = exp(S scale - lse), dS = P (dP - delta), masked
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r >> 1;
+        const int qc = 8 * j + 2 * t4 + (r & 1);
+        const bool ok = static_cast<unsigned>(q0 + qc - q_lo[h]) <
+                        static_cast<unsigned>(q_span[h]);
+        const float pv = ok ? exp2f(fmaf(p[j][r], scale2, -cLse[qc] * kLog2e)) : 0.f;
+        p[j][r] = pv;
+        ds[j][r] = pv * (ds[j][r] - cDelta[qc]);
+      }
+    // dV += P^T dO, then dK += dS^T Q (P's registers free by then), over
+    // this pair's 64 queries
+#pragma unroll
+    for (int kq = 0; kq < 8; ++kq) {
+      uint32_t a_hi[4], a_lo[4];
+      acc_frag(p[kq], a_hi, a_lo);
+#pragma unroll
+      for (int n8 = 0; n8 < HD / 8; ++n8) {
+        uint32_t b_hi[2], b_lo[2];
+        b_frag<T, HD>(cdO, 8 * kq, 8 * n8, b_hi, b_lo);
+        mma_split<true, !E>(dv_acc[n8], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+#pragma unroll
+    for (int kq = 0; kq < 8; ++kq) {
+      uint32_t a_hi[4], a_lo[4];
+      acc_frag(ds[kq], a_hi, a_lo);
+#pragma unroll
+      for (int n8 = 0; n8 < HD / 8; ++n8) {
+        uint32_t b_hi[2], b_lo[2];
+        b_frag<T, HD>(cQ, 8 * kq, 8 * n8, b_hi, b_lo);
+        mma_split<true, !E>(dk_acc[n8], a_hi, a_lo, b_hi, b_lo);
+      }
+    }
+    __syncthreads();  // every warp is done with this buffer
+    if constexpr (L::kStages == 1) {
+      if (i + 1 < i1) load_pair(i + 1, 0);
+      cp_async_commit();
+    }
+  }
+
+  const size_t off = blockIdx.z * part_stride + static_cast<size_t>(bkv) * sk * HD;
+  store_out<T, HD>(dk, off, dk_acc, k0 + r0, sk, dk_scale, splits);
+  store_out<T, HD>(dv, off, dv_acc, k0 + r0, sk, 1.f, splits);
+}
+
+template <typename T, int HD>
+constexpr size_t dkv_smem() {
+  using L = Layout<T, HD>;
+  return (2 * (L::kFloats + L::kLoFloats) + 2 * L::kStages * L::kFloats +
+          (L::kPresplit ? 2 * L::kStages * L::kLoFloats : 0) + L::kStages * 2 * kTile +
+          (2 + 2 * L::kStages) * L::kRawFloats) *
+         sizeof(float);
+}
+
+template <typename T, int HD>
+int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dout,
+                    const float* lse, const float* delta, void* dk, void* dv, void* ws, int bh,
+                    int group, int sq, int sk, int causal, float scale, int splits,
+                    cudaStream_t stream) {
+  if (bad_split(splits, ws)) return -2;
+  const size_t smem = dkv_smem<T, HD>();
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel<T, HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int bkv = bh / group;
+  const size_t n = static_cast<size_t>(bkv) * sk * HD;
+  const bool split = splits > 1;
+  float* wsf = static_cast<float*>(ws);
+  const dim3 grid(bkv, (sk + kTile - 1) / kTile, splits);
+  flash_bwd_dkv_tf32_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, split ? wsf : dk, split ? wsf + n : dv,
+      split ? 2 * n : 0, group, sq, sk, causal, scale, split ? 1.f : scale, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !split) return static_cast<int>(err);
+  return sum_parts<T>(wsf, splits, n, 2, static_cast<T*>(dk), scale, static_cast<T*>(dv), 1.f,
+                      stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// ws: float32 [splits, 2, BH / group, Sk, hd] when splits > 1 (dK's and
+// dV's partials), else unused (may be null)
+int nd_flash_bwd_dkv_tf32(int dtype, int hd, const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse, const float* delta, void* dk,
+                          void* dv, void* ws, int bh, int group, int sq, int sk, int causal,
+                          float scale, int splits, void* stream) {
+  ND_TF32(launch_dkv_tf32, q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+          scale, splits, static_cast<cudaStream_t>(stream))
+}
+
+}  // extern "C"

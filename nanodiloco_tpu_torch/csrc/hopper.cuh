@@ -386,12 +386,18 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// D += A B as 3xTF32, from the split fragments of A and B.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&a_hi)[4],
-                                           const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
-                                           const uint32_t (&b_lo)[2]) {
-  mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
-  mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
+// D += A B from the split fragments of A and B, with the products their parts
+// need: lo_a hi_b where A has a lo part (kLoA), hi_a lo_b where B has one
+// (kLoB), then hi_a hi_b. Both split is 3xTF32. An operand exact in TF32 (a
+// bf16 value: 8 significant bits of TF32's 11) has lo = 0, and its terms
+// would add exactly nothing: one product where neither has a lo part, two
+// where one has.
+template <bool kLoA, bool kLoB>
+__device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&a_hi)[4],
+                                          const uint32_t (&a_lo)[4], const uint32_t (&b_hi)[2],
+                                          const uint32_t (&b_lo)[2]) {
+  if constexpr (kLoA) mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
+  if constexpr (kLoB) mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
   mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
 }
 

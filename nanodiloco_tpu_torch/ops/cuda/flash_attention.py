@@ -9,26 +9,30 @@ B2  ``flash_bwd_dq``            replaces ``_flash_bwd`` / ``_bwd_dq_kernel``
 B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 ==  ==========================  ==============================================
 
-Each kernel comes in up to three variants, and ``ROUTES`` names the one
-that serves each (kernel, dtype, head dim), at head dims 16, 32, 64, 80,
-96 and 128 (``HEAD_DIMS``; any other raises):
+Each kernel comes in two variants, both on the tensor cores, and
+``ROUTES`` names the one that serves each (kernel, dtype, head dim), at
+head dims 16, 32, 64, 80, 96 and 128 (``HEAD_DIMS``; any other raises
+here, and ``cuda_flash_attention`` pads a smaller one up to the next of
+them):
 
-- ``wgmma``: tensor-core kernels, wgmma fed by TMA
+- ``wgmma``: wgmma fed by TMA
   (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: all
   three kernels at hd 128, 96, 80, 64 and 32 (hd 80 in the hd-96 tile,
   its last 16 columns zeros);
-- ``tf32x3``: the float32 backward, B2 and B3 at every head dim, on the
-  tensor cores as three-product TF32 with mma.sync
-  (``nanodiloco_tpu_torch/csrc/flash_attention_tf32.cu``). One TF32
+- ``tf32x3``: three-product TF32 with mma.sync
+  (``nanodiloco_tpu_torch/csrc/flash_attention_tf32_{fwd,dq,dkv}.cu`` on
+  ``flash_attention_tf32.cuh``), for all three
+  kernels in float32 at every head dim and in bf16 at hd 16. One TF32
   product keeps 10 mantissa bits and would not hold the float32
   tolerance; hi·hi + hi·lo + lo·hi of each operand's split keeps about
-  2^-22. wgmma's tf32 takes K-major operands only, where dV, dK and dQ
-  read dO, Q and K along their rows. Each launch splits its loop into
+  2^-22. A bf16 value is exact in TF32 (lo = 0), so the bf16 instances
+  take one product where both operands are inputs and two where one is P
+  or dS: the three-product result on the inputs cast to float32, bit for
+  bit. wgmma's tf32 takes K-major operands only, where O, dV, dK and dQ
+  read V, dO, Q and K along their rows. The backward splits its loop into
   ``bwd_splits`` parts (CTAs) so that small shapes fill the card, and a
-  second pass sums the parts in a fixed order (no atomics);
-- ``fma``: float32 FMA kernels from shared memory for the rest
-  (``nanodiloco_tpu_torch/csrc/flash_attention.cu``): the float32
-  forward at every head dim and all three kernels in bf16 at hd 16.
+  second pass sums the parts in a fixed order (no atomics); the forward
+  is one launch, unsplit (the header's note says why).
 
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
@@ -43,6 +47,8 @@ What bounds them on the H100: at the training shape (hd 128, S 2048,
 causal) and at moe-8x-top2's (hd 64, S 1024) every kernel does 2-4
 S x S x hd products per head on O(S x hd) bytes, so operations bound all
 three (see the notes at the top of the CUDA sources for the designs).
+Head dims above 128 raise (ROADMAP C3): the tiles of both designs stop
+there.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import types
 
 import torch
 
@@ -59,41 +66,27 @@ from nanodiloco_tpu_torch.ops.online_softmax import NEG_INF, block_update
 HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-VARIANTS = ("fma", "wgmma", "tf32x3")
+VARIANTS = ("wgmma", "tf32x3")
 # the head dims the wgmma kernels take, in bf16 only (all three alike)
 _TENSOR_CORE_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
-def _route(name: str, dtype, hd: int) -> str:
-    if dtype == torch.bfloat16:
-        return "wgmma" if hd in _TENSOR_CORE_HEAD_DIMS else "fma"
-    return "fma" if name == "flash_fwd" else "tf32x3"
+def _route(dtype, hd: int) -> str:
+    if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS:
+        return "wgmma"
+    return "tf32x3"
 
 
 # the variant that serves each (kernel, dtype, head dim): wgmma for bf16
-# where it takes the head dim, 3xTF32 for the float32 backward, the FMA
-# kernels for the rest (the float32 forward, bf16 at hd 16)
-ROUTES = {(name, dtype, hd): _route(name, dtype, hd)
+# where it takes the head dim, three-product TF32 for the rest (every
+# float32 row, bf16 at hd 16); B1, B2 and B3 alike
+ROUTES = {(name, dtype, hd): _route(dtype, hd)
           for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS}
 # the H100's SMs: one wave of the tf32x3 kernels at one CTA an SM
 SMS = 132
 _MAX_GRID_Y = 65535
 # K/V rows per step of the plain versions (their memory is O(S x block))
 PLAIN_BLOCK = 512
-
-
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library("flash_attention")
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nd_flash_fwd.argtypes = [I, I] + [P] * 5 + [I] * 5 + [F, P]
-    lib.nd_flash_bwd_dq.argtypes = [I, I] + [P] * 7 + [I] * 5 + [F, P]
-    lib.nd_flash_bwd_dkv.argtypes = [I, I] + [P] * 8 + [I] * 5 + [F, P]
-    for fn in (lib.nd_flash_fwd, lib.nd_flash_bwd_dq, lib.nd_flash_bwd_dkv):
-        fn.restype = I
-    lib.nd_error_string.argtypes = [I]
-    lib.nd_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 @functools.cache
@@ -111,26 +104,30 @@ def _tc_lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _tf32_lib() -> ctypes.CDLL:
-    lib = build.library("flash_attention_tf32")
+def _tf32_lib() -> types.SimpleNamespace:
+    """The tf32x3 launchers: one library per kernel (one source each, so
+    that they build in parallel), and the error string they share."""
+    fwd, dq, dkv = (build.library(f"flash_attention_tf32_{name}") for name in ("fwd", "dq", "dkv"))
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nd_flash_bwd_dq_tf32.argtypes = [I] + [P] * 8 + [I] * 5 + [F, I, P]
-    lib.nd_flash_bwd_dkv_tf32.argtypes = [I] + [P] * 9 + [I] * 5 + [F, I, P]
-    for fn in (lib.nd_flash_bwd_dq_tf32, lib.nd_flash_bwd_dkv_tf32):
+    fwd.nd_flash_fwd_tf32.argtypes = [I, I] + [P] * 5 + [I] * 5 + [F, P]
+    dq.nd_flash_bwd_dq_tf32.argtypes = [I, I] + [P] * 8 + [I] * 5 + [F, I, P]
+    dkv.nd_flash_bwd_dkv_tf32.argtypes = [I, I] + [P] * 9 + [I] * 5 + [F, I, P]
+    for fn in (fwd.nd_flash_fwd_tf32, dq.nd_flash_bwd_dq_tf32, dkv.nd_flash_bwd_dkv_tf32):
         fn.restype = I
-    lib.nd_tf32_error_string.argtypes = [I]
-    lib.nd_tf32_error_string.restype = ctypes.c_char_p
-    return lib
+    dkv.nd_tf32_error_string.argtypes = [I]
+    dkv.nd_tf32_error_string.restype = ctypes.c_char_p
+    return types.SimpleNamespace(
+        nd_flash_fwd_tf32=fwd.nd_flash_fwd_tf32, nd_flash_bwd_dq_tf32=dq.nd_flash_bwd_dq_tf32,
+        nd_flash_bwd_dkv_tf32=dkv.nd_flash_bwd_dkv_tf32,
+        nd_tf32_error_string=dkv.nd_tf32_error_string)
 
 
-def _raise_on(rc: int, name: str, variant: str = "fma") -> None:
+def _raise_on(rc: int, name: str, variant: str) -> None:
     if rc != 0:
         if variant == "wgmma":
             msg = _tc_lib().nd_tc_error_string(rc).decode()
-        elif variant == "tf32x3":
-            msg = _tf32_lib().nd_tf32_error_string(rc).decode()
         else:
-            msg = _lib().nd_error_string(rc).decode()
+            msg = _tf32_lib().nd_tf32_error_string(rc).decode()
         raise RuntimeError(f"{name} ({variant}) kernel launch failed ({rc}): {msg}")
 
 
@@ -209,7 +206,9 @@ def _check(name: str, q, k, v, *same_as_q, stats=()) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    # the raw handle, without building a torch.cuda.Stream (current_stream)
+    # on every launch: at small shapes a call's host time sets the pace
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 # ---------------------------------------------------------------------------
@@ -241,12 +240,17 @@ def _probs(qf, kj, lse, qpos, j0, causal, scale):
     )
 
 
-def flash_fwd_plain(q, k, v, causal: bool):
+def _scale(scale, hd: int) -> float:
+    return 1.0 / math.sqrt(hd) if scale is None else scale
+
+
+def flash_fwd_plain(q, k, v, causal: bool, scale=None):
     """(O [BH, Sq, hd] in q's dtype, lse [BH, Sq, 1] float32), blockwise
-    over K with the online-softmax recurrence."""
+    over K with the online-softmax recurrence; scores times ``scale``
+    (default 1/sqrt(hd))."""
     bh, sq, hd = q.shape
     bkv, sk, _ = k.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = _scale(scale, hd)
     qf, qpos = _folded(q, bkv)
     o = torch.zeros_like(qf)
     l = torch.zeros(qf.shape[:2], device=q.device)
@@ -261,10 +265,10 @@ def flash_fwd_plain(q, k, v, causal: bool):
     return out.reshape(bh, sq, hd).to(q.dtype), lse.reshape(bh, sq, 1)
 
 
-def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool):
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool, scale=None):
     bh, sq, hd = q.shape
     bkv, sk, _ = k.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = _scale(scale, hd)
     qf, qpos = _folded(q, bkv)
     dof, _ = _folded(do, bkv)
     lse_f = lse.reshape(bkv, -1)
@@ -278,10 +282,10 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool):
     return (dq * scale).reshape(bh, sq, hd).to(q.dtype)
 
 
-def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool):
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool, scale=None):
     bh, sq, hd = q.shape
     bkv, sk, _ = k.shape
-    scale = 1.0 / math.sqrt(hd)
+    scale = _scale(scale, hd)
     qf, qpos = _folded(q, bkv)
     dof, _ = _folded(do, bkv)
     lse_f = lse.reshape(bkv, -1)
@@ -302,59 +306,59 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool):
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def flash_fwd(q, k, v, causal: bool):
-    """B1. Returns (O like q, lse [BH, Sq, 1] float32)."""
+def flash_fwd(q, k, v, causal: bool, scale=None):
+    """B1. Returns (O like q, lse [BH, Sq, 1] float32); scores times
+    ``scale`` (default 1/sqrt(hd))."""
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, causal)
+        return flash_fwd_plain(q, k, v, causal, scale)
     _check("flash_fwd", q, k, v)
     bh, sq, hd = q.shape
     variant = ROUTES["flash_fwd", q.dtype, hd]
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), device=q.device, dtype=torch.float32)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
-    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
+    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), _scale(scale, hd))
     with torch.cuda.device(q.device):
-        if variant == "wgmma":
-            rc = _tc_lib().nd_flash_fwd_tc(hd, *ptrs, *shape, _stream(q))
+        if variant == "tf32x3":
+            rc = _tf32_lib().nd_flash_fwd_tf32(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
         else:
-            rc = _lib().nd_flash_fwd(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
+            rc = _tc_lib().nd_flash_fwd_tc(hd, *ptrs, *shape, _stream(q))
     _raise_on(rc, "flash_fwd", variant)
     _counted(flash_fwd, variant, q, k, causal)
     return o, lse
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool):
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale=None):
     """B2. Returns dQ like q."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+        return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
     _check("flash_bwd_dq", q, k, v, do, stats=(lse, delta))
     bh, sq, hd = q.shape
     variant = ROUTES["flash_bwd_dq", q.dtype, hd]
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr())
-    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
+    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), _scale(scale, hd))
     with torch.cuda.device(q.device):
         if variant == "tf32x3":
             splits = bwd_splits("flash_bwd_dq", bh, k.shape[0], sq, k.shape[1], causal)
             ws = (torch.empty((splits, bh, sq, hd), device=q.device, dtype=torch.float32)
                   if splits > 1 else None)
             rc = _tf32_lib().nd_flash_bwd_dq_tf32(
-                hd, *ptrs, None if ws is None else ws.data_ptr(), *shape, splits, _stream(q))
-        elif variant == "wgmma":
-            rc = _tc_lib().nd_flash_bwd_dq_tc(hd, *ptrs, *shape, _stream(q))
+                _DTYPE_CODE[q.dtype], hd, *ptrs, None if ws is None else ws.data_ptr(), *shape,
+                splits, _stream(q))
         else:
-            rc = _lib().nd_flash_bwd_dq(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
+            rc = _tc_lib().nd_flash_bwd_dq_tc(hd, *ptrs, *shape, _stream(q))
     _raise_on(rc, "flash_bwd_dq", variant)
     _counted(flash_bwd_dq, variant, q, k, causal)
     return dq
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale=None):
     """B3. Returns (dK like k, dV like v), summed over each KV head's
     group of query heads."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+        return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
     _check("flash_bwd_dkv", q, k, v, do, stats=(lse, delta))
     bh, sq, hd = q.shape
     variant = ROUTES["flash_bwd_dkv", q.dtype, hd]
@@ -362,7 +366,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
     dv = torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), 1.0 / math.sqrt(hd))
+    shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), _scale(scale, hd))
     with torch.cuda.device(q.device):
         if variant == "tf32x3":
             bh_kv, sk = k.shape[:2]
@@ -370,11 +374,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool):
             ws = (torch.empty((splits, 2, bh_kv, sk, hd), device=q.device, dtype=torch.float32)
                   if splits > 1 else None)
             rc = _tf32_lib().nd_flash_bwd_dkv_tf32(
-                hd, *ptrs, None if ws is None else ws.data_ptr(), *shape, splits, _stream(q))
-        elif variant == "wgmma":
-            rc = _tc_lib().nd_flash_bwd_dkv_tc(hd, *ptrs, *shape, _stream(q))
+                _DTYPE_CODE[q.dtype], hd, *ptrs, None if ws is None else ws.data_ptr(), *shape,
+                splits, _stream(q))
         else:
-            rc = _lib().nd_flash_bwd_dkv(_DTYPE_CODE[q.dtype], hd, *ptrs, *shape, _stream(q))
+            rc = _tc_lib().nd_flash_bwd_dkv_tc(hd, *ptrs, *shape, _stream(q))
     _raise_on(rc, "flash_bwd_dkv", variant)
     _counted(flash_bwd_dkv, variant, q, k, causal)
     return dk, dv
@@ -407,7 +410,7 @@ def launch_counts() -> dict[str, int]:
 
 def variant_counts() -> dict[str, dict[str, int]]:
     """Launches of each kernel by variant, e.g.
-    ``{"flash_fwd": {"fma": 0, "wgmma": 4, "tf32x3": 0}, ...}``."""
+    ``{"flash_fwd": {"wgmma": 4, "tf32x3": 0}, ...}``."""
     return {fn.__name__: dict(fn.variant_launches) for fn in KERNELS}
 
 
@@ -421,13 +424,14 @@ class FlashAttention(torch.autograd.Function):
     """Replaces ``_flash`` / ``_flash_fwd`` / ``_flash_bwd`` (the custom
     VJP): forward launches B1; backward computes ``delta = rowsum(dO * O)``
     in float32 (outside any kernel, as the JAX package does) and launches
-    B2 and B3. Inputs are ``[BH, S, hd]`` / ``[BH/group, S, hd]``."""
+    B2 and B3. Inputs are ``[BH, S, hd]`` / ``[BH/group, S, hd]``; scores
+    are taken times ``scale``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
-        o, lse = flash_fwd(q, k, v, causal)
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = flash_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
@@ -435,22 +439,33 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal)
-        return dq, dk, dv, None
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def cuda_flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q ``[B, S, H, hd]``; k, v ``[B, S, Hkv, hd]`` with H % Hkv == 0
     (GQA, never expanded). Differentiable. The port of
-    ``pallas_flash_attention``: same public layout."""
+    ``pallas_flash_attention``: same public layout, and any head dim up to
+    128, as the JAX dispatcher takes any head dim off the TPU: a head dim
+    outside ``HEAD_DIMS`` is zero-padded to the next of them in the copy
+    to ``[BH, S, hd]``, with the scale of the true head dim, and the output
+    sliced back. Zero columns change no score and give zero output and
+    gradient columns, so the result is exact. Above 128 it raises."""
     b, s, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"query heads {h} must divide by kv heads {hkv}")
+    if hd > HEAD_DIMS[-1]:
+        raise ValueError(f"head dim {hd} above {HEAD_DIMS[-1]}: the kernels' tiles stop at "
+                         f"{HEAD_DIMS[-1]} (ROADMAP C3)")
+    width = next(d for d in HEAD_DIMS if d >= hd)
 
     def flat(x, sl, nh):
-        return x.permute(0, 2, 1, 3).reshape(b * nh, sl, hd).contiguous()
+        x = x.permute(0, 2, 1, 3).reshape(b * nh, sl, hd)
+        return torch.nn.functional.pad(x, (0, width - hd)) if width > hd else x.contiguous()
 
-    out = FlashAttention.apply(flat(q, s, h), flat(k, sk, hkv), flat(v, sk, hkv), causal)
-    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    out = FlashAttention.apply(flat(q, s, h), flat(k, sk, hkv), flat(v, sk, hkv), causal,
+                               1.0 / math.sqrt(hd))
+    return out[..., :hd].reshape(b, h, s, hd).permute(0, 2, 1, 3)

@@ -30,7 +30,10 @@ parent commit unpacked with ``git archive``). ``--shape`` names shapes of
   S 1024);
 - ``moe_small_f32_hd16``: float32, B 2, H 4, Hkv 2, S 200, hd 16, causal
   (chip_smoke.py's moe_small);
-- ``phi3_f32_hd96`` / ``phi2_f32_hd80``: phi3_hd96 and phi2_hd80 in float32.
+- ``phi3_f32_hd96`` / ``phi2_f32_hd80``: phi3_hd96 and phi2_hd80 in float32;
+- ``mha_f32_hd96`` (B 2, H 2, Hkv 2, S 128), ``ragged_gqa2_f32_hd80`` (B 1,
+  H 4, Hkv 2, S 333) and ``ragged_gqa2_bf16_hd16`` (bf16, B 2, H 4, Hkv 2,
+  S 200), all causal: chip_smoke.py's shapes of those routes.
 
 B counts every worker's sequences: the model folds W x b into B before
 attention.
@@ -74,6 +77,9 @@ SHAPES = {
     "moe_small_f32_hd16": ("float32", 2, 4, 2, 200, 16, True),
     "phi3_f32_hd96": ("float32", 2, 32, 32, 2048, 96, True),
     "phi2_f32_hd80": ("float32", 2, 32, 32, 2048, 80, True),
+    "mha_f32_hd96": ("float32", 2, 2, 2, 128, 96, True),
+    "ragged_gqa2_f32_hd80": ("float32", 1, 4, 2, 333, 80, True),
+    "ragged_gqa2_bf16_hd16": ("bfloat16", 2, 4, 2, 200, 16, True),
 }
 
 # run inside each turn's process, with the checkout's root first on sys.path

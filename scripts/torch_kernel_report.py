@@ -5,10 +5,11 @@ whether ptxas serialized its wgmma instructions (warning C7512), and the
 local-memory loads and stores (LDL, STL) and wgmma instructions (HGMMA) in
 its SASS.
 
-    python3 scripts/torch_kernel_report.py [--tree <checkout>] [--source flash_attention_tc]
+    python3 scripts/torch_kernel_report.py [--tree <checkout>] [--source flash_attention_tc ...]
 
 ``--tree`` is the root of a checkout of this repo (default: this one); its
-kernels build into its own ``build/kernels/<hash>/``. Prints one JSON line:
+kernels build into its own ``build/kernels/<hash>/``. ``--source`` names
+one or more sources of ``csrc/`` (without ``.cu``). Prints one JSON line:
 ``{"tree", "source", "build_s", "kernels": {name<HD>: {"registers",
 "spill_stores", "spill_loads", "serialized_wgmma", "LDL", "STL",
 "HGMMA"}}}``. Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit of the
@@ -74,7 +75,7 @@ def sass_report(lib: Path) -> dict[str, dict]:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--tree", type=Path, default=ROOT)
-    ap.add_argument("--source", default="flash_attention_tc")
+    ap.add_argument("--source", nargs="+", default=["flash_attention_tc"])
     args = ap.parse_args()
     tree = str(args.tree.resolve())
     sys.path.insert(0, tree)
@@ -84,9 +85,11 @@ def main() -> None:
         raise SystemExit(f"imported {build.__file__}, not the checkout at {tree}")
     report = build.build_all()
     out = build.build_dir()
-    kernels = ptxas_report((out / f"{args.source}.build.log").read_text())
-    for name, counts in sass_report(out / f"lib{args.source}.so").items():
-        kernels.setdefault(name, {}).update(counts)
+    kernels = {}
+    for source in args.source:
+        kernels.update(ptxas_report((out / f"{source}.build.log").read_text()))
+        for name, counts in sass_report(out / f"lib{source}.so").items():
+            kernels.setdefault(name, {}).update(counts)
     print(json.dumps({"tree": tree, "source": args.source,
                       "build_s": {k: r["seconds"] for k, r in report.items()},
                       "kernels": dict(sorted(kernels.items()))}))

@@ -35,10 +35,10 @@ from nanodiloco_tpu_torch.data.tokenizer import ByteTokenizer  # noqa: E402
 from nanodiloco_tpu_torch.models.config import LLAMA3_8B  # noqa: E402
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig  # noqa: E402
 
-# kernel symbol names: the FMA kernels of csrc/flash_attention.cu and the
-# tensor-core kernels of csrc/flash_attention_tc.cu
-FLASH = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-         "flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel")
+# kernel symbol names: the wgmma kernels of csrc/flash_attention_tc.cu and
+# the three-product TF32 kernels of csrc/flash_attention_tf32_*.cu
+FLASH = ("flash_fwd_tc_kernel", "flash_bwd_dq_tc_kernel", "flash_bwd_dkv_tc_kernel",
+         "flash_fwd_tf32_kernel", "flash_bwd_dq_tf32_kernel", "flash_bwd_dkv_tf32_kernel")
 GEMM = ("gemm", "cutlass", "xmma", "nvjet", "cublas")
 
 

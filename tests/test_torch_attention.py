@@ -73,7 +73,7 @@ def test_gradients_match_pallas(group, causal):
 @pytest.mark.parametrize("hd", [16, 80, 96])
 @pytest.mark.parametrize("group, causal", [(1, True), (2, False), (4, True)])
 def test_more_head_dims_match_jax_flash_attention(hd, group, causal):
-    """The head dims the FMA kernels gained (16, 80, 96): the Function's
+    """Head dims 16, 80 and 96 (taken since the first three): the Function's
     plain forward and backward on the CPU against the JAX dispatcher's scan
     path (what it runs off the TPU at any head dim), output and dQ/dK/dV,
     GQA and causal."""
@@ -171,7 +171,7 @@ def test_cpu_tensors_never_launch():
     q = torch.randn(1, 16, 2, 32, requires_grad=True)
     flash_attention(q, q, q).sum().backward()
     assert fa.launch_counts() == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
-    assert fa.variant_counts() == {name: {"fma": 0, "wgmma": 0, "tf32x3": 0}
+    assert fa.variant_counts() == {name: {"wgmma": 0, "tf32x3": 0}
                                    for name in fa.KERNEL_NAMES}
     assert fa.shape_counts() == {name: {} for name in fa.KERNEL_NAMES}
 
@@ -197,19 +197,17 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
-    """bf16 goes to the wgmma kernels for B1, B2 and B3 alike, at hd 128,
-    96, 80, 64 and 32, and to the FMA kernels at hd 16; in float32 the
-    backward (B2, B3) goes to three-product TF32 on the tensor cores at
-    every head dim, and the forward (B1) to the FMA kernel."""
+    """Two designs, both on the tensor cores: bf16 goes to the wgmma kernels
+    at hd 128, 96, 80, 64 and 32, and to three-product TF32 at hd 16; every
+    float32 row goes to three-product TF32. B1, B2 and B3 share each route,
+    and no FMA variant is left."""
     if dtype == torch.bfloat16:
-        want = "wgmma" if hd in (128, 96, 80, 64, 32) else "fma"
-        # B2 takes the tensor cores exactly where B1 and B3 do
-        assert {fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES} == {want}
+        want = "wgmma" if hd in (128, 96, 80, 64, 32) else "tf32x3"
     else:
-        want = "fma" if name == "flash_fwd" else "tf32x3"
-        # the backward pair shares one route
-        assert fa.ROUTES["flash_bwd_dq", dtype, hd] == fa.ROUTES["flash_bwd_dkv", dtype, hd]
+        want = "tf32x3"
+    assert {fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES} == {want}
     assert fa.ROUTES[name, dtype, hd] == want
+    assert fa.VARIANTS == ("wgmma", "tf32x3")
 
 
 def tensor_core_dq(q, k, v, do, lse, delta, causal):
@@ -404,8 +402,8 @@ def test_tensor_core_fwd_and_dkv_match_jax_flash_attention(hd, group, causal):
 
 
 def test_tensor_core_build_failure_raises(tmp_path, monkeypatch):
-    """A failed build of the tensor-core kernels raises when their library
-    is first asked for; nothing falls back to the FMA kernels."""
+    """A failed build of the wgmma kernels raises when their library is
+    first asked for; nothing falls back to another variant."""
     nvcc = tmp_path / "nvcc"
     nvcc.write_text("#!/bin/sh\nexit 1\n")
     nvcc.chmod(0o755)

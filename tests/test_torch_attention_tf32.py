@@ -1,5 +1,5 @@
 """The float32 backward kernels' numerics (B2 dQ, B3 dK/dV on the tensor
-cores as three-product TF32, ``csrc/flash_attention_tf32.cu``), modelled
+cores as three-product TF32, ``csrc/flash_attention_tf32_{dq,dkv}.cu``), modelled
 in float32 on the CPU, against the plain versions and against the JAX
 package's gradients; and the rule that splits the kernels' loops.
 

@@ -7,16 +7,16 @@ PyTorch; there, skip the repo's JAX-side conftest:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-Tolerance, as in chip_smoke.py: ``atol * max|ref| + rtol * |ref|``. The
-FMA kernels compute in float32 from the same inputs as the plain versions
-and differ in summation order, ~1e-6 relative in float32, and bf16
-outputs may land one bf16 ulp (2**-7 relative) apart: atol 2e-3, rtol
-1e-4 (f32) or 2**-7 (bf16). The tensor-core kernels (bf16: B1, B2, B3 at
-hd 128, 96, 80, 64 and 32; hd 80 in the hd-96 tile) also round P (B1), dS
-(B2), P and dS (B3) to bf16 before the last product, where the plain
-versions keep float32: atol 2**-8. The float32 backward (B2, B3) on the
-tensor cores as three TF32 products (tf32x3) keeps float32's accuracy but
-for ~2**-22: atol 1e-4, chip_smoke.py's float32 tolerance.
+Tolerance, as in chip_smoke.py: ``atol * max|ref| + rtol * |ref|``, rtol
+1e-4 (f32) or 2**-7 (bf16: outputs may land one bf16 ulp apart). The
+three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16)
+keep float32's accuracy but for ~2**-22: atol 1e-4 in float32; in bf16
+the inputs are exact in TF32 and the float32-accurate sums are rounded to
+bf16, atol 2e-3. The wgmma kernels (bf16: B1, B2, B3 at hd 128, 96, 80,
+64 and 32; hd 80 in the hd-96 tile) also round P (B1), dS (B2), P and dS
+(B3) to bf16 before the last product, where the plain versions keep
+float32: atol 2**-8. lse, and the dispatcher's float32 outputs and
+gradients card against CPU, are held at atol 2e-3.
 """
 
 import pytest
@@ -31,7 +31,9 @@ from nanodiloco_tpu_torch.training.checkpoint import CheckpointManager
 from nanodiloco_tpu_torch.training.evaluate import Evaluator, holdout_batches
 
 RTOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
-ATOL = {"fma": 2e-3, "wgmma": 2.0 ** -8, "tf32x3": 1e-4}
+ATOL = {(torch.float32, "tf32x3"): 1e-4, (torch.bfloat16, "tf32x3"): 2e-3,
+        (torch.bfloat16, "wgmma"): 2.0 ** -8}
+LOOSE_ATOL = 2e-3  # lse; the dispatcher's float32 results, card against CPU
 
 
 def card():
@@ -40,10 +42,22 @@ def card():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-def close(got, want, dtype, variant="fma"):
+def close(got, want, dtype, variant=None):
     want = want.float()
-    atol = ATOL[variant] * want.abs().max().item()
+    atol = (ATOL[dtype, variant] if variant else LOOSE_ATOL) * want.abs().max().item()
     torch.testing.assert_close(got.float(), want, rtol=RTOL[dtype], atol=atol)
+
+
+def guarded_empty_like(bufs, guard=4096):
+    """A torch.empty_like that hands out the head of a buffer whose
+    ``guard`` elements after it hold a marker (7.0), recorded in ``bufs``."""
+
+    def guarded_like(t, **kw):
+        buf = torch.full((t.numel() + guard,), 7.0, device=t.device, dtype=t.dtype)
+        bufs.append((buf, t.numel()))
+        return buf[:t.numel()].view(t.shape)
+
+    return guarded_like
 
 
 @pytest.mark.cuda
@@ -105,9 +119,9 @@ def test_tensor_core_kernels_at_hd_64_and_32(hd, h, hkv, s, causal):
                                 fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)):
         close(got, want, bf16, "wgmma")
         assert torch.equal(got, again)
-    assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1, "tf32x3": 0},
-                                   "flash_bwd_dq": {"fma": 0, "wgmma": 1, "tf32x3": 0},
-                                   "flash_bwd_dkv": {"fma": 0, "wgmma": 2, "tf32x3": 0}}
+    assert fa.variant_counts() == {"flash_fwd": {"wgmma": 1, "tf32x3": 0},
+                                   "flash_bwd_dq": {"wgmma": 1, "tf32x3": 0},
+                                   "flash_bwd_dkv": {"wgmma": 2, "tf32x3": 0}}
 
 
 @pytest.mark.cuda
@@ -138,9 +152,9 @@ def test_tensor_core_kernels_at_hd_96_and_80(hd, h, hkv, s, causal):
                                 fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)):
         close(got, want, bf16, "wgmma")
         assert torch.equal(got, again)
-    assert fa.variant_counts() == {"flash_fwd": {"fma": 0, "wgmma": 1, "tf32x3": 0},
-                                   "flash_bwd_dq": {"fma": 0, "wgmma": 1, "tf32x3": 0},
-                                   "flash_bwd_dkv": {"fma": 0, "wgmma": 2, "tf32x3": 0}}
+    assert fa.variant_counts() == {"flash_fwd": {"wgmma": 1, "tf32x3": 0},
+                                   "flash_bwd_dq": {"wgmma": 1, "tf32x3": 0},
+                                   "flash_bwd_dkv": {"wgmma": 2, "tf32x3": 0}}
 
 
 @pytest.mark.cuda
@@ -199,7 +213,7 @@ def test_tensor_core_forward_fully_masked_row_gives_zeros_not_nan(hd):
     q[1, 150, 0] = -float("inf")
     fa.reset_launch_counts()
     o, lse = fa.flash_fwd(q, k, v, True)
-    assert fa.variant_counts()["flash_fwd"] == {"fma": 0, "wgmma": 1, "tf32x3": 0}
+    assert fa.variant_counts()["flash_fwd"] == {"wgmma": 1, "tf32x3": 0}
     assert not o.isnan().any() and not lse.isnan().any()
     assert torch.equal(o[1, 150], torch.zeros(hd, device="cuda", dtype=bf16))
     assert lse[1, 150, 0].item() == -float("inf")
@@ -226,7 +240,7 @@ def test_tensor_core_dq_is_bitwise_deterministic(hd):
     fa.reset_launch_counts()
     first = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
     second = fa.flash_bwd_dq(q, k, v, do, lse, delta, True)
-    assert fa.variant_counts()["flash_bwd_dq"] == {"fma": 0, "wgmma": 2, "tf32x3": 0}
+    assert fa.variant_counts()["flash_bwd_dq"] == {"wgmma": 2, "tf32x3": 0}
     assert torch.equal(first, second)
 
 
@@ -247,7 +261,7 @@ def test_tensor_core_dq_row_without_probability_gives_zeros_not_nan(causal):
     lse[1, 40] = float("inf")
     fa.reset_launch_counts()
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
-    assert fa.variant_counts()["flash_bwd_dq"] == {"fma": 0, "wgmma": 1, "tf32x3": 0}
+    assert fa.variant_counts()["flash_bwd_dq"] == {"wgmma": 1, "tf32x3": 0}
     assert not dq.isnan().any()
     assert torch.equal(dq[1, 40], torch.zeros(80, device="cuda", dtype=bf16))
     want = fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)
@@ -276,15 +290,9 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     lse[1, s // 2] = float("inf")
     splits = [fa.bwd_splits(n, bh, bh_kv, s, s, causal) for n in ("flash_bwd_dq", "flash_bwd_dkv")]
     assert (splits == [1, 1]) == (bh == 32), splits
-    guard, bufs, empty_like = 4096, [], torch.empty_like
-
-    def guarded_like(t, **kw):
-        buf = torch.full((t.numel() + guard,), 7.0, device=t.device, dtype=t.dtype)
-        bufs.append((buf, t.numel()))
-        return buf[:t.numel()].view(t.shape)
-
+    guard, bufs = 4096, []
     fa.reset_launch_counts()
-    monkeypatch.setattr(torch, "empty_like", guarded_like)
+    monkeypatch.setattr(torch, "empty_like", guarded_empty_like(bufs, guard))
     dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
     dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
     monkeypatch.undo()
@@ -295,7 +303,7 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     for buf, n in bufs:
         assert torch.equal(buf[n:], torch.full((guard,), 7.0, device="cuda"))
     assert {n: c for n, c in fa.variant_counts().items() if n != "flash_fwd"} == {
-        n: {"fma": 0, "wgmma": 0, "tf32x3": 2} for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+        n: {"wgmma": 0, "tf32x3": 2} for n in ("flash_bwd_dq", "flash_bwd_dkv")}
     for got, second in zip((dq, dk, dv), again):
         assert torch.equal(got, second)
         assert not got.isnan().any()
@@ -303,6 +311,142 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), torch.float32, "tf32x3")
     for got, want in zip((dk, dv), fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)):
         close(got, want, torch.float32, "tf32x3")
+
+
+# (dtype, hd) of every tf32x3 forward instance: float32 at every head dim,
+# bf16 at hd 16
+TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [(torch.bfloat16, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, hd", TF32X3_FWD)
+@pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
+                                                  (8, 2, 333, True)])
+def test_tf32x3_forward_matches_plain(dtype, hd, bh, bh_kv, s, causal, monkeypatch):
+    """B1 on the tensor cores as three-product TF32 (bf16 at hd 16: one
+    product for S, two for P V) at every float32 head dim and at bf16 hd
+    16, ragged S, MHA and GQA 4, causal and not: O within the tf32x3
+    tolerance of the plain version, lse within 1e-4; the first launch's O
+    heads a marker-filled buffer whose tail comes back unchanged; a second
+    launch gives the same bits."""
+    gen = card()
+    q = torch.randn(bh, s, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(bh_kv, s, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    bufs = []
+    fa.reset_launch_counts()
+    monkeypatch.setattr(torch, "empty_like", guarded_empty_like(bufs))
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    monkeypatch.undo()
+    again = fa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert len(bufs) == 1
+    assert torch.equal(bufs[0][0][bufs[0][1]:], torch.full((4096,), 7.0, device="cuda",
+                                                           dtype=dtype))
+    assert fa.variant_counts()["flash_fwd"] == {"wgmma": 0, "tf32x3": 2}
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    close(o, o_ref, dtype, "tf32x3")
+    close(lse, lse_ref, torch.float32, "tf32x3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, hd", TF32X3_FWD)
+def test_tf32x3_forward_fully_masked_row_gives_zeros_not_nan(dtype, hd):
+    """A query row whose every score is -inf (its first column -inf, the
+    rest 0, every key's first column positive and, in float32, with a
+    positive lo part, so that no product term is -inf times 0) keeps
+    m = -inf in the tf32x3 B1: its O row is zeros and its lse -inf, never
+    NaN, and the other rows match the plain version."""
+    gen = card()
+    q = torch.randn(4, 200, hd, generator=gen, device="cuda").to(dtype)
+    k, v = (torch.randn(2, 200, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k[..., 0] = 1.0 + 2.0 ** -12 if dtype == torch.float32 else k[..., 0].abs() + 0.5
+    q[1, 150] = 0.0
+    q[1, 150, 0] = -float("inf")
+    fa.reset_launch_counts()
+    o, lse = fa.flash_fwd(q, k, v, True)
+    assert fa.variant_counts()["flash_fwd"] == {"wgmma": 0, "tf32x3": 1}
+    assert not o.isnan().any() and not lse.isnan().any()
+    assert torch.equal(o[1, 150], torch.zeros(hd, device="cuda", dtype=dtype))
+    assert lse[1, 150, 0].item() == -float("inf")
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, True)
+    keep = torch.ones(4, 200, dtype=torch.bool, device="cuda")
+    keep[1, 150] = False
+    close(o[keep], o_ref[keep], dtype, "tf32x3")
+    close(lse[keep], lse_ref[keep], torch.float32, "tf32x3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
+                                                  (8, 2, 333, True)])
+def test_tf32x3_bf16_hd16_backward_matches_plain(bh, bh_kv, s, causal, monkeypatch):
+    """bf16 B2 and B3 at hd 16 on the tf32x3 kernels (one product for
+    S and dP, two for dS K, P^T dO and dS^T Q), unsplit and split: within
+    (2e-3, 2**-7) of the plain versions; outputs inside their tensors; a
+    second launch gives the same bits."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q, do = (torch.randn(bh, s, 16, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k, v = (torch.randn(bh_kv, s, 16, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    bufs = []
+    fa.reset_launch_counts()
+    monkeypatch.setattr(torch, "empty_like", guarded_empty_like(bufs))
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal)
+    monkeypatch.undo()
+    again = (fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
+             *fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal))
+    torch.cuda.synchronize()
+    assert len(bufs) == 3
+    for buf, n in bufs:
+        assert torch.equal(buf[n:], torch.full((4096,), 7.0, device="cuda", dtype=bf16))
+    assert {n: c for n, c in fa.variant_counts().items() if n != "flash_fwd"} == {
+        n: {"wgmma": 0, "tf32x3": 2} for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+    for got, second in zip((dq, dk, dv), again):
+        assert torch.equal(got, second)
+    close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), bf16, "tf32x3")
+    for got, want in zip((dk, dv), fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)):
+        close(got, want, bf16, "tf32x3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd, width", [(48, 64), (8, 16), (112, 128)])
+def test_padded_head_dim_matches_plain_at_its_own_width(dtype, hd, width):
+    """A head dim outside HEAD_DIMS (ROADMAP C3) runs through the kernels
+    zero-padded to the next one: the dispatcher's output and dQ, dK, dV on
+    the card have hd columns and match the plain versions at the true head
+    dim (within the padded route's tolerance; the backward's on the
+    kernel's own lse and delta, as autograd hands them over), and the
+    launches are counted at the padded width."""
+    gen = card()
+    b, s, h, hkv = 2, 150, 4, 2
+    q, ct = (torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    leaves = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    fa.reset_launch_counts()
+    fa.reset_shape_counts()
+    out = flash_attention(*leaves, causal=True)
+    out.backward(ct)
+    assert out.shape == q.shape and all(x.grad.shape == x.shape for x in leaves)
+    assert set(fa.shape_counts()["flash_fwd"]) == {
+        fa.shape_key(dtype, b * h, b * hkv, s, s, width, True)}
+
+    def flat(x):
+        return x.transpose(1, 2).reshape(-1, s, hd).contiguous()
+
+    qf, kf, vf, dof = map(flat, (q, k, v, ct))
+    padded = (torch.nn.functional.pad(x, (0, width - hd)) for x in (qf, kf, vf))
+    o_pad, lse = fa.flash_fwd(*padded, True, hd ** -0.5)
+    delta = (dof.float() * o_pad[..., :hd].float()).sum(-1, keepdim=True)
+    want = (fa.flash_fwd_plain(qf, kf, vf, True)[0],
+            fa.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, True),
+            *fa.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, True))
+    variant = fa.ROUTES["flash_fwd", dtype, width]
+    for got, ref in zip((out, *(x.grad for x in leaves)), want):
+        close(flat(got), ref, dtype, variant)
 
 
 @pytest.mark.cuda
