@@ -11,14 +11,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
 3. kernels     - each kernel against its plain PyTorch version on the
                  card at the tolerance of its route, at shapes that cover
                  every (dtype, head dim) row of the route table (hd 16, 32,
-                 64, 80, 96, 128; ragged S, non-causal, S under one tile,
-                 MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80, 64
-                 and 32 run wgmma, the rest (every float32 row, bf16
-                 at hd 16) three-product TF32 on mma.sync (tf32x3).
-                 The dispatcher at head dims outside the six (ROADMAP
-                 C3: 48 in float32 and bf16, 8 in bf16), zero-padded to
-                 the next: output and gradients against the plain
-                 versions at the true head dim.
+                 64, 80, 96, 128, 256; ragged S, non-causal, S under one
+                 tile, MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80,
+                 64 and 32 run wgmma, the rest (every float32 row, bf16
+                 at hd 16 and 256) three-product TF32 on mma.sync (tf32x3).
+                 The dispatcher at head dims outside the seven (ROADMAP
+                 C3: 48 in float32 and bf16, 8 in bf16, 136 in float32),
+                 zero-padded to the next: output and gradients against the
+                 plain versions at the true head dim.
                  Each kernel launches twice: the first launch's outputs
                  head buffers whose tails hold a marker that must come
                  back unchanged (no store past a tensor), and the second
@@ -26,13 +26,15 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  At one shape of every route that no phase is built to
                  run (hd 16, 80, 96 in bf16, the last two at Phi-2's and
                  Phi-3-mini's width; hd 32, 80, 96, 128 in f32),
+                 and at every hd-256 shape (Gemma-2B's attention in bf16
+                 and float32, a ragged GQA and a non-causal one),
                  CUDA-event times of the kernel, the plain version and the
                  PyTorch library call (ms: calls back to back, what a
                  caller sees; device_ms: a CUDA graph of them, the
                  device's time alone), the least time the card could take
                  (bound_ms), TFLOP/s and the share of the bound. At
-                 gqa4_f32 and mha_f32_hd96, the names of the CUDA kernels
-                 that SDPA's float32 forward and backward run
+                 gqa4_f32, mha_f32_hd96 and the hd-256 shapes, the names
+                 of the CUDA kernels that SDPA's forward and backward run
                  (torch.profiler): its backend. From here
                  on every launch is counted by shape (fa.shape_counts),
                  and the child processes that train report theirs.
@@ -46,9 +48,12 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  with a checkpoint, then a resumed run to round 3, which
                  must equal the uninterrupted one bit for bit (or within
                  the measured spread); `python -m nanodiloco_tpu_torch` on
-                 a .tshrd shard in a subprocess, sent SIGTERM after its
-                 first round, must exit 75 with a checkpoint at a round
-                 boundary, and a rerun must finish the remaining rounds;
+                 a .tshrd shard in a subprocess (with the reference's
+                 --project and --wandb-config-file, whose measure_comms
+                 must fence the syncs), sent SIGTERM
+                 after its first round, must exit 75 with a checkpoint at
+                 a round boundary, and a rerun must finish the remaining
+                 rounds;
                  the checkpoint's bytes, save and restore seconds.
 6. train       - the port's train(): two DiLoCo rounds at Llama-3-8B
                  width (1 layer, W=2 workers, H=2, grad_accum 2, S=2048)
@@ -67,6 +72,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  sums, with the restore's peak device memory (left out,
                  with a line that says so, if the disk lacks 1.5x the
                  state's bytes).
+6b. train_hd256 - train() at Gemma-2B's attention and MLP widths
+                 (GEMMA2B_WIDTH: hidden 2048, 8 query heads on 1 KV head of
+                 256, intermediate 16384, vocab 256000, tied embeddings;
+                 depth cut from 18 layers to 2) in bf16 over float32
+                 masters with attention_impl="flash": W 2 x b 2 x S 2048,
+                 H 2, 2 rounds. Every B1, B2 and B3 launch must be at
+                 (bf16, hd 256) on tf32x3, and the losses finite; tokens/s
+                 and peak memory.
 
 7. diloco_options_small - every DiLoCo option (quarantine, the bf16,
                  int8 and int4-integer wires, dynamics, heterogeneous H
@@ -237,7 +250,7 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  come out lower index first on both; B1, B2, B3 launch,
                  all three on tf32x3.
 19. moe_train   - train() on bench.py's moe-8x-top2 (vocab 32000, hidden 512,
-                 6 layers, 8/4 heads: hd 64 bf16; 8 experts top-2) at its
+                 3 of its 6 layers, 8/4 heads: hd 64 bf16; 8 experts top-2) at its
                  bench shape (S 1024 x B 8, W 2, H 2, 3 rounds), dense at cf
                  1.25 and ragged: tokens/s, peak memory, t_inner, t_sync
                  beside its byte bound, the analytic MFU, the router stats of
@@ -264,12 +277,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  gave it, held against its plain version at its route's
                  tolerance and timed as in phase 3; fails unless every
                  kernel ran at the head dim and dtype of every model the
-                 path trains (bf16 hd 128, 64, 32; f32 hd 64, 16).
+                 path trains (bf16 hd 128, 64, 32, 256; f32 hd 64, 16).
 
 Then the kernels line ({"kernels": [...]}: one entry per kernel and shape
 of the main path, with its launches there, in all and by phase; beside it
 "not_on_main_path": the same entries, with 0 launches, for the routes no
-phase runs, timed in phase 3), the nvidia-smi line, and last
+phase runs, timed in phase 3, and "kernels_phase_shapes": the hd-256
+shapes phase 3 timed on routes the path runs at other shapes), the
+nvidia-smi line, and last
 {"ok": true, "device": {...}}. Needs one card; builds into build/ and
 writes its runs and checkpoints under build/chip_smoke/, and the files
 of phases 13-20 in a directory of its own under /dev/shm (a tmpfs: the
@@ -283,6 +298,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
 import io
 import json
 import math
@@ -393,7 +409,11 @@ PEAK_BYTES = 3.35e12
 #   --seq-length 1024: a grid the tf32x3 kernels fill without a split;
 #   phi3_hd96 / phi2_hd80: Phi-3-mini's and Phi-2's attention (hidden 3072
 #   and 2560 over 32 heads, MHA) at B 2, S 2048, causal: hd 96 and 80 at a
-#   model's width, which no phase trains.
+#   model's width, which no phase trains;
+#   gemma2b_hd256 / gemma2b_f32_hd256: Gemma-2B's attention (8 query heads
+#   on 1 KV head of 256) in bf16 at B 2, S 2048 and in float32 at B 1,
+#   S 1024 (train_hd256 trains the bf16 route at B 4).
+# Every hd-256 row is timed, with SDPA's backend beside it.
 # The kernels line does not come from these: the main path's own shapes are
 # counted as it runs (fa.shape_counts) and held and timed after it
 # (kernels_main). Here the first shape of every route that no phase is
@@ -427,12 +447,16 @@ SHAPES = [
     ("noncausal_f32_hd16", torch.float32, 2, 4, 4, 130, 16, False),
     ("ragged_gqa2_f32_hd80", torch.float32, 1, 4, 2, 333, 80, True),
     ("mha_f32_hd96", torch.float32, 2, 2, 2, 128, 96, True),
+    ("gemma2b_hd256", torch.bfloat16, 2, 8, 1, 2048, 256, True),
+    ("gemma2b_f32_hd256", torch.float32, 1, 8, 1, 1024, 256, True),
+    ("ragged_gqa2_bf16_hd256", torch.bfloat16, 1, 4, 2, 333, 256, True),
+    ("noncausal_f32_hd256", torch.float32, 1, 2, 2, 77, 256, False),
 ]
 # the (dtype, head dim) of each model the main path trains: every kernel
 # must launch at each of them (the 8B width and the resume size; moe-8x-top2;
-# llama_moe_64e; train_small; moe_small)
+# llama_moe_64e; train_small; moe_small; Gemma-2B's width in train_hd256)
 MAIN_PATH_ROUTES = ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.bfloat16, 32),
-                    (torch.float32, 64), (torch.float32, 16))
+                    (torch.float32, 64), (torch.float32, 16), (torch.bfloat16, 256))
 # |kernel - plain| <= ATOL * max|plain| + RTOL * |plain|, elementwise, per
 # (dtype, variant). tf32x3 in float32: each product is three TF32 products
 # of the operands' hi and lo parts, which drops lo·lo (about 2**-22
@@ -709,8 +733,9 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
 
 
 # head dims outside fa.HEAD_DIMS (ROADMAP C3), which the dispatcher pads to
-# the next one: 48 -> 64 (float32 tf32x3, bf16 wgmma), 8 -> 16 (bf16 tf32x3)
-PADDED = ((torch.float32, 48), (torch.bfloat16, 48), (torch.bfloat16, 8))
+# the next one: 48 -> 64 (float32 tf32x3, bf16 wgmma), 8 -> 16 (bf16 tf32x3),
+# 136 -> 256 (float32 tf32x3)
+PADDED = ((torch.float32, 48), (torch.bfloat16, 48), (torch.bfloat16, 8), (torch.float32, 136))
 
 
 def hold_padded(dtype, hd: int) -> dict:
@@ -785,33 +810,36 @@ def sdpa_kernels(dtype, b: int, h: int, hkv: int, s: int, hd: int,
                                                           retain_graph=True))}
 
 
-def phase_kernels() -> list[dict]:
+def phase_kernels() -> tuple[list[dict], list[dict]]:
     """Each kernel against its plain version at every shape of SHAPES, on
     its route's tolerance; timed at the first shape of every route that no
     phase is built to run (the others are timed at the main path's own
-    shapes, in kernels_main). Returns those routes' entries for the kernels
-    line, in its format, with no launches on the main path."""
+    shapes, in kernels_main) and at every hd-256 shape. Returns the timed
+    entries for the kernels line, in its format, with no launches on the
+    main path: those of routes no phase runs, and the hd-256 shapes of
+    routes the path runs at other shapes."""
     covered = {(dtype, hd) for _, dtype, *_, hd, _ in SHAPES}
     missing = {(dtype, hd) for _, dtype, hd in fa.ROUTES} - covered
     if missing:
         fail("kernels", f"route-table rows without a shape: {sorted(map(str, missing))}")
     timed = set(MAIN_PATH_ROUTES)
-    off_path = []
+    off_path, on_path = [], []
     for name, dtype, b, h, hkv, s, hd, causal in SHAPES:
         line = hold("kernels", name, dtype, b * h, b * hkv, s, hd, causal,
-                    timed=(dtype, hd) not in timed)
+                    timed=(dtype, hd) not in timed or hd == 256)
         timed.add((dtype, hd))
-        if name in ("gqa4_f32", "mha_f32_hd96"):
+        if name in ("gqa4_f32", "mha_f32_hd96") or hd == 256:
             line["sdpa_kernels"] = sdpa_kernels(dtype, b, h, hkv, s, hd, causal)
         emit(phase="kernels", ok=True, shape=name, B=b, H=h, Hkv=hkv, **line)
         for kname, t in line.get("timing", {}).items():
-            off_path.append({"name": kname, "route": "cuda", "source": SOURCE[t["variant"]][kname],
-                             "replaces": REPLACES[kname], "shape": name, "launches": 0,
-                             "launches_by_phase": {}, **t})
+            (on_path if (dtype, hd) in MAIN_PATH_ROUTES else off_path).append(
+                {"name": kname, "route": "cuda", "source": SOURCE[t["variant"]][kname],
+                 "replaces": REPLACES[kname], "shape": name, "launches": 0,
+                 "launches_by_phase": {}, **t})
         torch.cuda.empty_cache()
     for dtype, hd in PADDED:
         emit(phase="kernels", ok=True, shape=f"padded_hd{hd}", **hold_padded(dtype, hd))
-    return off_path
+    return off_path, on_path
 
 
 def phase_kernels_main(path: dict) -> list[dict]:
@@ -1061,6 +1089,10 @@ def phase_resume_sigterm(work: Path) -> dict:
         json.dump({"vocab_size": ByteTokenizer.vocab_size, "tokenizer": "byte-level"}, f)
     model_file = work / "model.json"
     model_file.write_text(json.dumps(RESUME_MODEL.to_dict()))
+    # the reference's wandb config (configs/wandb_default.json's keys)
+    wandb_file = work / "wandb.json"
+    wandb_file.write_text(json.dumps({"nodes": 2, "location": "h100", "backend": "nccl",
+                                      "measure_comms": True}))
     total, jsonl, ck_dir = 20, work / "cli_runs" / "sig.jsonl", work / "ck_sig"
     cmd = [sys.executable, "-m", "nanodiloco_tpu_torch", "--llama-config-file", str(model_file),
            "--dataset-path", str(shard), "--seed", "0", "--batch-size", "2",
@@ -1068,7 +1100,11 @@ def phase_resume_sigterm(work: Path) -> dict:
            "--warmup-steps", "1", "--total-steps", str(total), "--inner-steps", "2",
            "--num-workers", "2", "--eval-every", "1", "--eval-batches", "2",
            "--checkpoint-dir", str(ck_dir), "--checkpoint-every", "1000",
-           "--log-dir", str(jsonl.parent), "--run-name", "sig", "--quiet"]
+           "--log-dir", str(jsonl.parent), "--run-name", "sig", "--quiet",
+           "--project", "chip-smoke", "--wandb-config-file", str(wandb_file)]
+    # not --wandb: the card's machine has a wandb package, and this run
+    # starts no client that could reach for the network (the sink is held
+    # against the JAX package's with a stub wandb, tests/test_torch_wandb.py)
 
     def records() -> list[dict]:
         return read_jsonl_records(str(jsonl))[0] if jsonl.exists() else []
@@ -1110,8 +1146,12 @@ def phase_resume_sigterm(work: Path) -> dict:
     if rc != 0 or resumes != [latest] or last != total:
         fail("resume", f"rerun: exit {rc}, resumed from {resumes}, last step {last}: "
                        f"{(work / 'sig_rerun.log').read_text()[-2000:]}")
+    if not any(r.get("avg_sync_time_s") is not None for r in recs if r.get("outer_synced")):
+        fail("resume", "the wandb config's measure_comms true left every sync unfenced")
     return {"sigterm_exit_code": 75, "sigterm_checkpoint_step": latest,
-            "sigterm_exit_s": exit_s, "rerun_exit_code": rc, "rerun_last_step": last}
+            "sigterm_exit_s": exit_s, "rerun_exit_code": rc, "rerun_last_step": last,
+            "logging_flags": cmd[-4:],
+            "wandb_installed": importlib.util.find_spec("wandb") is not None}
 
 
 def phase_train(smi: str) -> dict:
@@ -1192,6 +1232,57 @@ def phase_train(smi: str) -> dict:
          goodput=goodput[-1], devtime=round_ends[-1]["devtime"],
          report=report, report_compare="exit 0")
     return summary
+
+
+# Gemma-2B's attention and MLP widths (google/gemma-2b config.json:
+# hidden_size 2048, num_attention_heads 8, num_key_value_heads 1, head_dim
+# 256, intermediate_size 16384, vocab_size 256000, tie_word_embeddings
+# true, rope_theta 10000, rms_norm_eps 1e-6) in the port's Llama structure:
+# the port has no Gemma architecture (GeGLU, the embedding scale, the
+# (1 + w) norm), so this is a Llama decoder at those widths. Depth cut from
+# 18 layers to 2: the phase is here to run the hd-256 kernels at a model's
+# width, and every further layer adds AdamW state for two workers and
+# time, not a new launch shape.
+GEMMA2B_WIDTH = LlamaConfig(
+    vocab_size=256000, hidden_size=2048, intermediate_size=16384, num_hidden_layers=2,
+    num_attention_heads=8, num_key_value_heads=1, max_position_embeddings=8192,
+    rms_norm_eps=1e-6, rope_theta=10000.0, tie_word_embeddings=True, dtype="bfloat16",
+    attention_impl="flash")
+
+
+def phase_train_hd256(smi: str) -> None:
+    """train() at Gemma-2B's widths (GEMMA2B_WIDTH, depth cut to 2 of 18
+    layers; weights and tokens from seed 0), bf16 compute over float32
+    masters, flash attention: W 2 workers x b 2 sequences x S 2048, H 2, 2
+    rounds. Every B1, B2 and B3 launch must be at (bf16, hd 256) on tf32x3,
+    the losses finite and every outer step must move the snapshot."""
+    cfg = TrainConfig(
+        seed=0, batch_size=2, per_device_batch_size=2, seq_length=2048,
+        warmup_steps=1, total_steps=4, inner_steps=2, num_workers=2,
+        model=GEMMA2B_WIDTH, fit_vocab=False, quiet=True, cost_analysis=False,
+        log_dir=str(WORK / "hd256_runs"), run_name="gemma2b_width",
+    )
+    fa.reset_launch_counts()
+    before = fa.shape_counts()
+    summary = train(cfg, device="cuda")
+    variants = fa.variant_counts()
+    shapes = {k: {key: n - before[k].get(key, 0) for key, n in now.items()
+                  if n > before[k].get(key, 0)} for k, now in fa.shape_counts().items()}
+    losses = summary["losses"]
+    if len(losses) != 4 or not all(math.isfinite(x) for step in losses for x in step):
+        fail("train_hd256", f"expected 4 steps of finite [2] losses, got {losses}")
+    if not all(summary["snapshot_changed"]):
+        fail("train_hd256", f"snapshot unchanged by an outer step: {summary['snapshot_changed']}")
+    check_variants("train_hd256", variants, torch.bfloat16, 256)
+    keys = [fa.parse_shape_key(key) for by_kernel in shapes.values() for key in by_kernel]
+    if not all(shapes.values()) or any((k[0], k[5]) != (torch.bfloat16, 256) for k in keys):
+        fail("train_hd256", f"launches off (bf16, hd 256): {shapes}")
+    emit(phase="train_hd256", ok=True, nvidia_smi=smi, num_params=summary["num_params"],
+         losses=losses, tokens=summary["tokens"], seconds=summary["seconds"],
+         round_seconds=summary["round_seconds"], tokens_per_sec=summary["tokens_per_sec"],
+         tokens_per_sec_after_first_round=summary["tokens_per_sec_after_first_round"],
+         peak_memory_bytes=summary["peak_memory_bytes"], variant_launches=variants,
+         shapes=shapes)
 
 
 def phase_checkpoint_full(summary: dict, smi: str) -> None:
@@ -3552,11 +3643,12 @@ MOE_SMALL_MODES = {
     "ragged": dict(moe_dispatch="ragged"),
     "expert_choice": dict(router_type="experts_choose"),
 }
-# bench.py's moe-8x-top2 (its single / single_ragged entries) at full width
-# and depth, with flash attention: hd 64 in bf16 runs B1, B2 and B3 on the
-# tensor cores
+# bench.py's moe-8x-top2 (its single / single_ragged entries) at full width,
+# depth cut from 6 layers to 3 (this script's time limit: train_hd256 and
+# the hd-256 kernels came in before it), with flash attention: hd 64 in
+# bf16 runs B1, B2 and B3 on the tensor cores
 MOE_8X = LlamaConfig(vocab_size=32000, hidden_size=512, intermediate_size=1408,
-                     num_hidden_layers=6, num_attention_heads=8, num_key_value_heads=4,
+                     num_hidden_layers=3, num_attention_heads=8, num_key_value_heads=4,
                      max_position_embeddings=1024, dtype="bfloat16", loss_chunk=256,
                      num_experts=8, num_experts_per_tok=2, attention_impl="flash")
 # its bench shape: S 1024 x B 8 per worker, one microbatch, W 2, H 2
@@ -4009,7 +4101,7 @@ def main() -> None:
          built={n: r["seconds"] for n, r in report.items()}, dir=str(build.build_dir()),
          tokenshard=str(tokenshard.lib_path()))
 
-    off_path = phase_kernels()
+    off_path, on_path = phase_kernels()
     # the main path: every launch from here on is counted by shape, and each
     # phase's share (with what its child processes report) goes to `path`
     fa.reset_shape_counts()
@@ -4033,6 +4125,9 @@ def main() -> None:
     took("train")
     phase_checkpoint_full(summary, smi)
     del summary
+    torch.cuda.empty_cache()
+    phase_train_hd256(smi)
+    took("train_hd256")
     torch.cuda.empty_cache()
     phase_diloco_options_small(smi)
     took("diloco_options_small")
@@ -4073,9 +4168,11 @@ def main() -> None:
     shutil.rmtree(WORK, ignore_errors=True)
 
     # the kernels line: every kernel at every shape the main path ran, and
-    # (not_on_main_path) the routes no phase runs, timed in the kernels phase
+    # (not_on_main_path) the routes no phase runs, timed in the kernels
+    # phase, and (kernels_phase_shapes) that phase's hd-256 shapes of routes
+    # the path runs at other shapes
     emit(kernels=phase_kernels_main(path), not_on_main_path=off_path,
-         device_ms_seconds=device_ms.seconds)
+         kernels_phase_shapes=on_path, device_ms_seconds=device_ms.seconds)
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -7,7 +7,8 @@ model config unless one is given, ``--dtype``, ``--attention``,
 ``--loss-chunk``), held-out evaluation (``--eval-every``,
 ``--eval-batches``), checkpoint and resume (``--checkpoint-dir``,
 ``--checkpoint-every``, ``--no-resume``), the metrics JSONL (``--log-dir``,
-``--run-name``), ``--measure-comm``, ``--trace-out``, the DiLoCo options
+``--run-name``), the reference's wandb surface (``--project``, ``--wandb``,
+``--wandb-config-file``), ``--measure-comm``, ``--trace-out``, the DiLoCo options
 (``--streaming-fragments``, ``--streaming-delay``, ``--merge-alpha``,
 ``--async-outer``, ``--outer-delay``, ``--inner-steps-per-worker``,
 ``--straggler-factor``, ``--straggler-min-steps``, ``--outer-comm-dtype``,
@@ -83,12 +84,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--inner-steps", type=int, default=100)
     p.add_argument("--lr", type=float, default=4e-4)
     p.add_argument("--outer-lr", type=float, default=0.7)
+    p.add_argument("--project", type=str, default="nano-diloco",
+                   help="the wandb project (with --wandb)")
     p.add_argument("--dataset-path", type=str, default=None,
                    help="pre-tokenized .tshrd shard (scripts/torch_prepare_data.py) or "
                         "a datasets.save_to_disk directory (needs the datasets "
                         "package); default: built-in synthetic corpus")
     p.add_argument("--llama-config-file", type=str, default=None,
                    help="HF-style model config JSON (configs/*.json)")
+    p.add_argument("--wandb-config-file", type=str, default=None,
+                   help="the reference's wandb config JSON (configs/wandb_default.json): "
+                        "its keys go into the wandb run's config and the generated run "
+                        "name, and its measure_comms is --measure-comm's default")
     p.add_argument("--init-hf", type=str, default=None, metavar="DIR",
                    help="initialize weights from an HF Llama checkpoint directory "
                         "(sharded or single-file safetensors): continued "
@@ -115,9 +122,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "rows. padded: one document per row, pad positions masked "
                         "out of the loss")
     p.add_argument("--num-workers", type=int, default=1)
-    p.add_argument("--measure-comm", action=argparse.BooleanOptionalAction, default=True,
+    p.add_argument("--measure-comm", action=argparse.BooleanOptionalAction, default=None,
                    help="fence the card around the outer step so avg_sync_time_s "
-                        "and comm_share time the sync alone (default on)")
+                        "and comm_share time the sync alone. Default: the wandb "
+                        "config's measure_comms, else on")
     p.add_argument("--streaming-fragments", type=int, default=0,
                    help="streaming DiLoCo: split params into N layer fragments with "
                         "staggered outer syncs (0 = classic all-at-once sync)")
@@ -227,11 +235,20 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="checkpoint cadence in outer syncs")
     p.add_argument("--no-resume", action="store_true")
+    p.add_argument("--wandb", action="store_true",
+                   help="also log every record to a wandb run, if wandb is installed "
+                        "(the JSONL is written either way)")
     p.add_argument("--log-dir", type=str, default="runs")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--run-name", type=str, default=None)
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
+
+
+def load_config_from_file(path: str) -> dict:
+    """A JSON config file as a dict (the reference's main.py helper)."""
+    with open(path) as f:
+        return json.load(f)
 
 
 def config_from_args(a: argparse.Namespace) -> TrainConfig:
@@ -251,17 +268,21 @@ def config_from_args(a: argparse.Namespace) -> TrainConfig:
         overrides["loss_chunk"] = a.loss_chunk
     if overrides:
         model = dataclasses.replace(model, **overrides)
+    wandb_config = load_config_from_file(a.wandb_config_file) if a.wandb_config_file else {}
+    measure_comm = (a.measure_comm if a.measure_comm is not None
+                    else bool(wandb_config.get("measure_comms", True)))
     return TrainConfig(
         seed=a.seed, batch_size=a.batch_size,
         per_device_batch_size=a.per_device_batch_size, seq_length=a.seq_length,
         warmup_steps=a.warmup_steps, total_steps=a.total_steps,
-        inner_steps=a.inner_steps, lr=a.lr, outer_lr=a.outer_lr,
+        inner_steps=a.inner_steps, lr=a.lr, outer_lr=a.outer_lr, project=a.project,
         dataset_path=a.dataset_path, data_layout=a.data_layout,
-        num_workers=a.num_workers, measure_comm=a.measure_comm, model=model,
+        num_workers=a.num_workers, measure_comm=measure_comm, model=model,
         eval_every=a.eval_every, eval_batches=a.eval_batches, trace_out=a.trace_out,
         preempt_signals=a.preempt_signals, checkpoint_dir=a.checkpoint_dir,
         checkpoint_every=a.checkpoint_every, resume=not a.no_resume,
-        log_dir=a.log_dir, quiet=a.quiet, run_name=a.run_name,
+        use_wandb=a.wandb, log_dir=a.log_dir, quiet=a.quiet, run_name=a.run_name,
+        wandb_config=wandb_config,
         streaming_fragments=a.streaming_fragments, streaming_delay=a.streaming_delay,
         merge_alpha=a.merge_alpha, async_outer=a.async_outer, outer_delay=a.outer_delay,
         inner_steps_per_worker=(

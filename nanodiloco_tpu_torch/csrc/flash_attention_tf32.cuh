@@ -13,7 +13,7 @@
 // Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, HD]; k, v, dK, dV
 // [BH / group, Sk, HD] (GQA: query head bh reads KV head bh / group, K/V are
 // never expanded); lse and delta [BH, Sq] float32. Head dims 16, 32, 64, 80,
-// 96 and 128 in float32, 16 in bf16.
+// 96, 128 and 256 in float32, 16 and 256 in bf16.
 //
 // Bound on the H100. B1 does 2, B2 3 and B3 4 S x S x HD products per head on
 // O(S x HD) bytes: operations bound all three. The CUDA cores' float32 peak
@@ -36,9 +36,11 @@
 // float32 P or dS with a bf16 operand two (lo hi + hi hi). That is what the
 // three-product kernel gives on the inputs cast to float32, bit for bit, at
 // less than half the work. bf16 tiles land by cp.async in a staging tile and
-// are widened to float32 once, where float32 tiles are split; dQ, dK, dV and
-// O are rounded to bf16 as they are stored. The bf16 instances serve hd 16
-// only, which wgmma's m64nNk16 tiles do not take.
+// are widened to float32 once, where float32 tiles are split (at hd 256 they
+// stay bf16 and are widened as read, below); dQ, dK, dV and O are rounded to
+// bf16 as they are stored. The bf16 instances serve hd 16, which wgmma's
+// m64nNk16 tiles do not take, and hd 256, which the wgmma kernels' tiles do
+// not reach.
 //
 // Design. 128 threads, four warps of 16 rows of a 64-row tile. Every tile
 // lies row-major in shared memory with a row stride of HD + 4 floats
@@ -88,12 +90,31 @@
 // launch cost a caller more host time than that saves, and at those grids
 // the caller, not the card, sets the pace (PERF.md, Findings).
 //
-// hd 256 stays refused. At 64-row tiles a float32 tile at a row stride of
-// 260 floats is 66.6 KB: B3 holds K and V's hi and lo and one Q and dO tile,
-// 399 KB, and B1 Q's hi and lo and one K and V tile, 266 KB, against the
-// 227 KB a block may use; and B3's dK and dV accumulators alone would take
-// 256 of the 255 registers a thread has. It needs smaller tiles (32 rows) or
-// a head dim split across warps, not another instantiation.
+// hd 256. A 64-row float32 tile at a row stride of 260 floats is 66.6 KB, so
+// the layout above (B3: K and V's hi and lo and one Q and dO tile, 399 KB; B1:
+// Q's hi and lo and one K and V tile, 266 KB) does not fit the 227 KB a block
+// may use, and B3's full dK and dV accumulators would take 256 registers a
+// thread. At hd 256 (Layout::kRawRead):
+//   - no tile is split or widened in shared memory: each lies as it landed
+//     (float32 at a stride of 260 floats; bf16 at 264 bf16, = 4 mod 8 words
+//     too, so the fragment reads stay free of bank conflicts) and every
+//     fragment element is split (float32) or widened (bf16) as it is read;
+//   - the streamed tiles (B1, B2: K and V; B3: Q, dO, lse and delta) have 32
+//     rows (Layout::kRows), the stationary ones 64 (B1, B2: the q tile; B3:
+//     the key tile). B1 streams K and V double-buffered (float32: 66.6 KB of
+//     Q and 4 x 33.3 KB, 200 KB); B2 and B3 single (two 66.6 KB stationary
+//     tiles and two 33.3 KB streamed ones, 200 KB). bf16 tiles take half;
+//   - B3 splits its output columns across CTAs (grid x = KV head x 2): each
+//     CTA owns 128 of dK's and dV's 256 columns, 128 accumulator registers a
+//     thread, and computes S^T and dP^T over the full 256-wide contraction
+//     itself. That is 6 S x S x HD products instead of 4 (1.5x B3's work),
+//     against the other design (warp pairs sharing S^T and dP^T through
+//     shared memory), which would need 8 warps' worth of P^T and dS^T tiles
+//     and a barrier between the halves of every pair: the column split keeps
+//     B3's loop as it is at every other head dim, and every output element
+//     is still summed by one thread in one fixed order.
+// B1's and B2's O and dQ accumulators are 16 x 256 floats a warp, 128
+// registers a thread. Above 256 a head dim raises in the dispatcher.
 
 #pragma once
 
@@ -118,8 +139,10 @@ using hopper::smem_addr;
 using hopper::split_tf32;
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;     // rows of every q and K tile
-constexpr int kThreads = 128;  // four warps, 16 rows of a tile each
+// rows of a stationary tile (B1, B2: the q tile; B3: the key tile), and of
+// every tile below hd 256
+constexpr int kTile = 64;
+constexpr int kThreads = 128;  // four warps, 16 rows of a stationary tile each
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -127,23 +150,35 @@ template <typename T, int HD>
 struct Layout {
   // bf16 inputs are exact in TF32: no lo parts, no products of them
   static constexpr bool kExact = std::is_same<T, bf16>::value;
-  static constexpr int kLd = HD + 4;                // row stride in floats, = 4 mod 8
-  static constexpr int kFloats = kTile * kLd;       // one tile
-  static constexpr int kLoFloats = kExact ? 0 : kFloats;  // a tile's lo part
+  // hd 256: every tile stays as it landed and is split or widened as read
+  static constexpr bool kRawRead = HD == 256;
+  // a bf16 tile lands in a staging copy and is widened once into its hi tile
+  static constexpr bool kStaged = kExact && !kRawRead;
+  // rows of a streamed tile (B1, B2: K and V; B3: Q and dO)
+  static constexpr int kRows = kRawRead ? 32 : kTile;
+  // row stride in elements of the tile in shared memory (floats, or bf16
+  // for a bf16 tile read raw), = 4 mod 8 32-bit words either way
+  static constexpr int kLd = kRawRead && kExact ? HD + 8 : HD + 4;
+  static constexpr int kFloats = kTile * kLd / (kRawRead && kExact ? 2 : 1);  // one tile
+  static constexpr int kRowsFloats = kFloats / kTile * kRows;  // one streamed tile
+  static constexpr int kLoFloats = kExact || kRawRead ? 0 : kFloats;  // a tile's lo part
   // a bf16 tile's staging copy ([64][HD] bf16, where cp.async lands it), in
   // floats; a float32 tile lands in its hi tile
-  static constexpr int kRawFloats = kExact ? kTile * HD / 2 : 0;
-  static constexpr int kStages = HD == 128 ? 1 : 2;  // backward: buffers of each streamed tile
+  static constexpr int kRawFloats = kStaged ? kTile * HD / 2 : 0;
+  static constexpr int kStages = HD >= 128 ? 1 : 2;  // backward: buffers of each streamed tile
   // streamed tiles split once a step into hi and lo tiles (else as each
   // fragment is read: 4 warps x 1-2 reads of every element), where the
   // extra tiles fit: up to hd 64
   static constexpr bool kPresplit = HD <= 64;
   static constexpr int kSteps = HD / 8;             // k-steps (or n-tiles) over HD
-  // k-steps of the first products unrolled; not at hd 128, where two
+  // k-steps of the first products unrolled; not from hd 128, where two
   // spill (ptxas: 255 registers, 16 bytes)
-  static constexpr int kUnroll = HD == 128 ? 1 : 2;
-  static_assert(HD % 16 == 0 && HD <= 128, "head dim");
-  static_assert(!kExact || kPresplit, "bf16 tiles are widened once a step");
+  static constexpr int kUnroll = HD >= 128 ? 1 : 2;
+  // B3's output columns a CTA owns (its grid's x splits the rest)
+  static constexpr int kCols = kRawRead ? HD / 2 : HD;
+  static_assert(HD % 16 == 0 && (HD <= 128 || HD == 256), "head dim");
+  static_assert(!kPresplit || kRows == kTile, "a lo tile has 64 rows");
+  static_assert(!kExact || kPresplit || kRawRead, "bf16 tiles are widened once a step");
 };
 
 // One operand tile in shared memory: its hi and lo tiles, and where cp.async
@@ -154,18 +189,18 @@ struct Tile {
   float* raw;
 };
 
-// Rows [row0, row0 + 64) of a row-major [n_rows, HD] matrix into a tile's raw
-// copy by cp.async, 16 bytes a copy; rows at or past n_rows are zeros.
-template <typename T, int HD>
+// Rows [row0, row0 + ROWS) of a row-major [n_rows, HD] matrix into a tile's
+// raw copy by cp.async, 16 bytes a copy; rows at or past n_rows are zeros.
+template <typename T, int HD, int ROWS = kTile>
 __device__ __forceinline__ void load_tile(float* raw, const T* __restrict__ src, int row0,
                                           int n_rows) {
   using L = Layout<T, HD>;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = HD / kVec;
-  constexpr int kRawLd = L::kExact ? HD : L::kLd;  // elements
+  constexpr int kRawLd = L::kStaged ? HD : L::kLd;  // elements
   T* dst = reinterpret_cast<T*>(raw);
 #pragma unroll
-  for (int c = threadIdx.x; c < kTile * kPerRow; c += kThreads) {
+  for (int c = threadIdx.x; c < ROWS * kPerRow; c += kThreads) {
     const int r = c / kPerRow;
     const int col = (c % kPerRow) * kVec;
     const bool in = row0 + r < n_rows;
@@ -182,6 +217,7 @@ __device__ __forceinline__ void load_tile(float* raw, const T* __restrict__ src,
 template <typename T, int HD, bool kInfSafe = false>
 __device__ __forceinline__ void split_tile(Tile t) {
   using L = Layout<T, HD>;
+  static_assert(!L::kRawRead, "hd 256 tiles are split as read");
   if constexpr (L::kExact) {
     constexpr int kPerRow = HD / 8;
 #pragma unroll
@@ -220,19 +256,38 @@ __device__ __forceinline__ void split_tile(Tile t) {
   }
 }
 
-// The A fragment (hi, lo) of rows [r0, r0 + 16), k-step kk, of a split tile
-// (lo zero for bf16, never read).
-template <typename T, int HD>
-__device__ __forceinline__ void a_frag(const float* hi, const float* lo, int r0, int kk,
-                                       uint32_t (&a_hi)[4], uint32_t (&a_lo)[4]) {
+// Element e of a tile's raw copy, split as it is read: a float32 value into
+// hi and lo (with kInfSafe lo = 0 where hi is infinite, as split_tile has
+// it); a bf16 value (hd 256) widened, exact, with lo = 0.
+template <typename T, int HD, bool kInfSafe = false>
+__device__ __forceinline__ void read_split(const float* raw, int e, uint32_t& hi, uint32_t& lo) {
+  if constexpr (Layout<T, HD>::kExact) {
+    hi = static_cast<uint32_t>(reinterpret_cast<const uint16_t*>(raw)[e]) << 16;
+    lo = 0u;
+  } else {
+    split_tf32(raw[e], hi, lo);
+    if constexpr (kInfSafe) lo = isinf(__uint_as_float(hi)) ? 0u : lo;
+  }
+}
+
+// The A fragment (hi, lo) of rows [r0, r0 + 16), k-step kk, of a stationary
+// tile: from its hi and lo tiles (lo zero for bf16, never read), or at hd 256
+// from its raw copy as it is read.
+template <typename T, int HD, bool kInfSafe = false>
+__device__ __forceinline__ void a_frag(Tile x, int r0, int kk, uint32_t (&a_hi)[4],
+                                       uint32_t (&a_lo)[4]) {
   using L = Layout<T, HD>;
   const int lane = threadIdx.x & 31;
   const int e = (r0 + (lane >> 2)) * L::kLd + kk * 8 + (lane & 3);
   const int offs[4] = {0, 8 * L::kLd, 4, 8 * L::kLd + 4};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    a_hi[i] = __float_as_uint(hi[e + offs[i]]);
-    a_lo[i] = L::kExact ? 0u : __float_as_uint(lo[e + offs[i]]);
+    if constexpr (L::kRawRead) {
+      read_split<T, HD, kInfSafe>(x.raw, e + offs[i], a_hi[i], a_lo[i]);
+    } else {
+      a_hi[i] = __float_as_uint(x.hi[e + offs[i]]);
+      a_lo[i] = L::kExact ? 0u : __float_as_uint(x.lo[e + offs[i]]);
+    }
   }
 }
 
@@ -249,8 +304,8 @@ __device__ __forceinline__ void b_pair(Tile x, int e0, int e1, uint32_t (&b_hi)[
     b_lo[0] = L::kExact ? 0u : __float_as_uint(x.lo[e0]);
     b_lo[1] = L::kExact ? 0u : __float_as_uint(x.lo[e1]);
   } else {
-    split_tf32(x.hi[e0], b_hi[0], b_lo[0]);
-    split_tf32(x.hi[e1], b_hi[1], b_lo[1]);
+    read_split<T, HD>(x.raw, e0, b_hi[0], b_lo[0]);
+    read_split<T, HD>(x.raw, e1, b_hi[1], b_lo[1]);
   }
 }
 
@@ -293,11 +348,11 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// acc[n][*] (rows r0 + g, r0 + g + 8 of a [rows, HD] matrix at `out`, row
-// stride HD) times `scale`, stored as pairs; rows at or past n_rows are not
-// stored.
-template <typename OutT, int HD>
-__device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[HD / 8][4], int r0,
+// acc[n][*] (rows r0 + g, r0 + g + 8 and NC columns of a [rows, HD] matrix
+// at `out`, row stride HD) times `scale`, stored as pairs; rows at or past
+// n_rows are not stored.
+template <typename OutT, int HD, int NC = HD>
+__device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[NC / 8][4], int r0,
                                            int n_rows, float scale) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
@@ -306,7 +361,7 @@ __device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[HD / 8]
     if (row >= n_rows) continue;
     OutT* p = out + static_cast<size_t>(row) * HD + 2 * (lane & 3);
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n)
+    for (int n = 0; n < NC / 8; ++n)
       store_pair(p + 8 * n, acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
   }
 }
@@ -314,31 +369,31 @@ __device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[HD / 8]
 // Zeros in rows r0 + g, r0 + g + 8 of `out` (an empty part's partial). Not
 // inlined: inlined, it takes B3's registers at hd 128 past the 255 a thread
 // has (ptxas spills 20 bytes).
-template <typename OutT, int HD>
+template <typename OutT, int HD, int NC = HD>
 __device__ __noinline__ void store_zero_rows(OutT* out, int r0, int n_rows) {
-  const float zero[HD / 8][4] = {};
-  store_rows<OutT, HD>(out, zero, r0, n_rows, 1.f);
+  const float zero[NC / 8][4] = {};
+  store_rows<OutT, HD, NC>(out, zero, r0, n_rows, 1.f);
 }
 
 // A backward output's rows at `out` + `off` elements: the output itself (T)
 // when the launch has one part, else this part's float32 partial in the
 // workspace (the launcher passes whichever it is, and the scale).
-template <typename T, int HD>
-__device__ __forceinline__ void store_out(void* out, size_t off, const float (&acc)[HD / 8][4],
+template <typename T, int HD, int NC = HD>
+__device__ __forceinline__ void store_out(void* out, size_t off, const float (&acc)[NC / 8][4],
                                           int r0, int n_rows, float scale, int splits) {
   if (std::is_same<T, float>::value || splits > 1)
-    store_rows<float, HD>(static_cast<float*>(out) + off, acc, r0, n_rows, scale);
+    store_rows<float, HD, NC>(static_cast<float*>(out) + off, acc, r0, n_rows, scale);
   else
-    store_rows<T, HD>(static_cast<T*>(out) + off, acc, r0, n_rows, scale);
+    store_rows<T, HD, NC>(static_cast<T*>(out) + off, acc, r0, n_rows, scale);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int NC = HD>
 __device__ __forceinline__ void store_zero_out(void* out, size_t off, int r0, int n_rows,
                                                int splits) {
   if (std::is_same<T, float>::value || splits > 1)
-    store_zero_rows<float, HD>(static_cast<float*>(out) + off, r0, n_rows);
+    store_zero_rows<float, HD, NC>(static_cast<float*>(out) + off, r0, n_rows);
   else
-    store_zero_rows<T, HD>(static_cast<T*>(out) + off, r0, n_rows);
+    store_zero_rows<T, HD, NC>(static_cast<T*>(out) + off, r0, n_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -396,8 +451,8 @@ inline bool bad_split(int splits, const void* ws) {
 
 }  // namespace
 
-// dtype 0 = float32 at every head dim; dtype 1 = bf16 at hd 16, the head dim
-// no wgmma kernel (flash_attention_tc.cu) takes
+// dtype 0 = float32 at every head dim; dtype 1 = bf16 at hd 16 and 256, the
+// head dims no wgmma kernel (flash_attention_tc.cu) takes
 #define ND_TF32(LAUNCH, ...)                                   \
   if (dtype == 0) {                                            \
     switch (hd) {                                              \
@@ -407,16 +462,19 @@ inline bool bad_split(int splits, const void* ws) {
       case 80: return LAUNCH<float, 80>(__VA_ARGS__);          \
       case 96: return LAUNCH<float, 96>(__VA_ARGS__);          \
       case 128: return LAUNCH<float, 128>(__VA_ARGS__);        \
+      case 256: return LAUNCH<float, 256>(__VA_ARGS__);        \
       default: return -1;                                      \
     }                                                          \
   }                                                            \
   if (dtype == 1 && hd == 16) return LAUNCH<bf16, 16>(__VA_ARGS__); \
+  if (dtype == 1 && hd == 256) return LAUNCH<bf16, 256>(__VA_ARGS__); \
   return -1;
 
 // Every tf32x3 library exports this: the message of a launcher's return code.
 extern "C" const char* nd_tf32_error_string(int code) {
   if (code == -1)
-    return "dtype or head dim not instantiated (float32: 16, 32, 64, 80, 96, 128; bfloat16: 16)";
+    return "dtype or head dim not instantiated (float32: 16, 32, 64, 80, 96, 128, 256; "
+           "bfloat16: 16, 256)";
   if (code == -2) return "split count out of [1, 65535], or a split launch without a workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,18 +1,22 @@
 // dK and dV (B3) on Hopper (sm_90a) as three-product TF32: replaces
 // _flash_bwd / _bwd_dkv_kernel of nanodiloco_tpu/ops/pallas/flash_attention.py
-// for float32 at every head dim and bf16 at hd 16. It does four S x S x HD
-// products per head on O(S x HD) bytes: operations bound it. The design, the
-// bound and the bf16 instances: flash_attention_tf32.cuh.
+// for float32 at every head dim and bf16 at hd 16 and 256. It does four S x S
+// x HD products per head on O(S x HD) bytes (six at hd 256, where two CTAs
+// split the output columns): operations bound it. The design, the bound and
+// the bf16 instances: flash_attention_tf32.cuh.
 
 #include "flash_attention_tf32.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------------------
-// B3: dK and dV. grid (BH / group, nk, splits). Part z of K tile y walks
-// pairs [z n / splits, (z + 1) n / splits) of the n = group x (nq - qt0)
-// pairs (g, qt), g-major, qt0 = y under the causal mask (q tiles wholly
-// above the diagonal contribute nothing), else 0. Its dK and dV go to
+// B3: dK and dV. grid (BH / group x column parts, nk, splits): x is KV head
+// x / parts and the part's kCols output columns (all HD of them below hd
+// 256, one half at 256). Part z of K tile y walks pairs [z n / splits,
+// (z + 1) n / splits) of the n = group x (nq - qt0) pairs (g, qt), g-major,
+// over q tiles of kRows rows (64, 32 at hd 256); qt0 is the first q tile
+// that reaches tile y under the causal mask (q tiles wholly above the
+// diagonal contribute nothing), else 0. Its dK and dV go to
 // dk + z * part_stride and dv + z * part_stride, dK times dk_scale: the
 // outputs (T) with one part, else float32 partials in the workspace.
 // ---------------------------------------------------------------------------
@@ -26,44 +30,49 @@ __global__ void __launch_bounds__(kThreads)
                               int splits) {
   using L = Layout<T, HD>;
   constexpr bool E = L::kExact;
+  constexpr bool S = L::kStaged;
+  constexpr int kRows = L::kRows;  // queries a Q and dO tile
+  constexpr int kN = kRows / 8;    // n-tiles of S^T and dP^T
+  constexpr int kCols = L::kCols;  // dK and dV columns this CTA owns
   extern __shared__ __align__(16) float smem[];
   float* sKhi = smem;
   float* sKlo = sKhi + L::kFloats;
   float* sVhi = sKlo + L::kLoFloats;
   float* sVlo = sVhi + L::kFloats;
-  float* sQ = sVlo + L::kLoFloats;            // [kStages] raw (or hi) tiles
-  float* sdO = sQ + L::kStages * L::kFloats;  // [kStages] raw (or hi) tiles
-  float* sQlo = sdO + L::kStages * L::kFloats;  // [kStages] lo tiles, if kPresplit
+  float* sQ = sVlo + L::kLoFloats;                // [kStages] raw (or hi) tiles
+  float* sdO = sQ + L::kStages * L::kRowsFloats;  // [kStages] raw (or hi) tiles
+  float* sQlo = sdO + L::kStages * L::kRowsFloats;  // [kStages] lo tiles, if kPresplit
   float* sdOlo = sQlo + (L::kPresplit ? L::kStages * L::kLoFloats : 0);
-  // [kStages][lse 64, delta 64], then bf16's staging tiles K, V, Q[], dO[]
+  // [kStages][lse kRows, delta kRows], then bf16's staging tiles K, V, Q[], dO[]
   float* sRows = sdOlo + (L::kPresplit ? L::kStages * L::kLoFloats : 0);
-  float* sRaw = sRows + L::kStages * 2 * kTile;
-  const Tile tK = {sKhi, sKlo, E ? sRaw : sKhi};
-  const Tile tV = {sVhi, sVlo, E ? sRaw + L::kRawFloats : sVhi};
+  float* sRaw = sRows + L::kStages * 2 * kRows;
+  const Tile tK = {sKhi, sKlo, S ? sRaw : sKhi};
+  const Tile tV = {sVhi, sVlo, S ? sRaw + L::kRawFloats : sVhi};
   auto q_tile = [&](int s) -> Tile {
-    return {sQ + s * L::kFloats, sQlo + s * L::kLoFloats,
-            E ? sRaw + (2 + s) * L::kRawFloats : sQ + s * L::kFloats};
+    return {sQ + s * L::kRowsFloats, sQlo + s * L::kLoFloats,
+            S ? sRaw + (2 + s) * L::kRawFloats : sQ + s * L::kRowsFloats};
   };
   auto do_tile = [&](int s) -> Tile {
-    return {sdO + s * L::kFloats, sdOlo + s * L::kLoFloats,
-            E ? sRaw + (2 + L::kStages + s) * L::kRawFloats : sdO + s * L::kFloats};
+    return {sdO + s * L::kRowsFloats, sdOlo + s * L::kLoFloats,
+            S ? sRaw + (2 + L::kStages + s) * L::kRawFloats : sdO + s * L::kRowsFloats};
   };
 
-  const int bkv = blockIdx.x;
+  const int bkv = blockIdx.x / (HD / kCols);
+  const int c0 = blockIdx.x % (HD / kCols) * kCols;  // this CTA's first output column
   const int k0 = blockIdx.y * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
-  const int nq = (sq + kTile - 1) / kTile;
-  const int qt0 = causal ? blockIdx.y : 0;
+  const int nq = (sq + kRows - 1) / kRows;
+  const int qt0 = causal ? k0 / kRows : 0;
   const int per_head = max(nq - qt0, 0);
   const int n = group * per_head;
   const int i0 = static_cast<int>(static_cast<long long>(blockIdx.z) * n / splits);
   const int i1 = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * n / splits);
   const int r0 = warp * 16;  // this warp's key rows in the tile
+  const size_t off = blockIdx.z * part_stride + static_cast<size_t>(bkv) * sk * HD + c0;
   if (i0 == i1) {  // an empty part (causal K tiles near the end have few pairs)
-    const size_t off = blockIdx.z * part_stride + static_cast<size_t>(bkv) * sk * HD;
-    store_zero_out<T, HD>(dk, off, k0 + r0, sk, splits);
-    store_zero_out<T, HD>(dv, off, k0 + r0, sk, splits);
+    store_zero_out<T, HD, kCols>(dk, off, k0 + r0, sk, splits);
+    store_zero_out<T, HD, kCols>(dv, off, k0 + r0, sk, splits);
     return;
   }
 
@@ -74,24 +83,28 @@ __global__ void __launch_bounds__(kThreads)
   // pair i's Q, dO, lse and delta into buffer `stage`
   auto load_pair = [&](int i, int stage) {
     const size_t bh = static_cast<size_t>(bkv) * group + i / per_head;
-    const int q0 = (qt0 + i % per_head) * kTile;
-    load_tile<T, HD>(q_tile(stage).raw, q + bh * sq * HD, q0, sq);
-    load_tile<T, HD>(do_tile(stage).raw, dout + bh * sq * HD, q0, sq);
-    const int r = threadIdx.x & 63;
-    const bool in = q0 + r < sq;
-    const float* src = (threadIdx.x < 64 ? lse : delta) + bh * sq + (in ? q0 + r : 0);
-    cp_async4(smem_addr(sRows + stage * 2 * kTile + threadIdx.x), src, in ? 4 : 0);
+    const int q0 = (qt0 + i % per_head) * kRows;
+    load_tile<T, HD, kRows>(q_tile(stage).raw, q + bh * sq * HD, q0, sq);
+    load_tile<T, HD, kRows>(do_tile(stage).raw, dout + bh * sq * HD, q0, sq);
+    if (threadIdx.x < 2 * kRows) {
+      const int r = threadIdx.x % kRows;
+      const bool in = q0 + r < sq;
+      const float* src = (threadIdx.x < kRows ? lse : delta) + bh * sq + (in ? q0 + r : 0);
+      cp_async4(smem_addr(sRows + stage * 2 * kRows + threadIdx.x), src, in ? 4 : 0);
+    }
   };
   load_pair(i0, 0);
   cp_async_commit();
   cp_async_wait<1>();  // K and V have landed
   __syncthreads();
-  split_tile<T, HD>(tK);
-  split_tile<T, HD>(tV);
+  if constexpr (!L::kRawRead) {
+    split_tile<T, HD>(tK);
+    split_tile<T, HD>(tV);
+  }
 
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+  float dk_acc[kCols / 8][4], dv_acc[kCols / 8][4];
 #pragma unroll
-  for (int n8 = 0; n8 < HD / 8; ++n8)
+  for (int n8 = 0; n8 < kCols / 8; ++n8)
 #pragma unroll
     for (int r = 0; r < 4; ++r) dk_acc[n8][r] = dv_acc[n8][r] = 0.f;
 
@@ -121,22 +134,22 @@ __global__ void __launch_bounds__(kThreads)
       split_tile<T, HD>(cdO);
       __syncthreads();
     }
-    const float* cLse = sRows + stage * 2 * kTile;
-    const float* cDelta = cLse + kTile;
-    const int q0 = (qt0 + i % per_head) * kTile;
+    const float* cLse = sRows + stage * 2 * kRows;
+    const float* cDelta = cLse + kRows;
+    const int q0 = (qt0 + i % per_head) * kRows;
 
     // S^T = K Q^T, then P^T in place
-    float p[8][4], ds[8][4];
+    float p[kN][4], ds[kN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) p[j][r] = ds[j][r] = 0.f;
 #pragma unroll(L::kUnroll)
     for (int kk = 0; kk < L::kSteps; ++kk) {
       uint32_t a_hi[4], a_lo[4];
-      a_frag<T, HD>(sKhi, sKlo, r0, kk, a_hi, a_lo);
+      a_frag<T, HD>(tK, r0, kk, a_hi, a_lo);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         uint32_t b_hi[2], b_lo[2];
         bt_frag<T, HD>(cQ, 8 * j, kk, b_hi, b_lo);
         mma_split<!E, !E>(p[j], a_hi, a_lo, b_hi, b_lo);
@@ -146,9 +159,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll(L::kUnroll)
     for (int kk = 0; kk < L::kSteps; ++kk) {
       uint32_t a_hi[4], a_lo[4];
-      a_frag<T, HD>(sVhi, sVlo, r0, kk, a_hi, a_lo);
+      a_frag<T, HD>(tV, r0, kk, a_hi, a_lo);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         uint32_t b_hi[2], b_lo[2];
         bt_frag<T, HD>(cdO, 8 * j, kk, b_hi, b_lo);
         mma_split<!E, !E>(ds[j], a_hi, a_lo, b_hi, b_lo);
@@ -156,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
     }
     // P = exp(S scale - lse), dS = P (dP - delta), masked
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int h = r >> 1;
@@ -168,26 +181,26 @@ __global__ void __launch_bounds__(kThreads)
         ds[j][r] = pv * (ds[j][r] - cDelta[qc]);
       }
     // dV += P^T dO, then dK += dS^T Q (P's registers free by then), over
-    // this pair's 64 queries
+    // this pair's queries and this CTA's columns
 #pragma unroll
-    for (int kq = 0; kq < 8; ++kq) {
+    for (int kq = 0; kq < kN; ++kq) {
       uint32_t a_hi[4], a_lo[4];
       acc_frag(p[kq], a_hi, a_lo);
 #pragma unroll
-      for (int n8 = 0; n8 < HD / 8; ++n8) {
+      for (int n8 = 0; n8 < kCols / 8; ++n8) {
         uint32_t b_hi[2], b_lo[2];
-        b_frag<T, HD>(cdO, 8 * kq, 8 * n8, b_hi, b_lo);
+        b_frag<T, HD>(cdO, 8 * kq, c0 + 8 * n8, b_hi, b_lo);
         mma_split<true, !E>(dv_acc[n8], a_hi, a_lo, b_hi, b_lo);
       }
     }
 #pragma unroll
-    for (int kq = 0; kq < 8; ++kq) {
+    for (int kq = 0; kq < kN; ++kq) {
       uint32_t a_hi[4], a_lo[4];
       acc_frag(ds[kq], a_hi, a_lo);
 #pragma unroll
-      for (int n8 = 0; n8 < HD / 8; ++n8) {
+      for (int n8 = 0; n8 < kCols / 8; ++n8) {
         uint32_t b_hi[2], b_lo[2];
-        b_frag<T, HD>(cQ, 8 * kq, 8 * n8, b_hi, b_lo);
+        b_frag<T, HD>(cQ, 8 * kq, c0 + 8 * n8, b_hi, b_lo);
         mma_split<true, !E>(dk_acc[n8], a_hi, a_lo, b_hi, b_lo);
       }
     }
@@ -198,16 +211,15 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  const size_t off = blockIdx.z * part_stride + static_cast<size_t>(bkv) * sk * HD;
-  store_out<T, HD>(dk, off, dk_acc, k0 + r0, sk, dk_scale, splits);
-  store_out<T, HD>(dv, off, dv_acc, k0 + r0, sk, 1.f, splits);
+  store_out<T, HD, kCols>(dk, off, dk_acc, k0 + r0, sk, dk_scale, splits);
+  store_out<T, HD, kCols>(dv, off, dv_acc, k0 + r0, sk, 1.f, splits);
 }
 
 template <typename T, int HD>
 constexpr size_t dkv_smem() {
   using L = Layout<T, HD>;
-  return (2 * (L::kFloats + L::kLoFloats) + 2 * L::kStages * L::kFloats +
-          (L::kPresplit ? 2 * L::kStages * L::kLoFloats : 0) + L::kStages * 2 * kTile +
+  return (2 * (L::kFloats + L::kLoFloats) + 2 * L::kStages * L::kRowsFloats +
+          (L::kPresplit ? 2 * L::kStages * L::kLoFloats : 0) + L::kStages * 2 * L::kRows +
           (2 + 2 * L::kStages) * L::kRawFloats) *
          sizeof(float);
 }
@@ -227,7 +239,7 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dou
   const size_t n = static_cast<size_t>(bkv) * sk * HD;
   const bool split = splits > 1;
   float* wsf = static_cast<float*>(ws);
-  const dim3 grid(bkv, (sk + kTile - 1) / kTile, splits);
+  const dim3 grid(bkv * (HD / Layout<T, HD>::kCols), (sk + kTile - 1) / kTile, splits);
   flash_bwd_dkv_tf32_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, split ? wsf : dk, split ? wsf + n : dv,

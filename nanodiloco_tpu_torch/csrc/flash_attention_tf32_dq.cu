@@ -1,6 +1,6 @@
 // dQ (B2) on Hopper (sm_90a) as three-product TF32: replaces _flash_bwd /
 // _bwd_dq_kernel of nanodiloco_tpu/ops/pallas/flash_attention.py for float32
-// at every head dim and bf16 at hd 16. It does three S x S x HD products per
+// at every head dim and bf16 at hd 16 and 256. It does three S x S x HD products per
 // head on O(S x HD) bytes: operations bound it. The design, the bound and
 // the bf16 instances: flash_attention_tf32.cuh.
 
@@ -10,8 +10,8 @@ namespace {
 
 // ---------------------------------------------------------------------------
 // B2: dQ. grid (BH, nq, splits); the y index is reversed so that the longest
-// causal rows start first. Part z of a q tile walks K tiles
-// [z n / splits, (z + 1) n / splits) of the n it attends to; its dQ goes to
+// causal rows start first. Part z of a q tile walks K tiles (64 keys, 32 at
+// hd 256) [z n / splits, (z + 1) n / splits) of the n it attends to; its dQ goes to
 // dq + z * part_stride, times dq_scale: the output (T) with one part, else a
 // float32 partial in the workspace.
 // ---------------------------------------------------------------------------
@@ -24,33 +24,36 @@ __global__ void __launch_bounds__(kThreads)
                              int sk, int causal, float scale, float dq_scale, int splits) {
   using L = Layout<T, HD>;
   constexpr bool E = L::kExact;
+  constexpr bool S = L::kStaged;
+  constexpr int kRows = L::kRows;  // keys a K and V tile
+  constexpr int kN = kRows / 8;    // n-tiles of S and dP
   extern __shared__ __align__(16) float smem[];
   float* sQhi = smem;
   float* sQlo = sQhi + L::kFloats;
   float* sdOhi = sQlo + L::kLoFloats;
   float* sdOlo = sdOhi + L::kFloats;
-  float* sK = sdOlo + L::kLoFloats;          // [kStages] raw (or hi) tiles
-  float* sV = sK + L::kStages * L::kFloats;  // [kStages] raw (or hi) tiles
-  float* sKlo = sV + L::kStages * L::kFloats;  // [kStages] lo tiles, if kPresplit
+  float* sK = sdOlo + L::kLoFloats;              // [kStages] raw (or hi) tiles
+  float* sV = sK + L::kStages * L::kRowsFloats;  // [kStages] raw (or hi) tiles
+  float* sKlo = sV + L::kStages * L::kRowsFloats;  // [kStages] lo tiles, if kPresplit
   float* sVlo = sKlo + (L::kPresplit ? L::kStages * L::kLoFloats : 0);
   float* sRaw = sVlo + (L::kPresplit ? L::kStages * L::kLoFloats : 0);  // bf16: Q, dO, K[], V[]
-  const Tile tQ = {sQhi, sQlo, E ? sRaw : sQhi};
-  const Tile tdO = {sdOhi, sdOlo, E ? sRaw + L::kRawFloats : sdOhi};
+  const Tile tQ = {sQhi, sQlo, S ? sRaw : sQhi};
+  const Tile tdO = {sdOhi, sdOlo, S ? sRaw + L::kRawFloats : sdOhi};
   auto k_tile = [&](int s) -> Tile {
-    return {sK + s * L::kFloats, sKlo + s * L::kLoFloats,
-            E ? sRaw + (2 + s) * L::kRawFloats : sK + s * L::kFloats};
+    return {sK + s * L::kRowsFloats, sKlo + s * L::kLoFloats,
+            S ? sRaw + (2 + s) * L::kRawFloats : sK + s * L::kRowsFloats};
   };
   auto v_tile = [&](int s) -> Tile {
-    return {sV + s * L::kFloats, sVlo + s * L::kLoFloats,
-            E ? sRaw + (2 + L::kStages + s) * L::kRawFloats : sV + s * L::kFloats};
+    return {sV + s * L::kRowsFloats, sVlo + s * L::kLoFloats,
+            S ? sRaw + (2 + L::kStages + s) * L::kRawFloats : sV + s * L::kRowsFloats};
   };
 
   const size_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
-  const int nk = (sk + kTile - 1) / kTile;
-  const int n = causal ? min(nk, (min(q0 + kTile, sq) - 1) / kTile + 1) : nk;
+  const int nk = (sk + kRows - 1) / kRows;
+  const int n = causal ? min(nk, (min(q0 + kTile, sq) - 1) / kRows + 1) : nk;
   const int i0 = static_cast<int>(static_cast<long long>(blockIdx.z) * n / splits);
   const int i1 = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * n / splits);
   const T* kb = k + (bh / group) * sk * HD;
@@ -66,8 +69,8 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<T, HD>(tdO.raw, dout + bh * sq * HD, q0, sq);
   cp_async_commit();
   auto load_kv = [&](int kt, int stage) {
-    load_tile<T, HD>(k_tile(stage).raw, kb, kt * kTile, sk);
-    load_tile<T, HD>(v_tile(stage).raw, vb, kt * kTile, sk);
+    load_tile<T, HD, kRows>(k_tile(stage).raw, kb, kt * kRows, sk);
+    load_tile<T, HD, kRows>(v_tile(stage).raw, vb, kt * kRows, sk);
   };
   load_kv(i0, 0);
   cp_async_commit();
@@ -92,8 +95,10 @@ __global__ void __launch_bounds__(kThreads)
 
   cp_async_wait<1>();  // Q and dO have landed
   __syncthreads();
-  split_tile<T, HD>(tQ);
-  split_tile<T, HD>(tdO);
+  if constexpr (!L::kRawRead) {
+    split_tile<T, HD>(tQ);
+    split_tile<T, HD>(tdO);
+  }
 
   for (int kt = i0; kt < i1; ++kt) {
     const int stage = L::kStages == 1 ? 0 : (kt - i0) & 1;
@@ -114,17 +119,17 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // S = Q K^T, dP = dO V^T
-    float p[8][4], ds[8][4];
+    float p[kN][4], ds[kN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) p[j][r] = ds[j][r] = 0.f;
 #pragma unroll(L::kUnroll)
     for (int kk = 0; kk < L::kSteps; ++kk) {
       uint32_t a_hi[4], a_lo[4];
-      a_frag<T, HD>(sQhi, sQlo, r0, kk, a_hi, a_lo);
+      a_frag<T, HD>(tQ, r0, kk, a_hi, a_lo);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         uint32_t b_hi[2], b_lo[2];
         bt_frag<T, HD>(cK, 8 * j, kk, b_hi, b_lo);
         mma_split<!E, !E>(p[j], a_hi, a_lo, b_hi, b_lo);
@@ -133,9 +138,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll(L::kUnroll)
     for (int kk = 0; kk < L::kSteps; ++kk) {
       uint32_t a_hi[4], a_lo[4];
-      a_frag<T, HD>(sdOhi, sdOlo, r0, kk, a_hi, a_lo);
+      a_frag<T, HD>(tdO, r0, kk, a_hi, a_lo);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         uint32_t b_hi[2], b_lo[2];
         bt_frag<T, HD>(cV, 8 * j, kk, b_hi, b_lo);
         mma_split<!E, !E>(ds[j], a_hi, a_lo, b_hi, b_lo);
@@ -143,17 +148,17 @@ __global__ void __launch_bounds__(kThreads)
     }
     // P = exp(S scale - lse), dS = P (dP - delta), masked
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const int h = r >> 1;
-        const int kj = kt * kTile + 8 * j + 2 * t4 + (r & 1);
+        const int kj = kt * kRows + 8 * j + 2 * t4 + (r & 1);
         const float pv = kj < k_end[h] ? exp2f(fmaf(p[j][r], scale2, -lse2_r[h])) : 0.f;
         ds[j][r] = pv * (ds[j][r] - delta_r[h]);
       }
-    // dQ += dS K over this tile's 64 keys
+    // dQ += dS K over this tile's keys
 #pragma unroll
-    for (int kj = 0; kj < 8; ++kj) {
+    for (int kj = 0; kj < kN; ++kj) {
       uint32_t s_hi[4], s_lo[4];
       acc_frag(ds[kj], s_hi, s_lo);
 #pragma unroll
@@ -176,7 +181,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int HD>
 constexpr size_t dq_smem() {
   using L = Layout<T, HD>;
-  return (2 * (L::kFloats + L::kLoFloats) + 2 * L::kStages * L::kFloats +
+  return (2 * (L::kFloats + L::kLoFloats) + 2 * L::kStages * L::kRowsFloats +
           (L::kPresplit ? 2 * L::kStages * L::kLoFloats : 0) +
           (2 + 2 * L::kStages) * L::kRawFloats) *
          sizeof(float);

@@ -1,6 +1,6 @@
 // The forward (B1) on Hopper (sm_90a) as three-product TF32: replaces
 // _fwd_call / _fwd_kernel of nanodiloco_tpu/ops/pallas/flash_attention.py for
-// float32 at every head dim and bf16 at hd 16. It does two S x S x HD
+// float32 at every head dim and bf16 at hd 16 and 256. It does two S x S x HD
 // products per head on O(S x HD) bytes: operations bound it. The design,
 // the bound and the bf16 instances: flash_attention_tf32.cuh.
 
@@ -19,7 +19,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 // buffer ran faster in one A/B call on the H100 (scripts/torch_flash_ab.py):
 // hd 96 and 80 (154 and 129 KB a CTA with two, 102 and 86 KB with one;
 // Phi-3-mini's and Phi-2's widths in float32 took 1.47 and 1.25 ms against
-// 2.23 and 1.77) and hd 32 (tiny_f32_hd32: 0.076 ms against 0.081).
+// 2.23 and 1.77) and hd 32 (tiny_f32_hd32: 0.076 ms against 0.081). At hd
+// 256 the K and V tiles have 32 rows and two buffers (the header's note).
 // ---------------------------------------------------------------------------
 __host__ __device__ constexpr int fwd_stages(int hd) {
   return hd == 32 || hd == 80 || hd == 96 ? 1 : 2;
@@ -29,7 +30,7 @@ template <typename T, int HD>
 constexpr size_t fwd_smem() {
   using L = Layout<T, HD>;
   constexpr int kStages = fwd_stages(HD);
-  return (L::kFloats + L::kLoFloats + 2 * kStages * L::kFloats +
+  return (L::kFloats + L::kLoFloats + 2 * kStages * L::kRowsFloats +
           (L::kPresplit ? 2 * kStages * L::kLoFloats : 0) + (1 + 2 * kStages) * L::kRawFloats) *
          sizeof(float);
 }
@@ -41,31 +42,34 @@ __global__ void __launch_bounds__(kThreads)
                           int group, int sq, int sk, int causal, float scale) {
   using L = Layout<T, HD>;
   constexpr bool E = L::kExact;
+  constexpr bool S = L::kStaged;
   constexpr int kStages = fwd_stages(HD);
+  constexpr int kRows = L::kRows;  // keys a K and V tile
+  constexpr int kN = kRows / 8;    // n-tiles of S
   extern __shared__ __align__(16) float smem[];
   float* sQhi = smem;
   float* sQlo = sQhi + L::kFloats;
-  float* sK = sQlo + L::kLoFloats;        // [kStages] raw (or hi) tiles
-  float* sV = sK + kStages * L::kFloats;  // [kStages] raw (or hi) tiles
-  float* sKlo = sV + kStages * L::kFloats;  // [kStages] lo tiles, if kPresplit
+  float* sK = sQlo + L::kLoFloats;            // [kStages] raw (or hi) tiles
+  float* sV = sK + kStages * L::kRowsFloats;  // [kStages] raw (or hi) tiles
+  float* sKlo = sV + kStages * L::kRowsFloats;  // [kStages] lo tiles, if kPresplit
   float* sVlo = sKlo + (L::kPresplit ? kStages * L::kLoFloats : 0);
   float* sRaw = sVlo + (L::kPresplit ? kStages * L::kLoFloats : 0);  // bf16: Q, K[], V[]
-  const Tile tQ = {sQhi, sQlo, E ? sRaw : sQhi};
+  const Tile tQ = {sQhi, sQlo, S ? sRaw : sQhi};
   auto k_tile = [&](int s) -> Tile {
-    return {sK + s * L::kFloats, sKlo + s * L::kLoFloats,
-            E ? sRaw + (1 + s) * L::kRawFloats : sK + s * L::kFloats};
+    return {sK + s * L::kRowsFloats, sKlo + s * L::kLoFloats,
+            S ? sRaw + (1 + s) * L::kRawFloats : sK + s * L::kRowsFloats};
   };
   auto v_tile = [&](int s) -> Tile {
-    return {sV + s * L::kFloats, sVlo + s * L::kLoFloats,
-            E ? sRaw + (1 + kStages + s) * L::kRawFloats : sV + s * L::kFloats};
+    return {sV + s * L::kRowsFloats, sVlo + s * L::kLoFloats,
+            S ? sRaw + (1 + kStages + s) * L::kRawFloats : sV + s * L::kRowsFloats};
   };
 
   const size_t bh = blockIdx.x;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kTile;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, t4 = lane & 3;
-  const int nk = (sk + kTile - 1) / kTile;
-  const int n = causal ? min(nk, (min(q0 + kTile, sq) - 1) / kTile + 1) : nk;
+  const int nk = (sk + kRows - 1) / kRows;
+  const int n = causal ? min(nk, (min(q0 + kTile, sq) - 1) / kRows + 1) : nk;
   const T* kb = k + (bh / group) * sk * HD;
   const T* vb = v + (bh / group) * sk * HD;
   const int r0 = warp * 16;  // this warp's q rows in the tile
@@ -73,8 +77,8 @@ __global__ void __launch_bounds__(kThreads)
   load_tile<T, HD>(tQ.raw, q + bh * sq * HD, q0, sq);
   cp_async_commit();
   auto load_kv = [&](int kt, int s) {
-    load_tile<T, HD>(k_tile(s).raw, kb, kt * kTile, sk);
-    load_tile<T, HD>(v_tile(s).raw, vb, kt * kTile, sk);
+    load_tile<T, HD, kRows>(k_tile(s).raw, kb, kt * kRows, sk);
+    load_tile<T, HD, kRows>(v_tile(s).raw, vb, kt * kRows, sk);
   };
   load_kv(0, 0);
   cp_async_commit();
@@ -98,7 +102,7 @@ __global__ void __launch_bounds__(kThreads)
 
   cp_async_wait<1>();  // Q has landed
   __syncthreads();
-  split_tile<T, HD, true>(tQ);
+  if constexpr (!L::kRawRead) split_tile<T, HD, true>(tQ);
 
   for (int kt = 0; kt < n; ++kt) {
     const int stage = kStages == 1 ? 0 : kt & 1;
@@ -119,31 +123,31 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // S = Q K^T
-    float s[8][4];
+    float s[kN][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < kN; ++j)
 #pragma unroll
       for (int r = 0; r < 4; ++r) s[j][r] = 0.f;
 #pragma unroll(L::kUnroll)
     for (int kk = 0; kk < L::kSteps; ++kk) {
       uint32_t a_hi[4], a_lo[4];
-      a_frag<T, HD>(sQhi, sQlo, r0, kk, a_hi, a_lo);
+      a_frag<T, HD, true>(tQ, r0, kk, a_hi, a_lo);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kN; ++j) {
         uint32_t b_hi[2], b_lo[2];
         bt_frag<T, HD>(cK, 8 * j, kk, b_hi, b_lo);
         mma_split<!E, !E>(s[j], a_hi, a_lo, b_hi, b_lo);
       }
     }
-    // the online softmax over this tile's 64 keys, masked; S becomes P
+    // the online softmax over this tile's keys, masked; S becomes P
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int kj = kt * kTile + 8 * j + 2 * t4 + c;
+          const int kj = kt * kRows + 8 * j + 2 * t4 + c;
           const float x = kj < k_end[h] ? s[j][2 * h + c] * scale2 : -INFINITY;
           s[j][2 * h + c] = x;
           mx = fmaxf(mx, x);
@@ -155,7 +159,7 @@ __global__ void __launch_bounds__(kThreads)
       const float corr = exp2f(m2[h] - m_safe);  // 0 while the row had no key
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < kN; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float p = exp2f(s[j][2 * h + c] - m_safe);  // 0 where masked
@@ -170,9 +174,9 @@ __global__ void __launch_bounds__(kThreads)
         acc[n8][2 * h + 1] *= corr;
       }
     }
-    // O += P V over this tile's 64 keys
+    // O += P V over this tile's keys
 #pragma unroll
-    for (int kq = 0; kq < 8; ++kq) {
+    for (int kq = 0; kq < kN; ++kq) {
       uint32_t a_hi[4], a_lo[4];
       acc_frag(s[kq], a_hi, a_lo);
 #pragma unroll

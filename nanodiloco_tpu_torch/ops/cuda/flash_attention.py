@@ -11,9 +11,9 @@ B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 
 Each kernel comes in two variants, both on the tensor cores, and
 ``ROUTES`` names the one that serves each (kernel, dtype, head dim), at
-head dims 16, 32, 64, 80, 96 and 128 (``HEAD_DIMS``; any other raises
-here, and ``cuda_flash_attention`` pads a smaller one up to the next of
-them):
+head dims 16, 32, 64, 80, 96, 128 and 256 (``HEAD_DIMS``; any other
+raises here, and ``cuda_flash_attention`` pads a smaller one up to the
+next of them):
 
 - ``wgmma``: wgmma fed by TMA
   (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: all
@@ -22,7 +22,7 @@ them):
 - ``tf32x3``: three-product TF32 with mma.sync
   (``nanodiloco_tpu_torch/csrc/flash_attention_tf32_{fwd,dq,dkv}.cu`` on
   ``flash_attention_tf32.cuh``), for all three
-  kernels in float32 at every head dim and in bf16 at hd 16. One TF32
+  kernels in float32 at every head dim and in bf16 at hd 16 and 256. One TF32
   product keeps 10 mantissa bits and would not hold the float32
   tolerance; hi·hi + hi·lo + lo·hi of each operand's split keeps about
   2^-22. A bf16 value is exact in TF32 (lo = 0), so the bf16 instances
@@ -32,7 +32,11 @@ them):
   read V, dO, Q and K along their rows. The backward splits its loop into
   ``bwd_splits`` parts (CTAs) so that small shapes fill the card, and a
   second pass sums the parts in a fixed order (no atomics); the forward
-  is one launch, unsplit (the header's note says why).
+  is one launch, unsplit (the header's note says why). At hd 256 every
+  tile is split (or widened, bf16) as it is read, the streamed tiles
+  have 32 rows, and B3 splits dK's and dV's columns between two CTAs
+  (``STREAM_ROWS``, ``COL_PARTS``), so that each kernel's shared memory
+  stays near 200 KB and its accumulators at 128 registers a thread.
 
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
@@ -47,8 +51,7 @@ What bounds them on the H100: at the training shape (hd 128, S 2048,
 causal) and at moe-8x-top2's (hd 64, S 1024) every kernel does 2-4
 S x S x hd products per head on O(S x hd) bytes, so operations bound all
 three (see the notes at the top of the CUDA sources for the designs).
-Head dims above 128 raise (ROADMAP C3): the tiles of both designs stop
-there.
+Head dims above 256 raise (ROADMAP C3): the tf32x3 tiles stop there.
 """
 
 from __future__ import annotations
@@ -63,7 +66,7 @@ import torch
 from nanodiloco_tpu_torch.ops.cuda import build
 from nanodiloco_tpu_torch.ops.online_softmax import NEG_INF, block_update
 
-HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 VARIANTS = ("wgmma", "tf32x3")
@@ -84,6 +87,11 @@ ROUTES = {(name, dtype, hd): _route(dtype, hd)
           for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS}
 # the H100's SMs: one wave of the tf32x3 kernels at one CTA an SM
 SMS = 132
+# the tf32x3 kernels' tiles by head dim (Layout in flash_attention_tf32.cuh):
+# rows of a streamed tile (B1, B2: K and V; B3: Q and dO; the stationary
+# tiles have 64), and the CTAs that split B3's output columns
+STREAM_ROWS = {256: 32}
+COL_PARTS = {256: 2}
 _MAX_GRID_Y = 65535
 # K/V rows per step of the plain versions (their memory is O(S x block))
 PLAIN_BLOCK = 512
@@ -139,16 +147,19 @@ def _splits(ctas: int, pairs: int) -> int:
     return max(1, min(pairs, -(-2 * SMS // max(ctas, 1))))
 
 
-def bwd_splits(name: str, bh: int, bh_kv: int, sq: int, sk: int, causal: bool) -> int:
+def bwd_splits(name: str, bh: int, bh_kv: int, sq: int, sk: int, causal: bool,
+               hd: int = 128) -> int:
     """The split count of a tf32x3 launch of ``name`` (``flash_bwd_dq`` or
-    ``flash_bwd_dkv``): B2 has one CTA per (head, 64-row q tile), looping
-    over up to ``nk`` K tiles (under the causal mask, the last q tile's);
-    B3 one per (KV head, 64-key tile), looping over ``group x nq`` (query
-    head, q tile) pairs."""
-    nq, nk = -(-sq // 64), -(-sk // 64)
+    ``flash_bwd_dkv``) at head dim ``hd``: B2 has one CTA per (head, 64-row
+    q tile), looping over up to ``nk`` K tiles of ``STREAM_ROWS`` keys
+    (under the causal mask, the last q tile's); B3 one per (KV head, 64-key
+    tile, column part), looping over ``group x nq`` (query head, q tile)
+    pairs."""
+    rows = STREAM_ROWS.get(hd, 64)
     if name == "flash_bwd_dq":
-        return _splits(bh * nq, min(nk, nq) if causal else nk)
-    return _splits(bh_kv * nk, (bh // bh_kv) * nq)
+        nk = -(-sk // rows)
+        return _splits(bh * -(-sq // 64), min(nk, -(-sq // rows)) if causal else nk)
+    return _splits(COL_PARTS.get(hd, 1) * bh_kv * -(-sk // 64), (bh // bh_kv) * -(-sq // rows))
 
 
 def shape_key(dtype, bh: int, bh_kv: int, sq: int, sk: int, hd: int, causal: bool) -> str:
@@ -341,7 +352,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale=None):
     shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), _scale(scale, hd))
     with torch.cuda.device(q.device):
         if variant == "tf32x3":
-            splits = bwd_splits("flash_bwd_dq", bh, k.shape[0], sq, k.shape[1], causal)
+            splits = bwd_splits("flash_bwd_dq", bh, k.shape[0], sq, k.shape[1], causal, hd)
             ws = (torch.empty((splits, bh, sq, hd), device=q.device, dtype=torch.float32)
                   if splits > 1 else None)
             rc = _tf32_lib().nd_flash_bwd_dq_tf32(
@@ -370,7 +381,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale=None):
     with torch.cuda.device(q.device):
         if variant == "tf32x3":
             bh_kv, sk = k.shape[:2]
-            splits = bwd_splits("flash_bwd_dkv", bh, bh_kv, sq, sk, causal)
+            splits = bwd_splits("flash_bwd_dkv", bh, bh_kv, sq, sk, causal, hd)
             ws = (torch.empty((splits, 2, bh_kv, sk, hd), device=q.device, dtype=torch.float32)
                   if splits > 1 else None)
             rc = _tf32_lib().nd_flash_bwd_dkv_tf32(
@@ -448,18 +459,19 @@ def cuda_flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q ``[B, S, H, hd]``; k, v ``[B, S, Hkv, hd]`` with H % Hkv == 0
     (GQA, never expanded). Differentiable. The port of
     ``pallas_flash_attention``: same public layout, and any head dim up to
-    128, as the JAX dispatcher takes any head dim off the TPU: a head dim
+    256, as the JAX dispatcher takes any head dim off the TPU: a head dim
     outside ``HEAD_DIMS`` is zero-padded to the next of them in the copy
-    to ``[BH, S, hd]``, with the scale of the true head dim, and the output
-    sliced back. Zero columns change no score and give zero output and
-    gradient columns, so the result is exact. Above 128 it raises."""
+    to ``[BH, S, hd]`` (129-255 to 256), with the scale of the true head
+    dim, and the output sliced back. Zero columns change no score and give
+    zero output and gradient columns, so the result is exact. Above 256 it
+    raises."""
     b, s, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"query heads {h} must divide by kv heads {hkv}")
     if hd > HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {hd} above {HEAD_DIMS[-1]}: the kernels' tiles stop at "
-                         f"{HEAD_DIMS[-1]} (ROADMAP C3)")
+        raise ValueError(f"head dim {hd} above {HEAD_DIMS[-1]}: the tf32x3 kernels' tiles stop "
+                         f"at {HEAD_DIMS[-1]} (ROADMAP C3)")
     width = next(d for d in HEAD_DIMS if d >= hd)
 
     def flat(x, sl, nh):

@@ -3,12 +3,14 @@
 A copy of ``nanodiloco_tpu/training/metrics.py`` (jax-free apart from
 one ``jax.process_index()`` call; the JAX package's ``__init__`` imports
 jax, so the port keeps its own). The port runs one process, so every
-sink writes; the wandb sink and the live telemetry mirror are not
-ported. ``summarize_run``, ``load_comparable`` and ``compare_runs`` are
-unchanged, so ``report`` and ``report compare`` read a run of either
+sink writes. ``summarize_run``, ``load_comparable`` and ``compare_runs``
+are unchanged, so ``report`` and ``report compare`` read a run of either
 package through either package and give the same answer.
 
-Sinks: JSONL file (the source of truth) and stdout.
+Sinks: JSONL file (the source of truth), stdout, the live telemetry
+mirror (``telemetry``, set by the train loop), and wandb when asked for
+(``use_wandb``: the reference logged through wandb only) and installed;
+if ``wandb`` is missing or cannot start a run, the JSONL remains.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ class MetricsLogger:
         self,
         run_name: str,
         out_dir: str | None = None,
+        use_wandb: bool = False,
+        wandb_project: str = "nano-diloco",
+        config: dict | None = None,
         quiet: bool = False,
     ) -> None:
         self.run_name = run_name
@@ -80,6 +85,15 @@ class MetricsLogger:
             os.makedirs(out_dir, exist_ok=True)
             self.path = os.path.join(out_dir, f"{run_name}.jsonl")
             self._file = open(self.path, "a")
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb
+                wandb.init(project=wandb_project, name=run_name, config=config or {})
+            except Exception:
+                self._wandb = None  # wandb missing/offline: JSONL remains
 
     def log(self, metrics: dict[str, Any], step: int | None = None) -> None:
         rec = dict(metrics)
@@ -89,6 +103,8 @@ class MetricsLogger:
             if self._file:
                 self._file.write(json.dumps(rec) + "\n")
                 self._file.flush()
+            if self._wandb:
+                self._wandb.log(rec)
         if self.telemetry is not None:
             try:
                 self.telemetry.observe(rec)
@@ -113,6 +129,9 @@ class MetricsLogger:
             if self._file:
                 self._file.close()
                 self._file = None
+            if self._wandb:
+                self._wandb.finish()
+                self._wandb = None
 
 
 def read_jsonl_records(path: str) -> tuple[list[dict], int]:

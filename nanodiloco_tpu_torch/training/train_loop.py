@@ -165,6 +165,8 @@ class TrainConfig:
     inner_steps: int = 100
     lr: float = 4e-4
     outer_lr: float = 0.7
+    # the wandb project of the run (the reference's --project)
+    project: str = "nano-diloco"
     # a pre-tokenized tokenshard file (scripts/torch_prepare_data.py) or
     # an HF datasets.save_to_disk directory; None -> the synthetic corpus
     dataset_path: str | None = None
@@ -247,9 +249,16 @@ class TrainConfig:
     checkpoint_dir: str | None = None
     checkpoint_every: int = 1        # in outer syncs
     resume: bool = True
+    # also log every record to a wandb run (if wandb is installed and
+    # starts; the JSONL is written either way)
+    use_wandb: bool = False
     log_dir: str | None = "runs"
     quiet: bool = False
     run_name: str | None = None
+    # the reference's wandb config file (configs/wandb_default.json): its
+    # keys go into the wandb run's config and the generated run name
+    # (nodes, location), and its measure_comms is --measure-comm's default
+    wandb_config: dict = dataclasses.field(default_factory=dict)
 
     @property
     def grad_accum(self) -> int:
@@ -555,8 +564,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         _fence(device)
         torch.cuda.reset_peak_memory_stats(device)
 
-    run_name = cfg.run_name or create_run_name("nanodiloco-torch", {"nodes": cfg.num_workers})
-    logger = MetricsLogger(run_name, out_dir=cfg.log_dir, quiet=quiet)
+    run_name = cfg.run_name or create_run_name(
+        "nanodiloco-torch", {"nodes": cfg.num_workers, **cfg.wandb_config})
+    logger = MetricsLogger(
+        run_name, out_dir=cfg.log_dir, use_wandb=cfg.use_wandb, wandb_project=cfg.project,
+        config={**dataclasses.asdict(cfg.model), **cfg.wandb_config}, quiet=quiet)
     for rec in pre_logger_events:
         logger.log(rec)
     if resume_rec is not None:

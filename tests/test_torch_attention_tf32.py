@@ -8,8 +8,11 @@ TF32 rounding as ``cvt.rna.tf32.f32`` does it (to nearest, ties away from
 zero, at the 13 dropped mantissa bits, here on the int32 view), and every
 product adds lo·hi, hi·lo and hi·hi 8 terms of the reduction at a time,
 in the kernels' order (mma.sync m16n8k8). P and dS are split where the
-kernels split them, as the left operand of the second products. A
-one-product model (hi·hi alone) shows why one TF32 product is not enough.
+kernels split them, as the left operand of the second products. At hd
+256 B3's CTAs each own half of dK's and dV's columns (``fa.COL_PARTS``)
+and reduce over the same queries in the same order, and the model takes
+the columns in the same parts. A one-product model (hi·hi alone) shows
+why one TF32 product is not enough.
 
 Run as a script, it prints the tolerance share (``atol_of_max``: the
 largest |model - plain| past 1e-4 |plain|, over max|plain|) that the
@@ -104,10 +107,14 @@ def tf32_dq(q, k, v, do, lse, delta, causal, products=3):
 def tf32_dkv(q, k, v, do, lse, delta, causal, products=3):
     """B3: dV = P^T dO and dK = scale · dS^T Q over each KV head's query
     group (the reduction runs g-major over the folded rows, as the kernel
-    walks its (group member, q tile) pairs)."""
+    walks its (group member, q tile) pairs), one column part at a time."""
     qf, dof, p, ds = tf32_probs(q, k, v, do, lse, delta, causal, products)
-    dk = mma(ds.transpose(1, 2), qf, products) / math.sqrt(q.shape[-1])
-    return dk, mma(p.transpose(1, 2), dof, products)
+    hd = q.shape[-1]
+    cols = hd // fa.COL_PARTS.get(hd, 1)
+    parts = [(mma(ds.transpose(1, 2), qf[..., c:c + cols], products) / math.sqrt(hd),
+              mma(p.transpose(1, 2), dof[..., c:c + cols], products))
+             for c in range(0, hd, cols)]
+    return tuple(torch.cat(out, dim=-1) for out in zip(*parts))
 
 
 def needed(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -149,7 +156,7 @@ def test_round_tf32_is_cvt_rna():
     assert ((hi - y).abs() > 2.0 ** -14 * y.abs()).any()  # one part alone is TF32's 2^-11
 
 
-@pytest.mark.parametrize("hd", [128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 4])
 def test_three_product_model_within_f32_tolerance(hd, causal, group):
@@ -171,7 +178,7 @@ def test_one_product_misses_the_f32_tolerance(hd):
     assert max(need.values()) > ATOL, need
 
 
-@pytest.mark.parametrize("hd", [128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
 @pytest.mark.parametrize("group, causal", [(2, True), (1, False)])
 def test_three_product_model_matches_jax_gradients(hd, group, causal):
     """dQ, dK and dV of the tf32x3 model against jax.grad through the JAX
@@ -233,7 +240,7 @@ def test_split_rule_bounds():
 
 if __name__ == "__main__":
     out = {}
-    for hd in (128, 64, 32, 16):
+    for hd in (256, 128, 64, 32, 16):
         for group in (1, 4):
             for causal in (True, False):
                 key = f"hd{hd}/group{group}/{'causal' if causal else 'full'}"

@@ -9,9 +9,10 @@ The model: TF32 rounding and the hi/lo split as
 ``tests/test_torch_attention_tf32.py`` has them (``cvt.rna.tf32.f32``);
 every product adds lo·hi, hi·lo and hi·hi 8 terms of the reduction at a
 time (mma.sync m16n8k8), dropping the terms of an operand that has no lo
-part. B1 walks 64-key tiles: S = Q K^T times scale·log2 e, masked to
--inf, the online softmax in exp2 (m in log2 units), P split as the left
-operand of O += P V, then O / max(l, 1e-30) and lse = m ln 2 + ln l.
+part. B1 walks 64-key tiles (32 at hd 256, ``fa.STREAM_ROWS``): S = Q K^T
+times scale·log2 e, masked to -inf, the online softmax in exp2 (m in log2
+units), P split as the left operand of O += P V, then O / max(l, 1e-30)
+and lse = m ln 2 + ln l.
 """
 
 import math
@@ -99,8 +100,9 @@ def tf32_fwd(q, k, v, causal, kernel=Kernel(), scale=None):
     m = torch.full(qf.shape[:2], -math.inf)
     l = torch.zeros(qf.shape[:2])
     acc = torch.zeros(qf.shape)
-    for j0 in range(0, sk, 64):
-        kj, vj = k[:, j0:j0 + 64].float(), v[:, j0:j0 + 64].float()
+    tile = fa.STREAM_ROWS.get(hd, 64)
+    for j0 in range(0, sk, tile):
+        kj, vj = k[:, j0:j0 + tile].float(), v[:, j0:j0 + tile].float()
         s = kernel.inputs(qf, kj.transpose(1, 2)) * (scale * LOG2E)
         if causal:
             kpos = torch.arange(j0, j0 + kj.shape[1])
@@ -153,7 +155,7 @@ def forward_needs(hd, group, causal, kernel, s=150):
     return needed(o, o_ref, F32_TOL[1]), needed(lse, lse_ref, F32_TOL[1]), (o, o_ref)
 
 
-@pytest.mark.parametrize("hd", [128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 4])
 def test_three_product_forward_within_f32_tolerance(hd, causal, group):
@@ -174,7 +176,7 @@ def test_one_product_forward_misses_the_f32_tolerance(hd):
     assert need_o > F32_TOL[0], need_o
 
 
-@pytest.mark.parametrize("hd", [128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
 @pytest.mark.parametrize("group, causal", [(2, True), (1, False)])
 def test_three_product_forward_matches_jax(hd, group, causal):
     """O of the tf32x3 model against the JAX dispatcher's forward (its scan
@@ -202,14 +204,15 @@ def bf16_inputs(group, causal, s=150, hd=16, seed=23):
     return q, k, v, do, lse, (do.float() * o.float()).sum(-1, keepdim=True)
 
 
+@pytest.mark.parametrize("hd", [16, 256])
 @pytest.mark.parametrize("group, causal", [(1, True), (2, False), (4, True)])
-def test_bf16_skipping_lo_terms_is_the_three_product_result(group, causal):
+def test_bf16_skipping_lo_terms_is_the_three_product_result(group, causal, hd):
     """On bf16 inputs (exact in TF32: lo = 0) the instances that skip the
     inputs' lo terms (one product for Q K^T and dO V^T, two for P V, dS K,
     P^T dO and dS^T Q) give the three-product kernel's result on the same
     values in float32 bit for bit, for B1, B2 and B3; rounded to bf16 they
-    stay within (2e-3, 2**-7) of the plain versions at hd 16."""
-    q, k, v, do, lse, delta = bf16_inputs(group, causal)
+    stay within (2e-3, 2**-7) of the plain versions at hd 16 and 256."""
+    q, k, v, do, lse, delta = bf16_inputs(group, causal, hd=hd)
     f32 = [x.float() for x in (q, k, v, do)]
     skip, full = Kernel(exact=True), Kernel()
     fwd = tf32_fwd(*f32[:3], causal, skip)
@@ -260,10 +263,11 @@ def test_head_dims_outside_the_six_match_jax(hd, group, causal):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("hd", [136, 256])
+@pytest.mark.parametrize("hd", [264, 512])
 def test_head_dims_above_128_raise_naming_c3(hd):
-    """Above 128 the kernels' tiles do not reach: ValueError naming ROADMAP
-    C3, on the CPU as on the card, and nothing falls back."""
+    """Above 256 (the limit since hd 256 was ported; 128 before it) the
+    kernels' tiles do not reach: ValueError naming ROADMAP C3, on the CPU
+    as on the card, and nothing falls back."""
     q = torch.zeros(1, 8, 2, hd)
     with pytest.raises(ValueError, match="C3"):
         flash_attention(q, q, q)

@@ -9,7 +9,7 @@ PyTorch; there, skip the repo's JAX-side conftest:
 
 Tolerance, as in chip_smoke.py: ``atol * max|ref| + rtol * |ref|``, rtol
 1e-4 (f32) or 2**-7 (bf16: outputs may land one bf16 ulp apart). The
-three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16)
+three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16 and 256)
 keep float32's accuracy but for ~2**-22: atol 1e-4 in float32; in bf16
 the inputs are exact in TF32 and the float32-accurate sums are rounded to
 bf16, atol 2e-3. The wgmma kernels (bf16: B1, B2, B3 at hd 128, 96, 80,
@@ -288,7 +288,8 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     o, lse = fa.flash_fwd_plain(q, k, v, causal)
     delta = (do * o).sum(-1, keepdim=True)
     lse[1, s // 2] = float("inf")
-    splits = [fa.bwd_splits(n, bh, bh_kv, s, s, causal) for n in ("flash_bwd_dq", "flash_bwd_dkv")]
+    splits = [fa.bwd_splits(n, bh, bh_kv, s, s, causal, hd)
+              for n in ("flash_bwd_dq", "flash_bwd_dkv")]
     assert (splits == [1, 1]) == (bh == 32), splits
     guard, bufs = 4096, []
     fa.reset_launch_counts()
@@ -314,8 +315,9 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
 
 
 # (dtype, hd) of every tf32x3 forward instance: float32 at every head dim,
-# bf16 at hd 16
-TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [(torch.bfloat16, 16)]
+# bf16 at hd 16 and 256
+TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [(torch.bfloat16, 16),
+                                                              (torch.bfloat16, 256)]
 
 
 @pytest.mark.cuda
@@ -323,9 +325,9 @@ TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [(torch.bfloat16, 16
 @pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
                                                   (8, 2, 333, True)])
 def test_tf32x3_forward_matches_plain(dtype, hd, bh, bh_kv, s, causal, monkeypatch):
-    """B1 on the tensor cores as three-product TF32 (bf16 at hd 16: one
-    product for S, two for P V) at every float32 head dim and at bf16 hd
-    16, ragged S, MHA and GQA 4, causal and not: O within the tf32x3
+    """B1 on the tensor cores as three-product TF32 (bf16 at hd 16 and 256:
+    one product for S, two for P V) at every float32 head dim and at bf16 hd
+    16 and 256, ragged S, MHA and GQA 4, causal and not: O within the tf32x3
     tolerance of the plain version, lse within 1e-4; the first launch's O
     heads a marker-filled buffer whose tail comes back unchanged; a second
     launch gives the same bits."""
@@ -384,10 +386,24 @@ def test_tf32x3_bf16_hd16_backward_matches_plain(bh, bh_kv, s, causal, monkeypat
     S and dP, two for dS K, P^T dO and dS^T Q), unsplit and split: within
     (2e-3, 2**-7) of the plain versions; outputs inside their tensors; a
     second launch gives the same bits."""
+    bf16_backward_matches_plain(16, bh, bh_kv, s, causal, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
+                                                  (8, 1, 333, True)])
+def test_tf32x3_bf16_hd256_backward_matches_plain(bh, bh_kv, s, causal, monkeypatch):
+    """bf16 B2 and B3 at hd 256 (tiles widened as read, 32-row streamed
+    tiles, B3's columns split between two CTAs), unsplit and split, MHA,
+    GQA 4 and GQA 8: as at hd 16."""
+    bf16_backward_matches_plain(256, bh, bh_kv, s, causal, monkeypatch)
+
+
+def bf16_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     gen = card()
     bf16 = torch.bfloat16
-    q, do = (torch.randn(bh, s, 16, generator=gen, device="cuda").to(bf16) for _ in range(2))
-    k, v = (torch.randn(bh_kv, s, 16, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    q, do = (torch.randn(bh, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    k, v = (torch.randn(bh_kv, s, hd, generator=gen, device="cuda").to(bf16) for _ in range(2))
     o, lse = fa.flash_fwd_plain(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1, keepdim=True)
     bufs = []
@@ -413,7 +429,7 @@ def test_tf32x3_bf16_hd16_backward_matches_plain(bh, bh_kv, s, causal, monkeypat
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd, width", [(48, 64), (8, 16), (112, 128)])
+@pytest.mark.parametrize("hd, width", [(48, 64), (8, 16), (112, 128), (136, 256)])
 def test_padded_head_dim_matches_plain_at_its_own_width(dtype, hd, width):
     """A head dim outside HEAD_DIMS (ROADMAP C3) runs through the kernels
     zero-padded to the next one: the dispatcher's output and dQ, dK, dV on
