@@ -2791,7 +2791,7 @@ def phase_faults_8b(fixture: dict, mem: Path, smi: str) -> dict:
     return summary["kernel_shapes"]
 
 
-SUPERVISE_ROUNDS = 8
+SUPERVISE_ROUNDS = 5
 
 
 def child_pids(pid: int) -> list[int]:
@@ -3407,10 +3407,14 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
     env = {"PYTHONPATH": os.pathsep.join([str(ROOT)] + [p for p in os.environ.get(
         "PYTHONPATH", "").split(os.pathsep) if p])}
     provider = ProcessReplicaProvider(serve_cmd(watch, 2), stdout=log, env=env)
+    # the autoscaling fleet's seed replica (step 4) starts beside the
+    # canary's two, so that its start-up overlaps theirs
+    seed = ProcessReplicaProvider(serve_cmd(watch, 4), name_prefix="seed", stdout=log, env=env)
     procs: list[subprocess.Popen] = []
     out: dict = {}
     try:
         reps = [provider.launch(), provider.launch()]
+        r0 = seed.launch()
         for r in reps:
             wait_until(lambda: _healthy(r.url), phase, f"replica {r.name}", timeout=180)
             # one throwaway request, so that the canary's baseline bench
@@ -3529,10 +3533,6 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
         torch.cuda.empty_cache()
 
         # autoscale: 1 -> 2 under a burst, back to 1 when idle
-        seed = ProcessReplicaProvider(serve_cmd(watch, 4), name_prefix="seed", stdout=log,
-                                      env=env)
-        provider = seed
-        r0 = seed.launch()
         wait_until(lambda: _healthy(r0.url), phase, "the seed replica", timeout=180)
         events2 = work / "autoscale.jsonl"
         port = free_port()
@@ -3624,6 +3624,7 @@ def phase_deploy_small(mem: Path, smi: str) -> dict:
                     with contextlib.suppress(OSError):
                         os.kill(pid, signal.SIGKILL)
         provider.stop_all()
+        seed.stop_all()
         log.close()
     shutil.rmtree(work)
     emit(phase=phase, ok=True, nvidia_smi=smi, model=RESUME_MODEL.to_dict(),

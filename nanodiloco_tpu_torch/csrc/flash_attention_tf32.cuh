@@ -449,6 +449,13 @@ inline bool bad_split(int splits, const void* ws) {
   return splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr);
 }
 
+template <typename T, int HD>
+int tile_geometry(int* rows, int* col_parts) {
+  *rows = Layout<T, HD>::kRows;
+  *col_parts = HD / Layout<T, HD>::kCols;
+  return 0;
+}
+
 }  // namespace
 
 // dtype 0 = float32 at every head dim; dtype 1 = bf16 at hd 16 and 256, the
@@ -477,4 +484,12 @@ extern "C" const char* nd_tf32_error_string(int code) {
            "bfloat16: 16, 256)";
   if (code == -2) return "split count out of [1, 65535], or a split launch without a workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Every tf32x3 library exports this too: the rows of a streamed tile and the
+// CTAs that split B3's output columns (Layout's kRows and HD / kCols). The
+// wrapper's split rule (bwd_splits) keeps a copy for the CPU and holds it
+// against this when it loads a library; -1 as the launchers.
+extern "C" int nd_tf32_geometry(int dtype, int hd, int* rows, int* col_parts) {
+  ND_TF32(tile_geometry, rows, col_parts)
 }

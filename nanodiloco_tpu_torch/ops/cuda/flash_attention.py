@@ -89,7 +89,9 @@ ROUTES = {(name, dtype, hd): _route(dtype, hd)
 SMS = 132
 # the tf32x3 kernels' tiles by head dim (Layout in flash_attention_tf32.cuh):
 # rows of a streamed tile (B1, B2: K and V; B3: Q and dO; the stationary
-# tiles have 64), and the CTAs that split B3's output columns
+# tiles have 64), and the CTAs that split B3's output columns. A copy, so
+# that the split rule runs on the CPU too: _tf32_lib holds it against each
+# library's nd_tf32_geometry when it loads them
 STREAM_ROWS = {256: 32}
 COL_PARTS = {256: 2}
 _MAX_GRID_Y = 65535
@@ -124,10 +126,30 @@ def _tf32_lib() -> types.SimpleNamespace:
         fn.restype = I
     dkv.nd_tf32_error_string.argtypes = [I]
     dkv.nd_tf32_error_string.restype = ctypes.c_char_p
+    for lib in (fwd, dq, dkv):
+        _check_geometry(lib.nd_tf32_geometry)
     return types.SimpleNamespace(
         nd_flash_fwd_tf32=fwd.nd_flash_fwd_tf32, nd_flash_bwd_dq_tf32=dq.nd_flash_bwd_dq_tf32,
         nd_flash_bwd_dkv_tf32=dkv.nd_flash_bwd_dkv_tf32,
         nd_tf32_error_string=dkv.nd_tf32_error_string)
+
+
+def _check_geometry(geometry) -> None:
+    """Raise unless a tf32x3 library's tiles are STREAM_ROWS and COL_PARTS
+    at every (dtype, head dim) it serves."""
+    geometry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                         ctypes.POINTER(ctypes.c_int)]
+    geometry.restype = ctypes.c_int
+    rows, parts = ctypes.c_int(), ctypes.c_int()
+    for (name, dtype, hd), variant in ROUTES.items():
+        if name != "flash_bwd_dkv" or variant != "tf32x3":
+            continue
+        rc = geometry(_DTYPE_CODE[dtype], hd, ctypes.byref(rows), ctypes.byref(parts))
+        want = (STREAM_ROWS.get(hd, 64), COL_PARTS.get(hd, 1))
+        if rc != 0 or (rows.value, parts.value) != want:
+            raise RuntimeError(
+                f"tf32x3 tiles at ({dtype}, hd {hd}): the library has (rows, column parts) "
+                f"{(rows.value, parts.value)} (rc {rc}), STREAM_ROWS/COL_PARTS say {want}")
 
 
 def _raise_on(rc: int, name: str, variant: str) -> None:
@@ -148,7 +170,7 @@ def _splits(ctas: int, pairs: int) -> int:
 
 
 def bwd_splits(name: str, bh: int, bh_kv: int, sq: int, sk: int, causal: bool,
-               hd: int = 128) -> int:
+               hd: int) -> int:
     """The split count of a tf32x3 launch of ``name`` (``flash_bwd_dq`` or
     ``flash_bwd_dkv``) at head dim ``hd``: B2 has one CTA per (head, 64-row
     q tile), looping over up to ``nk`` K tiles of ``STREAM_ROWS`` keys

@@ -220,10 +220,10 @@ def test_three_product_model_matches_jax_gradients(hd, group, causal):
 def test_split_rule(shape, dq_splits, dkv_splits):
     """The fewest parts that give two waves of 132 CTAs, never more parts
     than a CTA's loop has steps; 1 where the grid already has two waves."""
-    b, h, hkv, s, _ = shape
+    b, h, hkv, s, hd = shape
     for causal in (True, False):
-        got = (fa.bwd_splits("flash_bwd_dq", b * h, b * hkv, s, s, causal),
-               fa.bwd_splits("flash_bwd_dkv", b * h, b * hkv, s, s, causal))
+        got = (fa.bwd_splits("flash_bwd_dq", b * h, b * hkv, s, s, causal, hd),
+               fa.bwd_splits("flash_bwd_dkv", b * h, b * hkv, s, s, causal, hd))
         assert got == (dq_splits, dkv_splits)
 
 

@@ -12,6 +12,7 @@ both sides, so the port and JAX agree exactly too.
 
 import json
 import os
+import zipfile
 
 import jax
 import jax.numpy as jnp
@@ -98,6 +99,33 @@ def test_save_restore_round_trip_is_bit_exact(tmp_path):
     names = [n for n, _ in named_leaves(state.params)]
     assert list(tree["inner_opt_state"]) == names and list(tree["outer_opt_state"]) == names
     assert "layers/wq" in names
+
+
+def test_save_writes_no_crc_and_load_never_checked_one(tmp_path):
+    """A save skips the zip records' CRC-32 (about half of a save's time),
+    and restores bit-exactly without it; torch.load does not verify the
+    CRC of a file that has one either: a flipped data byte loads
+    silently, so the CRC guarded no restore."""
+    dl, state = trained_state()
+    ck = CheckpointManager(str(tmp_path / "ck"))
+    ck.save(state.inner_step_count, state)
+    with zipfile.ZipFile(ck.path(H)) as z:
+        data = [i for i in z.infolist() if "/data/" in i.filename]
+    assert data and all(i.CRC == 0 for i in data)
+    fresh = dl.init_state(torch.Generator().manual_seed(99))
+    ck.restore(fresh)
+    assert_states_equal(fresh, state)
+
+    x = torch.arange(256, dtype=torch.float32)
+    path = tmp_path / "crc.pt"
+    torch.save({"x": x}, path)
+    raw = bytearray(path.read_bytes())
+    at = raw.find(x[200].numpy().tobytes())
+    raw[at] ^= 1
+    path.write_bytes(bytes(raw))
+    for mmap in (False, True):
+        got = torch.load(path, weights_only=True, mmap=mmap)["x"]
+        assert not torch.equal(got, x) and torch.equal(got[:200], x[:200])
 
 
 def test_restore_rejects_another_model(tmp_path):
