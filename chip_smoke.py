@@ -13,12 +13,16 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128, 256; ragged S, non-causal, S under one
                  tile, MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80,
-                 64 and 32 run wgmma, the rest (every float32 row, bf16
-                 at hd 16 and 256) three-product TF32 on mma.sync (tf32x3).
-                 The dispatcher at head dims outside the seven (ROADMAP
-                 C3: 48 in float32 and bf16, 8 in bf16, 136 in float32),
-                 zero-padded to the next: output and gradients against the
-                 plain versions at the true head dim.
+                 64 and 32 and bf16 B2 and B3 at 256 run wgmma, the rest
+                 (every float32 row, bf16 at hd 16, bf16 B1 at 256)
+                 three-product TF32 on mma.sync (tf32x3). Above 256, where
+                 the tf32x3 kernels sum over slices of 256 columns, three
+                 rows: hd 512 in float32 and in bf16 (ragged S, GQA 4), and
+                 hd 320 zero-padded to 512 (non-causal). The dispatcher at
+                 head dims outside the seven (48 in float32 and bf16, 8 in
+                 bf16, 136 in float32), zero-padded to the next: output
+                 and gradients against the plain versions at the true
+                 head dim.
                  Each kernel launches twice: the first launch's outputs
                  head buffers whose tails hold a marker that must come
                  back unchanged (no store past a tensor), and the second
@@ -26,8 +30,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  At one shape of every route that no phase is built to
                  run (hd 16, 80, 96 in bf16, the last two at Phi-2's and
                  Phi-3-mini's width; hd 32, 80, 96, 128 in f32),
-                 and at every hd-256 shape (Gemma-2B's attention in bf16
-                 and float32, a ragged GQA and a non-causal one),
+                 and at every shape from hd 256 (Gemma-2B's attention in
+                 bf16 and float32, ragged GQA and non-causal ones, the
+                 rows above 256),
                  CUDA-event times of the kernel, the plain version and the
                  PyTorch library call (ms: calls back to back, what a
                  caller sees; device_ms: a CUDA graph of them, the
@@ -78,8 +83,8 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  depth cut from 18 layers to 2) in bf16 over float32
                  masters with attention_impl="flash": W 2 x b 2 x S 2048,
                  H 2, 2 rounds. Every B1, B2 and B3 launch must be at
-                 (bf16, hd 256) on tf32x3, and the losses finite; tokens/s
-                 and peak memory.
+                 (bf16, hd 256), B1 on tf32x3 and B2 and B3 on wgmma, and
+                 the losses finite; tokens/s and peak memory.
 
 7. diloco_options_small - every DiLoCo option (quarantine, the bf16,
                  int8 and int4-integer wires, dynamics, heterogeneous H
@@ -412,8 +417,12 @@ PEAK_BYTES = 3.35e12
 #   model's width, which no phase trains;
 #   gemma2b_hd256 / gemma2b_f32_hd256: Gemma-2B's attention (8 query heads
 #   on 1 KV head of 256) in bf16 at B 2, S 2048 and in float32 at B 1,
-#   S 1024 (train_hd256 trains the bf16 route at B 4).
-# Every hd-256 row is timed, with SDPA's backend beside it.
+#   S 1024 (train_hd256 trains the bf16 route at B 4);
+#   wide_*_hd512 / padded_f32_hd320: head dims above 256, which no model
+#   has: the tf32x3 kernels that sum over slices of 256 columns, and a head
+#   dim the kernels do not take (320), zero-padded to 512 with its own scale
+#   as cuda_flash_attention pads it.
+# Every row from hd 256 is timed, the hd-256 ones with SDPA's backend beside.
 # The kernels line does not come from these: the main path's own shapes are
 # counted as it runs (fa.shape_counts) and held and timed after it
 # (kernels_main). Here the first shape of every route that no phase is
@@ -451,6 +460,10 @@ SHAPES = [
     ("gemma2b_f32_hd256", torch.float32, 1, 8, 1, 1024, 256, True),
     ("ragged_gqa2_bf16_hd256", torch.bfloat16, 1, 4, 2, 333, 256, True),
     ("noncausal_f32_hd256", torch.float32, 1, 2, 2, 77, 256, False),
+    ("noncausal_gqa2_bf16_hd256", torch.bfloat16, 1, 4, 2, 130, 256, False),
+    ("wide_f32_hd512", torch.float32, 1, 4, 2, 256, 512, True),
+    ("wide_bf16_hd512", torch.bfloat16, 1, 4, 1, 333, 512, True),
+    ("padded_f32_hd320", torch.float32, 1, 2, 2, 77, 320, False),
 ]
 # the (dtype, head dim) of each model the main path trains: every kernel
 # must launch at each of them (the 8B width and the resume size; moe-8x-top2;
@@ -621,10 +634,10 @@ def bounds(dtype, bh, bh_kv, s, hd, causal) -> dict:
 
 def check_variants(phase: str, variants: dict, dtype, hd: int) -> None:
     """Fails ``phase`` unless every launch in ``variants`` (a
-    ``fa.variant_counts()``) went to the variant ROUTES names for
+    ``fa.variant_counts()``) went to the variant ``fa.route`` names for
     (kernel, dtype, hd), and every kernel launched."""
     for kname, counts in variants.items():
-        want = fa.ROUTES[kname, dtype, hd]
+        want = fa.route(kname, dtype, hd)
         if any(n for v, n in counts.items() if v != want) or counts[want] == 0:
             fail(phase, f"{kname} at {dtype} hd {hd} must launch only {want}: {variants}")
 
@@ -679,46 +692,52 @@ def hold(phase: str, tag: str, dtype, bh: int, bh_kv: int, s: int, hd: int, caus
     bits twice); with ``timed``, CUDA-event times of the kernel, its plain
     version and the library call beside the bounds (``time_kernels``). The
     backward kernels take the plain forward's (O, lse), so each is held
-    against its plain version on identical inputs. Returns the shape's
-    JSON fields."""
-    variant = {kname: fa.ROUTES[kname, dtype, hd] for kname in kernels}
+    against its plain version on identical inputs. A head dim the kernels
+    do not take is zero-padded to ``fa.width(hd)`` with the scale of the
+    true head dim, as ``cuda_flash_attention`` pads it: the kernels and the
+    plain versions run on the padded inputs, and the bounds count the true
+    head dim's work. Returns the shape's JSON fields."""
+    width = fa.width(hd)
+    scale = None if width == hd else 1.0 / math.sqrt(hd)
+    variant = {kname: fa.route(kname, dtype, width) for kname in kernels}
     tol = {kname: TOL[dtype, v] for kname, v in variant.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        x = torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+        return torch.nn.functional.pad(x, (0, width - hd)) if width > hd else x
 
     q, do = rnd(bh, s, hd), rnd(bh, s, hd)
     k, v = rnd(bh_kv, s, hd), rnd(bh_kv, s, hd)
-    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
     delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
     checks = {}
     if "flash_fwd" in kernels:
-        o, lse = launch_twice(phase, f"{tag} B1", lambda: fa.flash_fwd(q, k, v, causal))
+        o, lse = launch_twice(phase, f"{tag} B1", lambda: fa.flash_fwd(q, k, v, causal, scale))
         checks["flash_fwd"] = [within(phase, f"{tag} O", o, o_ref, tol["flash_fwd"]),
                                within(phase, f"{tag} lse", lse, lse_ref,
                                       TOL[torch.float32, "tf32x3"])]
     if "flash_bwd_dq" in kernels:
         (dq,) = launch_twice(phase, f"{tag} B2", lambda: (
-            fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal),))
-        dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal)
+            fa.flash_bwd_dq(q, k, v, do, lse_ref, delta, causal, scale),))
+        dq_ref = fa.flash_bwd_dq_plain(q, k, v, do, lse_ref, delta, causal, scale)
         checks["flash_bwd_dq"] = [within(phase, f"{tag} dQ", dq, dq_ref, tol["flash_bwd_dq"])]
     if "flash_bwd_dkv" in kernels:
-        dk, dv = launch_twice(phase, f"{tag} B3",
-                              lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, delta, causal))
-        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal)
+        dk, dv = launch_twice(phase, f"{tag} B3", lambda: fa.flash_bwd_dkv(
+            q, k, v, do, lse_ref, delta, causal, scale))
+        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(q, k, v, do, lse_ref, delta, causal, scale)
         checks["flash_bwd_dkv"] = [
             within(phase, f"{tag} dK", dk, dk_ref, tol["flash_bwd_dkv"]),
             within(phase, f"{tag} dV", dv, dv_ref, tol["flash_bwd_dkv"])]
     errs = {kname: max(e for e, _ in c) for kname, c in checks.items()}
     out = {"dtype": str(dtype).removeprefix("torch."), "BH": bh, "BH_kv": bh_kv, "S": s,
-           "hd": hd, "causal": causal, "variant": variant, "max_abs_err": errs,
+           "hd": hd, "width": width, "causal": causal, "variant": variant, "max_abs_err": errs,
            "atol_of_max_needed": {kname: max(n for _, n in c) for kname, c in checks.items()},
            "tolerance": {kname: {"atol_of_max": tol[kname][0], "rtol": tol[kname][1],
                                  "reason": TOL_REASON[dtype, variant[kname]]}
                          for kname in errs}}
     if timed:
-        timing = time_kernels(q, k, v, do, lse_ref, delta, causal, kernels)
+        timing = time_kernels(q, k, v, do, lse_ref, delta, causal, kernels, scale)
         bnd = bounds(dtype, bh, bh_kv, s, hd, causal)
         out["timing"] = {}
         for kname in kernels:
@@ -745,7 +764,7 @@ def hold_padded(dtype, hd: int) -> dict:
     tolerance (the gradients on the kernel's own lse and delta, as autograd
     hands them over). Returns the line's fields."""
     b, s, h, hkv = 2, 200, 4, 2
-    width = next(d for d in fa.HEAD_DIMS if d >= hd)
+    width = fa.width(hd)
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, ct = (torch.randn(b, s, h, hd, generator=gen, device="cuda").to(dtype) for _ in range(2))
     k, v = (torch.randn(b, s, hkv, hd, generator=gen, device="cuda").to(dtype)
@@ -768,9 +787,10 @@ def hold_padded(dtype, hd: int) -> dict:
         fa.flash_fwd_plain(qf, kf, vf, True)[0],
         fa.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, True),
         *fa.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, True))))
-    variant = fa.ROUTES["flash_fwd", dtype, width]
+    variant = dict(zip(("O", "dQ", "dK", "dV"), (fa.route(kname, dtype, width) for kname in
+                                                 (*fa.KERNEL_NAMES, "flash_bwd_dkv"))))
     checks = {name: within("kernels", f"padded hd {hd} {name}", got[name], want[name],
-                           TOL[dtype, variant]) for name in got}
+                           TOL[dtype, variant[name]]) for name in got}
     torch.cuda.synchronize()
     return {"dtype": str(dtype).removeprefix("torch."), "hd": hd, "padded_to": width,
             "variant": variant, "max_abs_err": {n: e for n, (e, _) in checks.items()},
@@ -826,7 +846,7 @@ def phase_kernels() -> tuple[list[dict], list[dict]]:
     off_path, on_path = [], []
     for name, dtype, b, h, hkv, s, hd, causal in SHAPES:
         line = hold("kernels", name, dtype, b * h, b * hkv, s, hd, causal,
-                    timed=(dtype, hd) not in timed or hd == 256)
+                    timed=(dtype, hd) not in timed or hd >= 256)
         timed.add((dtype, hd))
         if name in ("gqa4_f32", "mha_f32_hd96") or hd == 256:
             line["sdpa_kernels"] = sdpa_kernels(dtype, b, h, hkv, s, hd, causal)
@@ -878,7 +898,7 @@ def phase_kernels_main(path: dict) -> list[dict]:
     return line
 
 
-def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
+def time_kernels(q, k, v, do, lse, delta, causal, kernels, scale=None) -> dict:
     """{kernel: ms, device_ms, plain_ms, library_ms, library_device_ms} at
     one shape: ``ms`` (cuda_ms) is what a caller sees of calls back to
     back, ``device_ms`` the device's time alone (a CUDA graph of the same
@@ -888,14 +908,14 @@ def time_kernels(q, k, v, do, lse, delta, causal, kernels) -> dict:
     for B2 and B3; its graph captures the backward of a forward run on the
     graph's stream."""
     calls = {
-        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
-                      lambda: fa.flash_fwd_plain(q, k, v, causal)),
-        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal),
-                         lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal)),
-        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal),
-                          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)),
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
+                      lambda: fa.flash_fwd_plain(q, k, v, causal, scale)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+                         lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+                          lambda: fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)),
     }
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa = functools.partial(torch.nn.functional.scaled_dot_product_attention, scale=scale)
     (bh, s, hd), bh_kv = q.shape, k.shape[0]
     ql = q.view(bh_kv, bh // bh_kv, s, hd).detach().requires_grad_(True)
     kl = k.view(bh_kv, 1, s, hd).detach().requires_grad_(True)
@@ -1254,8 +1274,9 @@ def phase_train_hd256(smi: str) -> None:
     """train() at Gemma-2B's widths (GEMMA2B_WIDTH, depth cut to 2 of 18
     layers; weights and tokens from seed 0), bf16 compute over float32
     masters, flash attention: W 2 workers x b 2 sequences x S 2048, H 2, 2
-    rounds. Every B1, B2 and B3 launch must be at (bf16, hd 256) on tf32x3,
-    the losses finite and every outer step must move the snapshot."""
+    rounds. Every B1, B2 and B3 launch must be at (bf16, hd 256), B1 on
+    tf32x3 and B2 and B3 on wgmma, the losses finite and every outer step
+    must move the snapshot."""
     cfg = TrainConfig(
         seed=0, batch_size=2, per_device_batch_size=2, seq_length=2048,
         warmup_steps=1, total_steps=4, inner_steps=2, num_workers=2,

@@ -1,6 +1,7 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1), dQ
-// (B2) and dK/dV (B3) at head dims 128, 96, 80, 64 and 32. The float32 path
-// and bf16 at hd 16 run the three-product TF32 kernels of
+// (B2) and dK/dV (B3) at head dims 128, 96, 80, 64 and 32, and B2 and B3 at
+// 256. The float32 path, bf16 at hd 16, B1 at bf16 hd 256 and every head dim
+// above 256 run the three-product TF32 kernels of
 // flash_attention_tf32_{fwd,dq,dkv}.cu;
 // ops/cuda/flash_attention.py holds the route table that picks one kernel per
 // (kernel, dtype, head dim).
@@ -116,6 +117,43 @@
 //       spills. Two CTAs an SM left ptxas 96 registers: it spilled 340 bytes
 //       (70 LDL, 53 STL in the SASS) and serialized the wgmma (C7512), so one
 //       CTA an SM stays here too.
+//   B2 and B3 at HD 256 (Gemma's head dim). A row is four 128-byte boxes
+//       (Tile<256>); the first products take 16 k-slices, stepped across the
+//       boxes by kslice(); the second products are m64n256k16 (B2, RS, K
+//       MN-major across the four boxes by LBO) and m64n128k16 (B3).
+//       B3: dK and dV of 256 columns would take 256 accumulator registers a
+//       thread of one warpgroup. Two CTAs share each (KV head, 64-key tile)
+//       (Dkv::kParts) and own 128 columns each (kOutN): each computes S^T
+//       and dP^T over all 256 columns itself (1.5x B3's products), and its
+//       second products read its half of the MN-major Q and dO tiles, from
+//       box 2 for the second half. That is the hd-128 kernel's register
+//       shape: ptxas 248 registers, no spills, no C7512; K, V and two
+//       (Q, dO) stages take 193 KB. The other design, two consumer
+//       warpgroups of one CTA each owning a column half and sharing P^T
+//       and dS^T through shared memory under named barriers, halves the
+//       recomputation but needs a barrier protocol the kernels do not have
+//       yet; it was not built. Under the causal mask the first key tiles
+//       carry 32x the pairs of the last, and at Gemma-2B's grid (2 KV heads
+//       x 32 key tiles x 2 halves, 128 CTAs on 132 SMs) the first tile alone
+//       would set the time: a grid under one wave splits its pairs across
+//       `splits` CTAs (grid z, flash_attention.py's bwd_splits), whose
+//       float32 partials the second pass of hopper.cuh (sum_parts) adds in
+//       a fixed order, as the tf32x3 kernels do: still no atomics.
+//       B2: Q and dO resident for two warpgroups (128 rows) and two stages
+//       of 64-key K and V tiles would take 256 KB at hd 256. One consumer
+//       warpgroup a CTA (Dq::kWgs: 64 q rows, 160 threads) keeps the 64-key
+//       tiles and both stages in 193 KB and doubles the CTAs (512 at
+//       Gemma-2B's shape). A thread holds dQ (128 registers), S and dP (32
+//       each) and packed dS (16): ptxas 221 registers, no spills, no C7512.
+//       Timed A/B of the alternatives, each against this design in one
+//       call of scripts/torch_flash_ab.py on one H100 (device_ms medians of
+//       two turns each; PERF.md section 6): B2 with two consumer warpgroups
+//       and one K/V stage (192 KB; 288 threads leave ptxas 168 registers:
+//       it spilled 420 bytes and serialized the wgmma, C7512) ran 1.74x
+//       and 1.73x slower at Gemma-2B's shape and train_hd256's (B 4). B3
+//       unsplit ran 1.42x slower at Gemma-2B's shape (128 CTAs) and 3%
+//       faster at train_hd256's (256 CTAs: split in two, the second pass
+//       cost more than the balance gained), hence the one-wave condition.
 // P (B1) and P and dS (B3, B2) are rounded to bf16 as the left operand of the
 // last product, as every tensor-core flash attention does; the plain versions
 // keep them in float32, so the tolerance against them is wider than one
@@ -343,27 +381,30 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
 // ---------------------------------------------------------------------------
 // B2: dQ. grid (BH, n q tiles), blockIdx.y reversed as in B1. Threads 0-255
-// are the two consumer warpgroups, 256-287 the producer warp.
+// are the two consumer warpgroups (at hd 256 the one, 0-127), then the
+// producer warp.
 // ---------------------------------------------------------------------------
-constexpr int kDqRows = 128;                          // q rows per CTA
 constexpr int kDqKeys = 64;                           // keys per K/V tile
-constexpr int kDqThreads = 288;
-constexpr int kDqStages = 2;
 
 template <int HD>
 struct Dq {
   using T = Tile<HD>;
-  static constexpr uint32_t kRowTile = T::bytes(kDqRows);  // Q or dO: 32 KB at hd 128
+  // consumer warpgroups of 64 q rows: two, one at hd 256 (the source note)
+  static constexpr int kWgs = HD == 256 ? 1 : 2;
+  static constexpr int kRows = 64 * kWgs;                // q rows per CTA
+  static constexpr int kThreads = 128 * kWgs + 32;       // + the producer warp
+  static constexpr int kStages = 2;                      // the K/V ring
+  static constexpr uint32_t kRowTile = T::bytes(kRows);  // Q or dO: 32 KB at hd 128
   static constexpr uint32_t kKeyTile = T::bytes(kDqKeys);  // K or V: 16 KB at hd 128
   static constexpr uint32_t kQ = 0;
   static constexpr uint32_t kDo = kRowTile;
   static constexpr uint32_t kKv = 2 * kRowTile;  // stage s: K at + 2 s key tiles, V after it
-  static constexpr uint32_t kBars = kKv + kDqStages * 2 * kKeyTile;
+  static constexpr uint32_t kBars = kKv + kStages * 2 * kKeyTile;
   static constexpr size_t kSmem = 1024 + kBars + 64;
 };
 
 template <int HD>
-__global__ void __launch_bounds__(kDqThreads, 1)
+__global__ void __launch_bounds__(Dq<HD>::kThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap q_map,
                            const __grid_constant__ CUtensorMap k_map,
                            const __grid_constant__ CUtensorMap v_map,
@@ -378,40 +419,40 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   const uint32_t sQ = base + L::kQ, sdO = base + L::kDo;
   const uint32_t bars = base + L::kBars;
   const uint32_t qdo_full = bars;
-  // stage s: full at bars + 8 + 8 s, empty at bars + 8 + 8 (kDqStages + s)
+  // stage s: full at bars + 8 + 8 s, empty at bars + 8 + 8 (kStages + s)
   auto full = [&](int s) { return bars + 8 + 8 * s; };
-  auto empty = [&](int s) { return bars + 8 + 8 * (kDqStages + s); };
+  auto empty = [&](int s) { return bars + 8 + 8 * (L::kStages + s); };
   auto tile_k = [&](int s) { return base + L::kKv + 2 * L::kKeyTile * s; };
   auto tile_v = [&](int s) { return base + L::kKv + 2 * L::kKeyTile * s + L::kKeyTile; };
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * L::kRows;
   const int nk = (sk + kDqKeys - 1) / kDqKeys;
-  const int last_q = min(q0 + kDqRows, sq) - 1;
+  const int last_q = min(q0 + L::kRows, sq) - 1;
   const int n_kt = causal ? min(nk, last_q / kDqKeys + 1) : nk;
 
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
-    for (int s = 0; s < kDqStages; ++s) {
+    for (int s = 0; s < L::kStages; ++s) {
       mbar_init(full(s), 1);
-      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+      mbar_init(empty(s), 4 * L::kWgs);  // lane 0 of each consumer warp
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (threadIdx.x >= 256) {
+  if (threadIdx.x >= 128 * L::kWgs) {
     // ---- producer warp: one thread issues every TMA load ----
-    if (threadIdx.x == 256) {
+    if (threadIdx.x == 128 * L::kWgs) {
       const int bkv = bh / group;
       mbar_arrive_expect_tx(qdo_full, 2 * L::kRowTile);
       for (int b = 0; b < T::kBoxes; ++b) {
-        tma_load_3d(sQ + b * T::box(kDqRows), &q_map, qdo_full, T::kCols * b, q0, bh);
-        tma_load_3d(sdO + b * T::box(kDqRows), &do_map, qdo_full, T::kCols * b, q0, bh);
+        tma_load_3d(sQ + b * T::box(L::kRows), &q_map, qdo_full, T::kCols * b, q0, bh);
+        tma_load_3d(sdO + b * T::box(L::kRows), &do_map, qdo_full, T::kCols * b, q0, bh);
       }
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kDqStages;
-        mbar_wait(empty(s), ((kt / kDqStages) & 1) ^ 1);
+        const int s = kt % L::kStages;
+        mbar_wait(empty(s), ((kt / L::kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(full(s), 2 * L::kKeyTile);
         for (int b = 0; b < T::kBoxes; ++b) {
           tma_load_3d(tile_k(s) + b * T::box(kDqKeys), &k_map, full(s), T::kCols * b,
@@ -453,8 +494,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
 
     mbar_wait(qdo_full, 0);
     for (int kt = 0; kt < n_kt_wg; ++kt) {
-      const int s = kt % kDqStages;
-      mbar_wait(full(s), (kt / kDqStages) & 1);
+      const int s = kt % L::kStages;
+      mbar_wait(full(s), (kt / L::kStages) & 1);
 
       float sc[kDqKeys / 2], dp[kDqKeys / 2];
 #pragma unroll
@@ -462,11 +503,11 @@ __global__ void __launch_bounds__(kDqThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n64k16_ss(sc, T::kmajor(qa + T::kslice(kk, kDqRows)),
+        wgmma_m64n64k16_ss(sc, T::kmajor(qa + T::kslice(kk, L::kRows)),
                            T::kmajor(tile_k(s) + T::kslice(kk, kDqKeys)), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_m64n64k16_ss(dp, T::kmajor(doa + T::kslice(kk, kDqRows)),
+        wgmma_m64n64k16_ss(dp, T::kmajor(doa + T::kslice(kk, L::kRows)),
                            T::kmajor(tile_v(s) + T::kslice(kk, kDqKeys)), kk > 0);
       wgmma_commit();
       wgmma_wait_all();
@@ -537,9 +578,14 @@ struct Dkv {
   static constexpr uint32_t kRows = 6 * kTile;        // stage s: lse at + 512 s, delta + 256
   static constexpr uint32_t kBars = kRows + 1024;
   static constexpr size_t kSmem = 1024 + kBars + 64;
-  // two CTAs an SM at hd 64 and 32; one at hd 128, 96 and 80, where a cap
-  // of two (168 registers) spilled and serialized the wgmma (the source note)
+  // two CTAs an SM at hd 64 and 32; one from hd 80, where a cap of two (168
+  // registers) spilled and serialized the wgmma (the source note)
   static constexpr int kMinBlocks = HD >= 80 ? 1 : 2;
+  // dK and dV columns a CTA owns: every column, 128 at hd 256, where the
+  // CTAs of one key tile split them (kParts, the source note)
+  static constexpr int kOutN = HD == 256 ? 128 : T::kN;
+  static constexpr int kParts = T::kN / kOutN;
+  static constexpr int kStoreCols = kParts > 1 ? kOutN : HD;  // at hd 80: HD of kN
 };
 
 template <int HD>
@@ -550,7 +596,8 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
                             const __grid_constant__ CUtensorMap do_map,
                             const float* __restrict__ lse, const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                            int group, int sq, int sk, int causal, float scale) {
+                            float* __restrict__ ws, int group, int sq, int sk, int causal,
+                            float scale, int splits) {
   using T = Tile<HD>;
   using L = Dkv<HD>;
   extern __shared__ uint8_t smem_raw[];
@@ -569,14 +616,21 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
     return reinterpret_cast<float*>(gbase + L::kRows + 512 * s + 256);
   };
 
-  const int bkv = blockIdx.x;
+  const int bkv = blockIdx.x / L::kParts;
+  const int part = blockIdx.x % L::kParts;  // this CTA's kOutN columns of dK and dV
   const int k0 = blockIdx.y * kDkvKeys;
   const int nq = (sq + kDkvQ - 1) / kDkvQ;
   // q tiles wholly above the diagonal (every query before this tile's first
   // key) contribute nothing under the causal mask
   const int qt_start = causal ? min(k0 / kDkvQ, nq) : 0;
   const int per_head = nq - qt_start;
-  const int n_it = group * per_head;
+  // this CTA's pairs [it0, it1): all of them, or at hd 256 part z of
+  // `splits` (grid z), whose float32 partials sum_parts adds in order
+  int it0 = 0, it1 = group * per_head;
+  if constexpr (L::kParts > 1) {
+    it0 = static_cast<int>(static_cast<long long>(blockIdx.z) * it1 / splits);
+    it1 = static_cast<int>(static_cast<long long>(blockIdx.z + 1) * it1 / splits);
+  }
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
@@ -598,11 +652,11 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
         tma_load_3d(sV + b * T::box(kDkvKeys), &v_map, kv_full, T::kCols * b, k0, bkv);
       }
     }
-    for (int it = 0; it < n_it; ++it) {
-      const int s = it & 1;
+    for (int it = it0; it < it1; ++it) {
+      const int s = (it - it0) & 1;
       const int bh = bkv * group + it / per_head;
       const int q0 = (qt_start + it % per_head) * kDkvQ;
-      mbar_wait(empty(s), ((it >> 1) & 1) ^ 1);
+      mbar_wait(empty(s), (((it - it0) >> 1) & 1) ^ 1);
       float* lse_s = rows_lse(s);
       float* delta_s = rows_delta(s);
       for (int col = lane; col < kDkvQ; col += 32) {
@@ -629,15 +683,18 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
     const int key_lo = k0 + 16 * warp + (lane >> 2);  // and key_lo + 8
     const float c = scale * kLog2e;
 
-    float dk_acc[T::kN / 2], dv_acc[T::kN / 2];
+    float dk_acc[L::kOutN / 2], dv_acc[L::kOutN / 2];
 #pragma unroll
-    for (int i = 0; i < T::kN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    for (int i = 0; i < L::kOutN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    // the part's columns of the MN-major Q and dO tiles start at box
+    // part x kOutN / kCols
+    const uint32_t cols = part * (L::kOutN / T::kCols) * T::box(kDkvQ);
 
     mbar_wait(kv_full, 0);
-    for (int it = 0; it < n_it; ++it) {
-      const int s = it & 1;
+    for (int it = it0; it < it1; ++it) {
+      const int s = (it - it0) & 1;
       const int q0 = (qt_start + it % per_head) * kDkvQ;
-      mbar_wait(full(s), (it >> 1) & 1);
+      mbar_wait(full(s), ((it - it0) >> 1) & 1);
 
       float st[32], dpt[32];
 #pragma unroll
@@ -680,12 +737,12 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDkvQ / 16; ++kk)
-        wgmma_rs_tb<T::kN>(dv_acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
-                           T::mnmajor(tile_do(s), kk, kDkvQ), 1);
+        wgmma_rs_tb<L::kOutN>(dv_acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2],
+                              pf[4 * kk + 3], T::mnmajor(tile_do(s) + cols, kk, kDkvQ), 1);
 #pragma unroll
       for (int kk = 0; kk < kDkvQ / 16; ++kk)
-        wgmma_rs_tb<T::kN>(dk_acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2], dsf[4 * kk + 3],
-                           T::mnmajor(tile_q(s), kk, kDkvQ), 1);
+        wgmma_rs_tb<L::kOutN>(dk_acc, dsf[4 * kk], dsf[4 * kk + 1], dsf[4 * kk + 2],
+                              dsf[4 * kk + 3], T::mnmajor(tile_q(s) + cols, kk, kDkvQ), 1);
       wgmma_commit();
       wgmma_wait_all();
       fence_regs(dv_acc);
@@ -696,15 +753,34 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
       if (lane == 0) mbar_arrive(empty(s));
     }
 
+    if constexpr (L::kParts > 1) {
+      if (splits > 1) {  // this part's float32 partials: ws [splits, 2, BH / group, Sk, HD]
+        const size_t n = static_cast<size_t>(gridDim.x / L::kParts) * sk * HD;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = key_lo + 8 * h;
+          if (key >= sk) continue;
+          float* wk = ws + 2 * n * blockIdx.z + (static_cast<size_t>(bkv) * sk + key) * HD +
+                      part * L::kOutN + 2 * (lane & 3);
+#pragma unroll
+          for (int j = 0; j < L::kOutN / 8; ++j) {
+            const int i = 4 * j + 2 * h;
+            *reinterpret_cast<float2*>(wk + 8 * j) = make_float2(dk_acc[i], dk_acc[i + 1]);
+            *reinterpret_cast<float2*>(wk + n + 8 * j) = make_float2(dv_acc[i], dv_acc[i + 1]);
+          }
+        }
+        return;
+      }
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int key = key_lo + 8 * h;
       if (key >= sk) continue;
-      const size_t off = (static_cast<size_t>(bkv) * sk + key) * HD;
+      const size_t off = (static_cast<size_t>(bkv) * sk + key) * HD + part * L::kOutN;
       uint32_t* dk_row = reinterpret_cast<uint32_t*>(dk + off);
       uint32_t* dv_row = reinterpret_cast<uint32_t*>(dv + off);
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j) {
+      for (int j = 0; j < L::kStoreCols / 8; ++j) {
         const int i = 4 * j + 2 * h;
         dk_row[4 * j + (lane & 3)] = pack_bf16(dk_acc[i] * scale, dk_acc[i + 1] * scale);
         dv_row[4 * j + (lane & 3)] = pack_bf16(dv_acc[i], dv_acc[i + 1]);
@@ -715,6 +791,7 @@ __global__ void __launch_bounds__(kDkvThreads, Dkv<HD>::kMinBlocks)
 
 constexpr int kErrHeadDim = -1;
 constexpr int kErrTensorMap = -2;
+constexpr int kErrSplit = -3;
 
 template <int HD>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
@@ -740,28 +817,32 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout, 
                  const float* delta, void* dq, int bh, int group, int sq, int sk, int causal,
                  float scale, cudaStream_t stream) {
   using T = Tile<HD>;
+  using L = Dq<HD>;
   CUtensorMap qm, km, vm, dom;
-  if (!bf16_rows_map(&qm, q, bh, sq, kDqRows, HD, T::kCols) ||
+  if (!bf16_rows_map(&qm, q, bh, sq, L::kRows, HD, T::kCols) ||
       !bf16_rows_map(&km, k, bh / group, sk, kDqKeys, HD, T::kCols) ||
       !bf16_rows_map(&vm, v, bh / group, sk, kDqKeys, HD, T::kCols) ||
-      !bf16_rows_map(&dom, dout, bh, sq, kDqRows, HD, T::kCols))
+      !bf16_rows_map(&dom, dout, bh, sq, L::kRows, HD, T::kCols))
     return kErrTensorMap;
-  constexpr size_t smem = Dq<HD>::kSmem;
+  constexpr size_t smem = L::kSmem;
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh, (sq + kDqRows - 1) / kDqRows);
-  flash_bwd_dq_tc_kernel<HD><<<grid, kDqThreads, smem, stream>>>(
+  const dim3 grid(bh, (sq + L::kRows - 1) / L::kRows);
+  flash_bwd_dq_tc_kernel<HD><<<grid, L::kThreads, smem, stream>>>(
       qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dq), group, sq, sk, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
-                  const float* lse, const float* delta, void* dk, void* dv, int bh, int group,
-                  int sq, int sk, int causal, float scale, cudaStream_t stream) {
+                  const float* lse, const float* delta, void* dk, void* dv, void* ws, int bh,
+                  int group, int sq, int sk, int causal, float scale, int splits,
+                  cudaStream_t stream) {
   using T = Tile<HD>;
+  if (splits < 1 || splits > 65535 || (splits > 1 && (Dkv<HD>::kParts == 1 || ws == nullptr)))
+    return kErrSplit;
   CUtensorMap qm, km, vm, dom;
   if (!bf16_rows_map(&qm, q, bh, sq, kDkvQ, HD, T::kCols) ||
       !bf16_rows_map(&km, k, bh / group, sk, kDkvKeys, HD, T::kCols) ||
@@ -773,11 +854,16 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dout,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(bh / group, (sk + kDkvKeys - 1) / kDkvKeys);
+  const dim3 grid(bh / group * Dkv<HD>::kParts, (sk + kDkvKeys - 1) / kDkvKeys, splits);
+  __nv_bfloat16* dk16 = static_cast<__nv_bfloat16*>(dk);
+  __nv_bfloat16* dv16 = static_cast<__nv_bfloat16*>(dv);
+  float* wsf = static_cast<float*>(ws);
   flash_bwd_dkv_tc_kernel<HD><<<grid, kDkvThreads, smem, stream>>>(
-      qm, km, vm, dom, lse, delta, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
-      group, sq, sk, causal, scale);
-  return static_cast<int>(cudaGetLastError());
+      qm, km, vm, dom, lse, delta, dk16, dv16, wsf, group, sq, sk, causal, scale, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  return sum_parts(wsf, splits, static_cast<size_t>(bh / group) * sk * HD, 2, dk16, scale, dv16,
+                   1.f, stream);
 }
 
 }  // namespace
@@ -786,9 +872,11 @@ extern "C" {
 
 const char* nd_tc_error_string(int code) {
   if (code == kErrHeadDim)
-    return "the tensor-core kernels take head dims 32, 64, 80, 96 and 128";
+    return "the tensor-core kernels take head dims 32, 64, 80, 96 and 128 (B2 and B3 also 256)";
   if (code == kErrTensorMap)
     return "cuTensorMapEncodeTiled refused a tensor (alignment, strides or driver)";
+  if (code == kErrSplit)
+    return "split count out of [1, 65535], or a split launch without a workspace or below hd 256";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
@@ -809,6 +897,8 @@ int nd_flash_bwd_dq_tc(int hd, const void* q, const void* k, const void* v, cons
                        const float* lse, const float* delta, void* dq, int bh, int group, int sq,
                        int sk, int causal, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 256)
+    return launch_dq_tc<256>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
   if (hd == 128)
     return launch_dq_tc<128>(q, k, v, dout, lse, delta, dq, bh, group, sq, sk, causal, scale, st);
   if (hd == 96)
@@ -822,25 +912,31 @@ int nd_flash_bwd_dq_tc(int hd, const void* q, const void* k, const void* v, cons
   return kErrHeadDim;
 }
 
+// ws: float32 [splits, 2, BH / group, Sk, 256] when splits > 1 (hd 256 only:
+// dK's and dV's partials), else unused (may be null)
 int nd_flash_bwd_dkv_tc(int hd, const void* q, const void* k, const void* v, const void* dout,
-                        const float* lse, const float* delta, void* dk, void* dv, int bh,
-                        int group, int sq, int sk, int causal, float scale, void* stream) {
+                        const float* lse, const float* delta, void* dk, void* dv, void* ws,
+                        int bh, int group, int sq, int sk, int causal, float scale, int splits,
+                        void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 256)
+    return launch_dkv_tc<256>(q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+                              scale, splits, st);
   if (hd == 128)
-    return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
-                              scale, st);
+    return launch_dkv_tc<128>(q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+                              scale, splits, st);
   if (hd == 96)
-    return launch_dkv_tc<96>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
-                             scale, st);
+    return launch_dkv_tc<96>(q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+                             scale, splits, st);
   if (hd == 80)
-    return launch_dkv_tc<80>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
-                             scale, st);
+    return launch_dkv_tc<80>(q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+                             scale, splits, st);
   if (hd == 64)
-    return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
-                             scale, st);
+    return launch_dkv_tc<64>(q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+                             scale, splits, st);
   if (hd == 32)
-    return launch_dkv_tc<32>(q, k, v, dout, lse, delta, dk, dv, bh, group, sq, sk, causal,
-                             scale, st);
+    return launch_dkv_tc<32>(q, k, v, dout, lse, delta, dk, dv, ws, bh, group, sq, sk, causal,
+                             scale, splits, st);
   return kErrHeadDim;
 }
 

@@ -1,7 +1,8 @@
 // Flash attention on Hopper (sm_90a) as three-product TF32 ("3xTF32") on the
 // tensor cores: the forward (B1), dQ (B2) and dK/dV (B3) for float32 at every
-// head dim, and for bf16 at hd 16 (bf16 above hd 16 runs the wgmma kernels of
-// flash_attention_tc.cu; ops/cuda/flash_attention.py's route table picks one
+// head dim, for bf16 at hd 16, B1 for bf16 at hd 256, and both dtypes at hd
+// 256 n above 256 (bf16 at hd 32-256 otherwise runs the wgmma kernels of
+// flash_attention_tc.cu; ops/cuda/flash_attention.py's route() picks one
 // kernel per (kernel, dtype, head dim)). This header holds what the three
 // share; each kernel has a source of its own, so that nvcc builds them in
 // parallel.
@@ -13,7 +14,8 @@
 // Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, HD]; k, v, dK, dV
 // [BH / group, Sk, HD] (GQA: query head bh reads KV head bh / group, K/V are
 // never expanded); lse and delta [BH, Sq] float32. Head dims 16, 32, 64, 80,
-// 96, 128 and 256 in float32, 16 and 256 in bf16.
+// 96, 128 and 256 in float32, 16 in bf16 (B1 also 256), and every multiple
+// of 256 above 256 in both.
 //
 // Bound on the H100. B1 does 2, B2 3 and B3 4 S x S x HD products per head on
 // O(S x HD) bytes: operations bound all three. The CUDA cores' float32 peak
@@ -39,8 +41,8 @@
 // are widened to float32 once, where float32 tiles are split (at hd 256 they
 // stay bf16 and are widened as read, below); dQ, dK, dV and O are rounded to
 // bf16 as they are stored. The bf16 instances serve hd 16, which wgmma's
-// m64nNk16 tiles do not take, and hd 256, which the wgmma kernels' tiles do
-// not reach.
+// m64nNk16 tiles do not take, B1 at hd 256, which the wgmma forward's tiles
+// do not reach, and the head dims above 256.
 //
 // Design. 128 threads, four warps of 16 rows of a 64-row tile. Every tile
 // lies row-major in shared memory with a row stride of HD + 4 floats
@@ -114,7 +116,34 @@
 //     B3's loop as it is at every other head dim, and every output element
 //     is still summed by one thread in one fixed order.
 // B1's and B2's O and dQ accumulators are 16 x 256 floats a warp, 128
-// registers a thread. Above 256 a head dim raises in the dispatcher.
+// registers a thread.
+//
+// Above hd 256 (hd = 256 n; the dispatcher pads any other head dim up to
+// one) nothing above fits: at hd 512 a 64-row float32 tile is 132 KB, B3
+// cannot keep its K and V tiles, and an accumulator of 256 columns is
+// already 128 registers a thread. The *_wide_tf32_kernel<T> of each source
+// reuse the hd-256 tiles, fragments and products (Layout<T, 256>):
+//   - the first products (S = Q K^T and dP = dO V^T; B3's S^T and dP^T) run
+//     over the head dim in n slices of 256 columns, each loaded (row stride
+//     hd) into tiles no larger than the hd-256 kernel's and summed into the
+//     same registers, as a GEMM's k-loop does;
+//   - the second products write one part of the output columns a CTA: 256
+//     in B1 and B2, 128 in B3, as at 256 (grid x = head x parts). So B1 and
+//     B2 take n passes over S and B3 2n;
+//   - B1 sums the slices in order 0 .. n-1 in every part, so S, m, l and lse
+//     are the same bits in each, and part 0 stores lse. B2 and B3 start after
+//     the slice that holds their part's columns and end with it, so that the
+//     tile the second product reads (B2: K; B3: Q and dO) is still in
+//     shared memory; each output element is still one thread's sum in one
+//     fixed order;
+//   - one buffer of each tile, each load waited for before the products:
+//     B1 133 KB in float32 (the q slice, a K slice, the part's V columns),
+//     B2 and B3 200 KB (as at 256; B3 reads K and V again for every pair);
+//   - the backward's loop split (bwd_splits) and its second pass stay.
+// ptxas: B1 239 registers (float32) and 255 with 28 bytes spilled (bf16: 9
+// LDL, 5 STL; the state of the slice loop on top of the hd-256 kernel's 252),
+// B2 254 / 244, B3 254 / 255, no C7512. No model has these head dims: they
+// are exact, not fast (PERF.md has their times beside their bounds).
 
 #pragma once
 
@@ -137,6 +166,7 @@ using hopper::cp_async_wait;
 using hopper::mma_split;
 using hopper::smem_addr;
 using hopper::split_tf32;
+using hopper::sum_parts;
 using bf16 = __nv_bfloat16;
 
 // rows of a stationary tile (B1, B2: the q tile; B3: the key tile), and of
@@ -189,11 +219,13 @@ struct Tile {
   float* raw;
 };
 
-// Rows [row0, row0 + ROWS) of a row-major [n_rows, HD] matrix into a tile's
-// raw copy by cp.async, 16 bytes a copy; rows at or past n_rows are zeros.
+// Rows [row0, row0 + ROWS) of a row-major [n_rows, HD] matrix (HD columns at
+// `src`, row stride `ld`: above hd 256 one slice of a wider row) into a
+// tile's raw copy by cp.async, 16 bytes a copy; rows at or past n_rows are
+// zeros.
 template <typename T, int HD, int ROWS = kTile>
 __device__ __forceinline__ void load_tile(float* raw, const T* __restrict__ src, int row0,
-                                          int n_rows) {
+                                          int n_rows, int ld = HD) {
   using L = Layout<T, HD>;
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kPerRow = HD / kVec;
@@ -204,7 +236,7 @@ __device__ __forceinline__ void load_tile(float* raw, const T* __restrict__ src,
     const int r = c / kPerRow;
     const int col = (c % kPerRow) * kVec;
     const bool in = row0 + r < n_rows;
-    const T* p = src + static_cast<size_t>(in ? row0 + r : 0) * HD + col;
+    const T* p = src + static_cast<size_t>(in ? row0 + r : 0) * ld + col;
     cp_async16(smem_addr(dst + r * kRawLd + col), p, in ? 16 : 0);
   }
 }
@@ -341,6 +373,47 @@ __device__ __forceinline__ void acc_frag(const float (&c)[4], uint32_t (&a_hi)[4
   split_tf32(c[3], a_hi[3], a_lo[3]);
 }
 
+// acc[j] += A X^T for this warp's rows [r0, r0 + 16) of a stationary tile A
+// and the kN n-tiles of 8 rows of a streamed tile X, over the HD columns
+// both hold (S = Q K^T and dP = dO V^T; B3's S^T = K Q^T and dP^T = V dO^T).
+// kInfSafe as in a_frag.
+template <typename T, int HD, int kN, bool kInfSafe = false>
+__device__ __forceinline__ void product_abt(float (&acc)[kN][4], Tile a, int r0, Tile x) {
+  using L = Layout<T, HD>;
+  constexpr bool E = L::kExact;
+#pragma unroll(L::kUnroll)
+  for (int kk = 0; kk < L::kSteps; ++kk) {
+    uint32_t a_hi[4], a_lo[4];
+    a_frag<T, HD, kInfSafe>(a, r0, kk, a_hi, a_lo);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      uint32_t b_hi[2], b_lo[2];
+      bt_frag<T, HD>(x, 8 * j, kk, b_hi, b_lo);
+      mma_split<!E, !E>(acc[j], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
+// acc[n8] += P X for an accumulator tile P of kN k-steps of 8 (split as the
+// A fragment: both parts) and NC columns [c0, c0 + NC) of a streamed tile
+// X's kN x 8 rows (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q).
+template <typename T, int HD, int kN, int NC>
+__device__ __forceinline__ void product_pb(float (&acc)[NC / 8][4], const float (&p)[kN][4],
+                                           Tile x, int c0) {
+  constexpr bool E = Layout<T, HD>::kExact;
+#pragma unroll
+  for (int kq = 0; kq < kN; ++kq) {
+    uint32_t a_hi[4], a_lo[4];
+    acc_frag(p[kq], a_hi, a_lo);
+#pragma unroll
+    for (int n8 = 0; n8 < NC / 8; ++n8) {
+      uint32_t b_hi[2], b_lo[2];
+      b_frag<T, HD>(x, 8 * kq, c0 + 8 * n8, b_hi, b_lo);
+      mma_split<true, !E>(acc[n8], a_hi, a_lo, b_hi, b_lo);
+    }
+  }
+}
+
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -349,17 +422,17 @@ __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
 }
 
 // acc[n][*] (rows r0 + g, r0 + g + 8 and NC columns of a [rows, HD] matrix
-// at `out`, row stride HD) times `scale`, stored as pairs; rows at or past
-// n_rows are not stored.
+// at `out`, row stride `ld`: HD, or above hd 256 the full head dim) times
+// `scale`, stored as pairs; rows at or past n_rows are not stored.
 template <typename OutT, int HD, int NC = HD>
 __device__ __forceinline__ void store_rows(OutT* out, const float (&acc)[NC / 8][4], int r0,
-                                           int n_rows, float scale) {
+                                           int n_rows, float scale, int ld = HD) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + (lane >> 2) + 8 * h;
     if (row >= n_rows) continue;
-    OutT* p = out + static_cast<size_t>(row) * HD + 2 * (lane & 3);
+    OutT* p = out + static_cast<size_t>(row) * ld + 2 * (lane & 3);
 #pragma unroll
     for (int n = 0; n < NC / 8; ++n)
       store_pair(p + 8 * n, acc[n][2 * h] * scale, acc[n][2 * h + 1] * scale);
@@ -380,11 +453,12 @@ __device__ __noinline__ void store_zero_rows(OutT* out, int r0, int n_rows) {
 // workspace (the launcher passes whichever it is, and the scale).
 template <typename T, int HD, int NC = HD>
 __device__ __forceinline__ void store_out(void* out, size_t off, const float (&acc)[NC / 8][4],
-                                          int r0, int n_rows, float scale, int splits) {
+                                          int r0, int n_rows, float scale, int splits,
+                                          int ld = HD) {
   if (std::is_same<T, float>::value || splits > 1)
-    store_rows<float, HD, NC>(static_cast<float*>(out) + off, acc, r0, n_rows, scale);
+    store_rows<float, HD, NC>(static_cast<float*>(out) + off, acc, r0, n_rows, scale, ld);
   else
-    store_rows<T, HD, NC>(static_cast<T*>(out) + off, acc, r0, n_rows, scale);
+    store_rows<T, HD, NC>(static_cast<T*>(out) + off, acc, r0, n_rows, scale, ld);
 }
 
 template <typename T, int HD, int NC = HD>
@@ -396,52 +470,6 @@ __device__ __forceinline__ void store_zero_out(void* out, size_t off, int r0, in
     store_zero_rows<T, HD, NC>(static_cast<T*>(out) + off, r0, n_rows);
 }
 
-// ---------------------------------------------------------------------------
-// The second pass of a split backward launch: out_o[j] = scale_o * sum over
-// parts p in order 0, 1, ... of ws[p][o][j], for outputs o < outs (1 or 2),
-// in float4s, so two launches give the same bits.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void store4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-__device__ __forceinline__ void store4(bf16* p, float4 x) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(x.x, x.y);
-  q[1] = __floats2bfloat162_rn(x.z, x.w);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-    sum_parts_kernel(const float4* __restrict__ ws, int splits, size_t n4, int outs,
-                     T* __restrict__ out0, float scale0, T* __restrict__ out1, float scale1) {
-  const size_t total = n4 * outs;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const int o = i >= n4;
-    const size_t j = i - o * n4;
-    float4 acc = ws[o * n4 + j];
-    for (int p = 1; p < splits; ++p) {
-      const float4 x = ws[(static_cast<size_t>(p) * outs + o) * n4 + j];
-      acc.x += x.x;
-      acc.y += x.y;
-      acc.z += x.z;
-      acc.w += x.w;
-    }
-    const float s = o ? scale1 : scale0;
-    store4((o ? out1 : out0) + 4 * j, make_float4(acc.x * s, acc.y * s, acc.z * s, acc.w * s));
-  }
-}
-
-template <typename T>
-int sum_parts(const float* ws, int splits, size_t n, int outs, T* out0, float scale0, T* out1,
-              float scale1, cudaStream_t stream) {
-  const size_t n4 = n / 4;  // n = rows x HD, HD a multiple of 16
-  const size_t blocks = (n4 * outs + 255) / 256;
-  sum_parts_kernel<T><<<static_cast<unsigned>(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
-      reinterpret_cast<const float4*>(ws), splits, n4, outs, out0, scale0, out1, scale1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // The sources' launchers each return cudaGetLastError() after their launches
 // (0 = launched); -1 for a dtype or head dim not instantiated, -2 for a split
 // count out of range or a split launch without a workspace.
@@ -449,18 +477,33 @@ inline bool bad_split(int splits, const void* ws) {
   return splits < 1 || splits > 65535 || (splits > 1 && ws == nullptr);
 }
 
+// Rows of a streamed tile, and the CTAs that split kernel `kernel`'s output
+// columns (0 B1, 1 B2, 2 B3) at head dim hd: HD, or 256 n above 256 with
+// HD = 256 (every part of B1 and B2 owns 256 columns there, of B3 128).
 template <typename T, int HD>
-int tile_geometry(int* rows, int* col_parts) {
+int tile_geometry(int kernel, int hd, int* rows, int* col_parts) {
+  if (kernel < 0 || kernel > 2) return -1;
   *rows = Layout<T, HD>::kRows;
-  *col_parts = HD / Layout<T, HD>::kCols;
+  *col_parts = hd / (kernel == 2 ? Layout<T, HD>::kCols : HD);
   return 0;
+}
+template <typename T>
+int tile_geometry_wide(int, int kernel, int hd, int* rows, int* col_parts) {
+  return tile_geometry<T, 256>(kernel, hd, rows, col_parts);
 }
 
 }  // namespace
 
-// dtype 0 = float32 at every head dim; dtype 1 = bf16 at hd 16 and 256, the
-// head dims no wgmma kernel (flash_attention_tc.cu) takes
+// dtype 0 = float32 at every head dim, 1 = bf16 at hd 16 (the head dim no
+// wgmma kernel of flash_attention_tc.cu takes; B1 also instantiates bf16 at
+// 256, in its own source), both at hd 256 n above 256 (LAUNCH##_wide<T>,
+// which takes hd first).
 #define ND_TF32(LAUNCH, ...)                                   \
+  if (hd > 256 && hd % 256 == 0) {                             \
+    if (dtype == 0) return LAUNCH##_wide<float>(hd, __VA_ARGS__); \
+    if (dtype == 1) return LAUNCH##_wide<bf16>(hd, __VA_ARGS__);  \
+    return -1;                                                 \
+  }                                                            \
   if (dtype == 0) {                                            \
     switch (hd) {                                              \
       case 16: return LAUNCH<float, 16>(__VA_ARGS__);          \
@@ -474,22 +517,23 @@ int tile_geometry(int* rows, int* col_parts) {
     }                                                          \
   }                                                            \
   if (dtype == 1 && hd == 16) return LAUNCH<bf16, 16>(__VA_ARGS__); \
-  if (dtype == 1 && hd == 256) return LAUNCH<bf16, 256>(__VA_ARGS__); \
   return -1;
 
 // Every tf32x3 library exports this: the message of a launcher's return code.
 extern "C" const char* nd_tf32_error_string(int code) {
   if (code == -1)
     return "dtype or head dim not instantiated (float32: 16, 32, 64, 80, 96, 128, 256; "
-           "bfloat16: 16, 256)";
+           "bfloat16: 16, and 256 in the forward; both: 256 n above 256)";
   if (code == -2) return "split count out of [1, 65535], or a split launch without a workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 // Every tf32x3 library exports this too: the rows of a streamed tile and the
-// CTAs that split B3's output columns (Layout's kRows and HD / kCols). The
-// wrapper's split rule (bwd_splits) keeps a copy for the CPU and holds it
-// against this when it loads a library; -1 as the launchers.
-extern "C" int nd_tf32_geometry(int dtype, int hd, int* rows, int* col_parts) {
-  ND_TF32(tile_geometry, rows, col_parts)
+// CTAs that split kernel `kernel`'s output columns (0 B1, 1 B2, 2 B3;
+// tile_geometry). The wrapper's split rule (bwd_splits) keeps a copy for the
+// CPU and holds it against this when it loads a library; -1 as the
+// launchers.
+extern "C" int nd_tf32_geometry(int kernel, int dtype, int hd, int* rows, int* col_parts) {
+  if (dtype == 1 && hd == 256) return tile_geometry<bf16, 256>(kernel, hd, rows, col_parts);
+  ND_TF32(tile_geometry, kernel, hd, rows, col_parts)
 }

@@ -1,18 +1,19 @@
 // PTX building blocks for Hopper (sm_90a) kernels: shared-memory addresses,
 // mbarriers, TMA tile loads, wgmma with shared-memory descriptors, bf16
-// fragments in registers, cp.async, three-product TF32 on mma.sync, and the
-// host-side TMA descriptor encoder.
+// fragments in registers, cp.async, three-product TF32 on mma.sync, the
+// second pass of a backward launch split into parts, and the host-side TMA
+// descriptor encoder.
 //
-// Tiles are bf16 rows of N = 128, 96, 64 or 32 elements (the tile's width:
-// the head dim, or 96 for an hd-80 tensor, whose columns 80-95 TMA fills with
-// zeros), loaded by TMA in boxes of SW / 2 columns with a swizzle as wide as
-// a box row: SW = 128 bytes where N is a multiple of 64 (128, 64), 64 bytes
-// where it is not (96, 32; a 192-byte row of hd 96 is no whole number of
-// 128-byte atoms, so it is three 64-byte ones, as CUTLASS's shared-memory
-// selector picks for a 96-wide major dimension). Row r of a box lies at byte
+// Tiles are bf16 rows of N = 256, 128, 96, 64 or 32 elements (the tile's
+// width: the head dim, or 96 for an hd-80 tensor, whose columns 80-95 TMA
+// fills with zeros), loaded by TMA in boxes of SW / 2 columns with a swizzle
+// as wide as a box row: SW = 128 bytes where N is a multiple of 64 (256,
+// 128, 64), 64 bytes where it is not (96, 32; a 192-byte row of hd 96 is no
+// whole number of 128-byte atoms, so it is three 64-byte ones, as CUTLASS's
+// shared-memory selector picks for a 96-wide major dimension). Row r of a box lies at byte
 // SW * r, its 16-byte chunks permuted by (r * SW / 128) % 8, and every box
-// starts on a 1024-byte boundary. A row is N * 2 / SW boxes (2 at N 128, 3
-// at 96, 1 at 64 and 32), box b at + b * box_bytes.
+// starts on a 1024-byte boundary. A row is N * 2 / SW boxes (4 at N 256, 2 at
+// 128, 3 at 96, 1 at 64 and 32), box b at + b * box_bytes.
 // wgmma reads these tiles through descriptors in the matching layout (type
 // 1 for the 128-byte swizzle, 2 for the 64-byte one):
 //   K-major operand (the reduction axis contiguous, e.g. Q or K in Q K^T):
@@ -229,6 +230,55 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs_tb(float (&d)[64], uint32_t 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
 }
 
+// D[64 x 256] (+)= A[64 x 16] * B[16 x 256], A from registers, B from shared
+// memory MN-major (trans-b = 1), as wgmma_m64n128k16_rs_tb. B spans four
+// 128-byte-swizzle boxes, stepped by the descriptor's LBO.
+__device__ __forceinline__ void wgmma_m64n256k16_rs_tb(float (&d)[128], uint32_t a0, uint32_t a1,
+                                                     uint32_t a2, uint32_t a3, uint64_t desc_b,
+                                                     int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(accumulate));
+}
+
 // D[64 x 96] (+)= A[64 x 16] * B[16 x 96], A from registers, B from shared
 // memory MN-major (trans-b = 1), as wgmma_m64n128k16_rs_tb. B spans three
 // 64-byte-swizzle boxes, stepped by the descriptor's LBO.
@@ -308,14 +358,16 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], uint32_t a0, uint32_t a1,
                                             uint32_t a2, uint32_t a3, uint64_t desc_b,
                                             int accumulate) {
-  if constexpr (N == 128) {
+  if constexpr (N == 256) {
+    wgmma_m64n256k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
+  } else if constexpr (N == 128) {
     wgmma_m64n128k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
   } else if constexpr (N == 96) {
     wgmma_m64n96k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
   } else if constexpr (N == 64) {
     wgmma_m64n64k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
   } else {
-    static_assert(N == 32, "wgmma_rs_tb: N is 128, 96, 64 or 32");
+    static_assert(N == 32, "wgmma_rs_tb: N is 256, 128, 96, 64 or 32");
     wgmma_m64n32k16_rs_tb(d, a0, a1, a2, a3, desc_b, accumulate);
   }
 }
@@ -399,6 +451,52 @@ __device__ __forceinline__ void mma_split(float (&d)[4], const uint32_t (&a_hi)[
   if constexpr (kLoA) mma_tf32(d, a_lo, b_hi[0], b_hi[1]);
   if constexpr (kLoB) mma_tf32(d, a_hi, b_lo[0], b_lo[1]);
   mma_tf32(d, a_hi, b_hi[0], b_hi[1]);
+}
+
+// ---------------------------------------------------------------------------
+// The second pass of a split backward launch: out_o[j] = scale_o * sum over
+// parts p in order 0, 1, ... of ws[p][o][j], for outputs o < outs (1 or 2),
+// in float4s, so two launches give the same bits.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
+  q[0] = __floats2bfloat162_rn(x.x, x.y);
+  q[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+    sum_parts_kernel(const float4* __restrict__ ws, int splits, size_t n4, int outs,
+                     T* __restrict__ out0, float scale0, T* __restrict__ out1, float scale1) {
+  const size_t total = n4 * outs;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < total;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int o = i >= n4;
+    const size_t j = i - o * n4;
+    float4 acc = ws[o * n4 + j];
+    for (int p = 1; p < splits; ++p) {
+      const float4 x = ws[(static_cast<size_t>(p) * outs + o) * n4 + j];
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+    const float s = o ? scale1 : scale0;
+    store4((o ? out1 : out0) + 4 * j, make_float4(acc.x * s, acc.y * s, acc.z * s, acc.w * s));
+  }
+}
+
+template <typename T>
+int sum_parts(const float* ws, int splits, size_t n, int outs, T* out0, float scale0, T* out1,
+              float scale1, cudaStream_t stream) {
+  const size_t n4 = n / 4;  // n = rows x HD, HD a multiple of 16
+  const size_t blocks = (n4 * outs + 255) / 256;
+  sum_parts_kernel<T><<<static_cast<unsigned>(blocks < 2112 ? blocks : 2112), 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(ws), splits, n4, outs, out0, scale0, out1, scale1);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------

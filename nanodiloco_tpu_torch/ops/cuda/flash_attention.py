@@ -10,19 +10,23 @@ B3  ``flash_bwd_dkv``           replaces ``_flash_bwd`` / ``_bwd_dkv_kernel``
 ==  ==========================  ==============================================
 
 Each kernel comes in two variants, both on the tensor cores, and
-``ROUTES`` names the one that serves each (kernel, dtype, head dim), at
-head dims 16, 32, 64, 80, 96, 128 and 256 (``HEAD_DIMS``; any other
-raises here, and ``cuda_flash_attention`` pads a smaller one up to the
-next of them):
+``route`` names the one that serves each (kernel, dtype, head dim). The
+kernels take head dims 16, 32, 64, 80, 96, 128 and 256 (``HEAD_DIMS``)
+and every multiple of 256 above it (``takes``); any other raises here,
+and ``cuda_flash_attention`` pads it up to ``width(hd)``. ``ROUTES`` is
+``route`` at every row of ``HEAD_DIMS``.
 
 - ``wgmma``: wgmma fed by TMA
   (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: all
   three kernels at hd 128, 96, 80, 64 and 32 (hd 80 in the hd-96 tile,
-  its last 16 columns zeros);
+  its last 16 columns zeros), and B2 and B3 at hd 256 (B2 with one
+  consumer warpgroup a CTA, B3 with two CTAs a key tile that split dK's
+  and dV's columns: the source note);
 - ``tf32x3``: three-product TF32 with mma.sync
   (``nanodiloco_tpu_torch/csrc/flash_attention_tf32_{fwd,dq,dkv}.cu`` on
-  ``flash_attention_tf32.cuh``), for all three
-  kernels in float32 at every head dim and in bf16 at hd 16 and 256. One TF32
+  ``flash_attention_tf32.cuh``), for all three kernels in float32 at every
+  head dim, in bf16 at hd 16, B1 in bf16 at hd 256, and both dtypes above
+  256. One TF32
   product keeps 10 mantissa bits and would not hold the float32
   tolerance; hi·hi + hi·lo + lo·hi of each operand's split keeps about
   2^-22. A bf16 value is exact in TF32 (lo = 0), so the bf16 instances
@@ -32,11 +36,16 @@ next of them):
   read V, dO, Q and K along their rows. The backward splits its loop into
   ``bwd_splits`` parts (CTAs) so that small shapes fill the card, and a
   second pass sums the parts in a fixed order (no atomics); the forward
-  is one launch, unsplit (the header's note says why). At hd 256 every
-  tile is split (or widened, bf16) as it is read, the streamed tiles
-  have 32 rows, and B3 splits dK's and dV's columns between two CTAs
-  (``STREAM_ROWS``, ``COL_PARTS``), so that each kernel's shared memory
-  stays near 200 KB and its accumulators at 128 registers a thread.
+  is one launch, unsplit (the header's note says why). From hd 256 every
+  tile is split (or widened, bf16) as it is read and the streamed tiles
+  have 32 rows (``stream_rows``); B3 splits dK's and dV's columns between
+  CTAs of 128 (``col_parts``), so that each kernel's shared memory stays
+  near 200 KB and its accumulators at 128 registers a thread. Above 256
+  (hd = 256 n) B1 and B2 split their output columns too, 256 a CTA, and
+  every kernel sums its first products over n slices of 256 columns
+  loaded one after another into the hd-256 tiles: n passes over S for B1
+  and B2, 2n for B3. No model has those head dims; they are exact, not
+  fast.
 
 Each wrapper takes the TPU kernels' layout (q ``[BH, Sq, hd]``, k and v
 ``[BH / group, Sk, hd]``, lse and delta ``[BH, Sq, 1]`` float32). On a
@@ -51,7 +60,6 @@ What bounds them on the H100: at the training shape (hd 128, S 2048,
 causal) and at moe-8x-top2's (hd 64, S 1024) every kernel does 2-4
 S x S x hd products per head on O(S x hd) bytes, so operations bound all
 three (see the notes at the top of the CUDA sources for the designs).
-Head dims above 256 raise (ROADMAP C3): the tf32x3 tiles stop there.
 """
 
 from __future__ import annotations
@@ -70,31 +78,59 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 VARIANTS = ("wgmma", "tf32x3")
-# the head dims the wgmma kernels take, in bf16 only (all three alike)
+# the head dims the wgmma kernels take, in bf16 only: all three kernels,
+# and B2 and B3 at 256 too
 _TENSOR_CORE_HEAD_DIMS = (32, 64, 80, 96, 128)
 
 
-def _route(dtype, hd: int) -> str:
-    if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS:
+def takes(hd: int) -> bool:
+    """Whether the kernels take head dim ``hd``: one of HEAD_DIMS, or a
+    multiple of 256 above it."""
+    return hd in HEAD_DIMS or (hd > HEAD_DIMS[-1] and hd % 256 == 0)
+
+
+def width(hd: int) -> int:
+    """The head dim ``cuda_flash_attention`` runs ``hd`` at: the next of
+    HEAD_DIMS, above 256 the next multiple of 256."""
+    return next((d for d in HEAD_DIMS if d >= hd), -(-hd // 256) * 256)
+
+
+def route(name: str, dtype, hd: int) -> str:
+    """The variant that serves kernel ``name`` at (dtype, hd): wgmma for
+    bf16 where it takes the head dim (B2 and B3 also at 256),
+    three-product TF32 for the rest (every float32 row, bf16 at hd 16, B1
+    at bf16 hd 256, and every head dim above 256)."""
+    if dtype == torch.bfloat16 and (hd in _TENSOR_CORE_HEAD_DIMS
+                                    or (hd == 256 and name != "flash_fwd")):
         return "wgmma"
     return "tf32x3"
 
 
-# the variant that serves each (kernel, dtype, head dim): wgmma for bf16
-# where it takes the head dim, three-product TF32 for the rest (every
-# float32 row, bf16 at hd 16); B1, B2 and B3 alike
-ROUTES = {(name, dtype, hd): _route(dtype, hd)
+# route() at every (kernel, dtype, head dim) of HEAD_DIMS: the table that
+# chip_smoke.py and the tests cover row by row
+ROUTES = {(name, dtype, hd): route(name, dtype, hd)
           for name in KERNEL_NAMES for dtype in _DTYPE_CODE for hd in HEAD_DIMS}
 # the H100's SMs: one wave of the tf32x3 kernels at one CTA an SM
 SMS = 132
-# the tf32x3 kernels' tiles by head dim (Layout in flash_attention_tf32.cuh):
-# rows of a streamed tile (B1, B2: K and V; B3: Q and dO; the stationary
-# tiles have 64), and the CTAs that split B3's output columns. A copy, so
-# that the split rule runs on the CPU too: _tf32_lib holds it against each
-# library's nd_tf32_geometry when it loads them
-STREAM_ROWS = {256: 32}
-COL_PARTS = {256: 2}
 _MAX_GRID_Y = 65535
+
+
+def stream_rows(hd: int) -> int:
+    """Rows of a tf32x3 kernel's streamed tile at head dim ``hd`` (B1, B2:
+    K and V; B3: Q and dO; the stationary tiles have 64): 32 from hd 256
+    (Layout in flash_attention_tf32.cuh). This and ``col_parts`` are a copy,
+    so that the split rule runs on the CPU too: _tf32_lib holds them against
+    each library's nd_tf32_geometry when it loads them."""
+    return 32 if hd >= 256 else 64
+
+
+def col_parts(name: str, hd: int) -> int:
+    """CTAs that split a tf32x3 kernel's output columns at head dim ``hd``:
+    B3 at 256 takes 128 columns a CTA, and above 256 B1 and B2 take 256 and
+    B3 128 (each part computes its own S over every column)."""
+    if hd < 256:
+        return 1
+    return hd // 128 if name == "flash_bwd_dkv" else hd // 256
 # K/V rows per step of the plain versions (their memory is O(S x block))
 PLAIN_BLOCK = 512
 
@@ -105,7 +141,7 @@ def _tc_lib() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.nd_flash_fwd_tc.argtypes = [I] + [P] * 5 + [I] * 5 + [F, P]
     lib.nd_flash_bwd_dq_tc.argtypes = [I] + [P] * 7 + [I] * 5 + [F, P]
-    lib.nd_flash_bwd_dkv_tc.argtypes = [I] + [P] * 8 + [I] * 5 + [F, P]
+    lib.nd_flash_bwd_dkv_tc.argtypes = [I] + [P] * 9 + [I] * 5 + [F, I, P]
     for fn in (lib.nd_flash_fwd_tc, lib.nd_flash_bwd_dq_tc, lib.nd_flash_bwd_dkv_tc):
         fn.restype = I
     lib.nd_tc_error_string.argtypes = [I]
@@ -134,22 +170,31 @@ def _tf32_lib() -> types.SimpleNamespace:
         nd_tf32_error_string=dkv.nd_tf32_error_string)
 
 
+# head dims above 256 whose geometry _check_geometry holds against the libraries
+_WIDE_CHECKED = (512, 768)
+
+
 def _check_geometry(geometry) -> None:
-    """Raise unless a tf32x3 library's tiles are STREAM_ROWS and COL_PARTS
-    at every (dtype, head dim) it serves."""
-    geometry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                         ctypes.POINTER(ctypes.c_int)]
+    """Raise unless a tf32x3 library's tiles are ``stream_rows`` and
+    ``col_parts`` for every kernel at every (dtype, head dim) it serves (of
+    HEAD_DIMS, and the wide head dims of _WIDE_CHECKED)."""
+    geometry.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     geometry.restype = ctypes.c_int
     rows, parts = ctypes.c_int(), ctypes.c_int()
-    for (name, dtype, hd), variant in ROUTES.items():
-        if name != "flash_bwd_dkv" or variant != "tf32x3":
-            continue
-        rc = geometry(_DTYPE_CODE[dtype], hd, ctypes.byref(rows), ctypes.byref(parts))
-        want = (STREAM_ROWS.get(hd, 64), COL_PARTS.get(hd, 1))
-        if rc != 0 or (rows.value, parts.value) != want:
-            raise RuntimeError(
-                f"tf32x3 tiles at ({dtype}, hd {hd}): the library has (rows, column parts) "
-                f"{(rows.value, parts.value)} (rc {rc}), STREAM_ROWS/COL_PARTS say {want}")
+    for kernel, name in enumerate(KERNEL_NAMES):
+        for dtype in _DTYPE_CODE:
+            for hd in (*HEAD_DIMS, *_WIDE_CHECKED):
+                if route(name, dtype, hd) != "tf32x3":
+                    continue
+                rc = geometry(kernel, _DTYPE_CODE[dtype], hd, ctypes.byref(rows),
+                              ctypes.byref(parts))
+                want = (stream_rows(hd), col_parts(name, hd))
+                if rc != 0 or (rows.value, parts.value) != want:
+                    raise RuntimeError(
+                        f"tf32x3 tiles of {name} at ({dtype}, hd {hd}): the library has (rows, "
+                        f"column parts) {(rows.value, parts.value)} (rc {rc}), stream_rows/"
+                        f"col_parts say {want}")
 
 
 def _raise_on(rc: int, name: str, variant: str) -> None:
@@ -170,18 +215,29 @@ def _splits(ctas: int, pairs: int) -> int:
 
 
 def bwd_splits(name: str, bh: int, bh_kv: int, sq: int, sk: int, causal: bool,
-               hd: int) -> int:
-    """The split count of a tf32x3 launch of ``name`` (``flash_bwd_dq`` or
-    ``flash_bwd_dkv``) at head dim ``hd``: B2 has one CTA per (head, 64-row
-    q tile), looping over up to ``nk`` K tiles of ``STREAM_ROWS`` keys
-    (under the causal mask, the last q tile's); B3 one per (KV head, 64-key
-    tile, column part), looping over ``group x nq`` (query head, q tile)
-    pairs."""
-    rows = STREAM_ROWS.get(hd, 64)
+               hd: int, variant: str = "tf32x3") -> int:
+    """The split count of a launch of ``name`` (``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) at head dim ``hd`` on ``variant``. tf32x3: B2 has
+    one CTA per (head, 64-row q tile, column part), looping over up to
+    ``nk`` K tiles of ``stream_rows`` keys (under the causal mask, the last
+    q tile's); B3 one per (KV head, 64-key tile, column part), looping over
+    ``group x nq`` (query head, q tile) pairs. wgmma: only B3 at hd 256
+    splits, with two column parts per (KV head, 64-key tile) and 64-row q
+    tiles, and only a grid under one wave of its one CTA an SM: at
+    Gemma-2B's shape (128 CTAs) three parts ran 1.42x faster than one, at
+    train_hd256's (256) two ran 3% slower (PERF.md section 6); every other
+    wgmma launch is one part."""
+    if variant == "wgmma":
+        ctas = 2 * bh_kv * -(-sk // 64)
+        if name != "flash_bwd_dkv" or hd != 256 or ctas >= SMS:
+            return 1
+        return _splits(ctas, (bh // bh_kv) * -(-sq // 64))
+    rows = stream_rows(hd)
+    parts = col_parts(name, hd)
     if name == "flash_bwd_dq":
         nk = -(-sk // rows)
-        return _splits(bh * -(-sq // 64), min(nk, -(-sq // rows)) if causal else nk)
-    return _splits(COL_PARTS.get(hd, 1) * bh_kv * -(-sk // 64), (bh // bh_kv) * -(-sq // rows))
+        return _splits(parts * bh * -(-sq // 64), min(nk, -(-sq // rows)) if causal else nk)
+    return _splits(parts * bh_kv * -(-sk // 64), (bh // bh_kv) * -(-sq // rows))
 
 
 def shape_key(dtype, bh: int, bh_kv: int, sq: int, sk: int, hd: int, causal: bool) -> str:
@@ -228,8 +284,8 @@ def _check(name: str, q, k, v, *same_as_q, stats=()) -> None:
     bh, sq, hd = q.shape
     if k.shape[2] != hd or k.shape[0] == 0 or bh % k.shape[0]:
         raise ValueError(f"{name}: k heads {k.shape[0]} must divide q heads {bh}, same hd")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    if not takes(hd):
+        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS} nor a multiple of 256")
     if any(t.shape != q.shape for t in same_as_q):
         raise ValueError(f"{name}: dO must have q's shape")
     if any(t.shape != (bh, sq, 1) for t in stats):
@@ -346,7 +402,7 @@ def flash_fwd(q, k, v, causal: bool, scale=None):
         return flash_fwd_plain(q, k, v, causal, scale)
     _check("flash_fwd", q, k, v)
     bh, sq, hd = q.shape
-    variant = ROUTES["flash_fwd", q.dtype, hd]
+    variant = route("flash_fwd", q.dtype, hd)
     o = torch.empty_like(q)
     lse = torch.empty((bh, sq, 1), device=q.device, dtype=torch.float32)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr())
@@ -367,7 +423,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale=None):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
     _check("flash_bwd_dq", q, k, v, do, stats=(lse, delta))
     bh, sq, hd = q.shape
-    variant = ROUTES["flash_bwd_dq", q.dtype, hd]
+    variant = route("flash_bwd_dq", q.dtype, hd)
     dq = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr())
@@ -394,23 +450,23 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale=None):
         return flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal, scale)
     _check("flash_bwd_dkv", q, k, v, do, stats=(lse, delta))
     bh, sq, hd = q.shape
-    variant = ROUTES["flash_bwd_dkv", q.dtype, hd]
+    variant = route("flash_bwd_dkv", q.dtype, hd)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     shape = (bh, bh // k.shape[0], sq, k.shape[1], int(causal), _scale(scale, hd))
+    bh_kv, sk = k.shape[:2]
+    splits = bwd_splits("flash_bwd_dkv", bh, bh_kv, sq, sk, causal, hd, variant)
+    ws = (torch.empty((splits, 2, bh_kv, sk, hd), device=q.device, dtype=torch.float32)
+          if splits > 1 else None)
+    ws_ptr = None if ws is None else ws.data_ptr()
     with torch.cuda.device(q.device):
         if variant == "tf32x3":
-            bh_kv, sk = k.shape[:2]
-            splits = bwd_splits("flash_bwd_dkv", bh, bh_kv, sq, sk, causal, hd)
-            ws = (torch.empty((splits, 2, bh_kv, sk, hd), device=q.device, dtype=torch.float32)
-                  if splits > 1 else None)
-            rc = _tf32_lib().nd_flash_bwd_dkv_tf32(
-                _DTYPE_CODE[q.dtype], hd, *ptrs, None if ws is None else ws.data_ptr(), *shape,
-                splits, _stream(q))
+            rc = _tf32_lib().nd_flash_bwd_dkv_tf32(_DTYPE_CODE[q.dtype], hd, *ptrs, ws_ptr, *shape,
+                                                   splits, _stream(q))
         else:
-            rc = _tc_lib().nd_flash_bwd_dkv_tc(hd, *ptrs, *shape, _stream(q))
+            rc = _tc_lib().nd_flash_bwd_dkv_tc(hd, *ptrs, ws_ptr, *shape, splits, _stream(q))
     _raise_on(rc, "flash_bwd_dkv", variant)
     _counted(flash_bwd_dkv, variant, q, k, causal)
     return dk, dv
@@ -480,25 +536,22 @@ class FlashAttention(torch.autograd.Function):
 def cuda_flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     """q ``[B, S, H, hd]``; k, v ``[B, S, Hkv, hd]`` with H % Hkv == 0
     (GQA, never expanded). Differentiable. The port of
-    ``pallas_flash_attention``: same public layout, and any head dim up to
-    256, as the JAX dispatcher takes any head dim off the TPU: a head dim
-    outside ``HEAD_DIMS`` is zero-padded to the next of them in the copy
-    to ``[BH, S, hd]`` (129-255 to 256), with the scale of the true head
-    dim, and the output sliced back. Zero columns change no score and give
-    zero output and gradient columns, so the result is exact. Above 256 it
-    raises."""
+    ``pallas_flash_attention``: same public layout, and any head dim, as
+    the JAX dispatcher takes any head dim off the TPU: a head dim the
+    kernels do not take is zero-padded to ``width(hd)`` in the copy to
+    ``[BH, S, hd]`` (129-255 to 256, 257-511 to 512, ...), with the scale
+    of the true head dim, and the output sliced back. Zero columns change
+    no score and give zero output and gradient columns, so the result is
+    exact."""
     b, s, h, hd = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"query heads {h} must divide by kv heads {hkv}")
-    if hd > HEAD_DIMS[-1]:
-        raise ValueError(f"head dim {hd} above {HEAD_DIMS[-1]}: the tf32x3 kernels' tiles stop "
-                         f"at {HEAD_DIMS[-1]} (ROADMAP C3)")
-    width = next(d for d in HEAD_DIMS if d >= hd)
+    padded = width(hd)
 
     def flat(x, sl, nh):
         x = x.permute(0, 2, 1, 3).reshape(b * nh, sl, hd)
-        return torch.nn.functional.pad(x, (0, width - hd)) if width > hd else x.contiguous()
+        return torch.nn.functional.pad(x, (0, padded - hd)) if padded > hd else x.contiguous()
 
     out = FlashAttention.apply(flat(q, s, h), flat(k, sk, hkv), flat(v, sk, hkv), causal,
                                1.0 / math.sqrt(hd))

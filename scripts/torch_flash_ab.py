@@ -33,7 +33,11 @@ parent commit unpacked with ``git archive``). ``--shape`` names shapes of
 - ``phi3_f32_hd96`` / ``phi2_f32_hd80``: phi3_hd96 and phi2_hd80 in float32;
 - ``mha_f32_hd96`` (B 2, H 2, Hkv 2, S 128), ``ragged_gqa2_f32_hd80`` (B 1,
   H 4, Hkv 2, S 333) and ``ragged_gqa2_bf16_hd16`` (bf16, B 2, H 4, Hkv 2,
-  S 200), all causal: chip_smoke.py's shapes of those routes.
+  S 200), all causal: chip_smoke.py's shapes of those routes;
+- ``gemma2b_hd256``: bf16, B 2, H 8, Hkv 1, S 2048, hd 256, causal
+  (Gemma-2B's attention), ``train_hd256`` the same at B 4 (chip_smoke.py's
+  train_hd256: W 2 x b 2), and ``gemma2b_f32_hd256`` in float32 at B 1,
+  S 1024.
 
 B counts every worker's sequences: the model folds W x b into B before
 attention.
@@ -80,6 +84,9 @@ SHAPES = {
     "mha_f32_hd96": ("float32", 2, 2, 2, 128, 96, True),
     "ragged_gqa2_f32_hd80": ("float32", 1, 4, 2, 333, 80, True),
     "ragged_gqa2_bf16_hd16": ("bfloat16", 2, 4, 2, 200, 16, True),
+    "gemma2b_hd256": ("bfloat16", 2, 8, 1, 2048, 256, True),
+    "train_hd256": ("bfloat16", 4, 8, 1, 2048, 256, True),
+    "gemma2b_f32_hd256": ("float32", 1, 8, 1, 1024, 256, True),
 }
 
 # run inside each turn's process, with the checkout's root first on sys.path
@@ -165,7 +172,9 @@ for name, (dtype, b, h, hkv, s, hd, causal) in json.loads(sys.argv[2]).items():
     calls["sdpa_bwd"] = lambda: torch.autograd.grad(ref_side, leaves, do.view(b, h, s, hd),
                                                     retain_graph=True)
     out[name].update({f"{kname}_device": device_ms(fn, side) for kname, fn in calls.items()})
-    out[name]["variants"] = {kname: fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES}
+    # an older checkout has the table alone, no route()
+    route = getattr(fa, "route", lambda kname, dtype, hd: fa.ROUTES[kname, dtype, hd])
+    out[name]["variants"] = {kname: route(kname, dtype, hd) for kname in fa.KERNEL_NAMES}
 print(json.dumps(out))
 """
 

@@ -198,15 +198,16 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
     """Two designs, both on the tensor cores: bf16 goes to the wgmma kernels
-    at hd 128, 96, 80, 64 and 32, and to three-product TF32 at hd 16; every
-    float32 row goes to three-product TF32. B1, B2 and B3 share each route,
-    and no FMA variant is left."""
+    at hd 128, 96, 80, 64 and 32 (and B2 and B3 at 256), and to
+    three-product TF32 at hd 16 (and B1 at 256); every float32 row goes to
+    three-product TF32. ROUTES is route() row by row, and no FMA variant is
+    left."""
     if dtype == torch.bfloat16:
-        want = "wgmma" if hd in (128, 96, 80, 64, 32) else "tf32x3"
+        tc = hd in (128, 96, 80, 64, 32) or (hd == 256 and name != "flash_fwd")
+        want = "wgmma" if tc else "tf32x3"
     else:
         want = "tf32x3"
-    assert {fa.ROUTES[kname, dtype, hd] for kname in fa.KERNEL_NAMES} == {want}
-    assert fa.ROUTES[name, dtype, hd] == want
+    assert fa.ROUTES[name, dtype, hd] == want == fa.route(name, dtype, hd)
     assert fa.VARIANTS == ("wgmma", "tf32x3")
 
 

@@ -8,11 +8,13 @@ TF32 rounding as ``cvt.rna.tf32.f32`` does it (to nearest, ties away from
 zero, at the 13 dropped mantissa bits, here on the int32 view), and every
 product adds lo·hi, hi·lo and hi·hi 8 terms of the reduction at a time,
 in the kernels' order (mma.sync m16n8k8). P and dS are split where the
-kernels split them, as the left operand of the second products. At hd
-256 B3's CTAs each own half of dK's and dV's columns (``fa.COL_PARTS``)
-and reduce over the same queries in the same order, and the model takes
-the columns in the same parts. A one-product model (hi·hi alone) shows
-why one TF32 product is not enough.
+kernels split them, as the left operand of the second products. From hd
+256 B3's CTAs each own 128 of dK's and dV's columns, and above 256 B2's
+256 of dQ's (``fa.col_parts``), and the model takes the columns in the
+same parts. Above 256 each part sums its first products over slices of
+256 columns, starting after the slice that holds its own columns
+(``slice_order``), as the kernels load them. A one-product model (hi·hi
+alone) shows why one TF32 product is not enough.
 
 Run as a script, it prints the tolerance share (``atol_of_max``: the
 largest |model - plain| past 1e-4 |plain|, over max|plain|) that the
@@ -81,39 +83,64 @@ def mma(a: torch.Tensor, b: torch.Tensor, products: int = 3) -> torch.Tensor:
     return acc
 
 
-def tf32_probs(q, k, v, do, lse, delta, causal, products):
+def slice_order(hd: int, c0: int) -> torch.Tensor:
+    """The order of the head dim's columns in the first products of the
+    part whose columns start at ``c0``: as they lie up to hd 256; above it
+    slices of 256, from the one after the slice that holds column ``c0``
+    round to that slice itself (the kernels leave its tiles in shared
+    memory for the second products)."""
+    if hd <= 256:
+        return torch.arange(hd)
+    n, last = hd // 256, c0 // 256
+    return torch.cat([torch.arange(256) + 256 * ((last + j) % n) for j in range(1, n + 1)])
+
+
+def tf32_probs(q, k, v, do, lse, delta, causal, products, order=None):
     """(folded Q, folded dO, P, dS) as the kernels compute them: GQA folded
     into the row axis ([Bkv, G*Sq, hd], row g * Sq + position, as the plain
-    versions fold it), S = Q K^T and dP = dO V^T by ``mma``, P and dS in
-    float32."""
+    versions fold it), S = Q K^T and dP = dO V^T by ``mma`` over the head
+    dim's columns in ``order`` (``slice_order``), P and dS in float32."""
     bkv = k.shape[0]
     qf, qpos = fa._folded(q, bkv)
     dof, _ = fa._folded(do, bkv)
-    s = mma(qf, k.transpose(1, 2), products) / math.sqrt(q.shape[-1])
+    order = torch.arange(q.shape[-1]) if order is None else order
+    s = mma(qf[..., order], k[..., order].transpose(1, 2), products) / math.sqrt(q.shape[-1])
     if causal:
         s = s.masked_fill(torch.arange(k.shape[1])[None, :] > qpos[:, None], -math.inf)
     lse_f, delta_f = lse.reshape(bkv, -1, 1), delta.reshape(bkv, -1, 1)
     p = torch.where(torch.isfinite(s), torch.exp(s - lse_f), torch.zeros_like(s))
-    ds = p * (mma(dof, v.transpose(1, 2), products) - delta_f)
+    ds = p * (mma(dof[..., order], v[..., order].transpose(1, 2), products) - delta_f)
     return qf, dof, p, ds
 
 
+def column_parts(name: str, hd: int) -> list[int]:
+    """The first column of each part of ``name``'s output columns."""
+    return list(range(0, hd, hd // fa.col_parts(name, hd)))
+
+
 def tf32_dq(q, k, v, do, lse, delta, causal, products=3):
-    """B2: dQ = scale · dS K."""
-    _, _, _, ds = tf32_probs(q, k, v, do, lse, delta, causal, products)
-    return (mma(ds, k, products) / math.sqrt(q.shape[-1])).reshape(q.shape)
+    """B2: dQ = scale · dS K, one column part at a time."""
+    hd = q.shape[-1]
+    cols = hd // fa.col_parts("flash_bwd_dq", hd)
+    parts = []
+    for c in column_parts("flash_bwd_dq", hd):
+        _, _, _, ds = tf32_probs(q, k, v, do, lse, delta, causal, products, slice_order(hd, c))
+        parts.append(mma(ds, k[..., c:c + cols], products) / math.sqrt(hd))
+    return torch.cat(parts, dim=-1).reshape(q.shape)
 
 
 def tf32_dkv(q, k, v, do, lse, delta, causal, products=3):
     """B3: dV = P^T dO and dK = scale · dS^T Q over each KV head's query
     group (the reduction runs g-major over the folded rows, as the kernel
     walks its (group member, q tile) pairs), one column part at a time."""
-    qf, dof, p, ds = tf32_probs(q, k, v, do, lse, delta, causal, products)
     hd = q.shape[-1]
-    cols = hd // fa.COL_PARTS.get(hd, 1)
-    parts = [(mma(ds.transpose(1, 2), qf[..., c:c + cols], products) / math.sqrt(hd),
-              mma(p.transpose(1, 2), dof[..., c:c + cols], products))
-             for c in range(0, hd, cols)]
+    cols = hd // fa.col_parts("flash_bwd_dkv", hd)
+    parts = []
+    for c in column_parts("flash_bwd_dkv", hd):
+        qf, dof, p, ds = tf32_probs(q, k, v, do, lse, delta, causal, products,
+                                    slice_order(hd, c))
+        parts.append((mma(ds.transpose(1, 2), qf[..., c:c + cols], products) / math.sqrt(hd),
+                      mma(p.transpose(1, 2), dof[..., c:c + cols], products)))
     return tuple(torch.cat(out, dim=-1) for out in zip(*parts))
 
 
@@ -156,7 +183,7 @@ def test_round_tf32_is_cvt_rna():
     assert ((hi - y).abs() > 2.0 ** -14 * y.abs()).any()  # one part alone is TF32's 2^-11
 
 
-@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [768, 512, 256, 128, 64, 32, 16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 4])
 def test_three_product_model_within_f32_tolerance(hd, causal, group):
@@ -178,7 +205,7 @@ def test_one_product_misses_the_f32_tolerance(hd):
     assert max(need.values()) > ATOL, need
 
 
-@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [512, 256, 128, 64, 32, 16])
 @pytest.mark.parametrize("group, causal", [(2, True), (1, False)])
 def test_three_product_model_matches_jax_gradients(hd, group, causal):
     """dQ, dK and dV of the tf32x3 model against jax.grad through the JAX
@@ -227,6 +254,44 @@ def test_split_rule(shape, dq_splits, dkv_splits):
         assert got == (dq_splits, dkv_splits)
 
 
+# (B, H, Hkv, S, hd): chip_smoke.py's wide rows and two more GQA shapes
+@pytest.mark.parametrize("shape, dq_splits, dkv_splits", [
+    ((1, 4, 2, 256, 512), 8, 9),     # wide_f32_hd512: 32 and 32 CTAs, 8 and 16 steps
+    ((1, 4, 1, 333, 512), 6, 11),    # wide_bf16_hd512: 48 and 24 CTAs, 11 and 44 steps
+    ((1, 2, 2, 77, 512), 3, 3),      # padded_f32_hd320 at 512: 8 and 16 CTAs, 3 steps
+    ((2, 8, 2, 1024, 768), 1, 1),    # 768 and 384 CTAs: two waves already
+    ((1, 4, 2, 200, 768), 6, 6),     # 48 and 48 CTAs, 7 and 14 steps
+])
+def test_split_rule_above_256(shape, dq_splits, dkv_splits):
+    """Above hd 256 B2's grid has hd / 256 CTAs per (head, 64-row q tile)
+    and B3's hd / 128 per (KV head, 64-key tile), each looping over 32-row
+    tiles as at 256: the fewest parts that give two waves of 132 CTAs,
+    never more than the loop's steps (the causal rows)."""
+    b, h, hkv, s, hd = shape
+    assert fa.col_parts("flash_bwd_dq", hd) == hd // 256
+    assert fa.col_parts("flash_bwd_dkv", hd) == hd // 128
+    assert fa.stream_rows(hd) == 32
+    got = (fa.bwd_splits("flash_bwd_dq", b * h, b * hkv, s, s, True, hd),
+           fa.bwd_splits("flash_bwd_dkv", b * h, b * hkv, s, s, True, hd))
+    assert got == (dq_splits, dkv_splits)
+
+
+@pytest.mark.parametrize("hd", [512, 768])
+def test_column_parts_above_256_tile_the_head_dim(hd):
+    """Above 256 B1 and B2 own 256 columns a part and B3 128; each part's
+    first products take every slice once and end with the slice that
+    holds its columns (whose tiles the second products read)."""
+    assert [fa.col_parts(name, hd) for name in fa.KERNEL_NAMES] == [hd // 256, hd // 256,
+                                                                   hd // 128]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        cols = hd // fa.col_parts(name, hd)
+        for c in column_parts(name, hd):
+            order = slice_order(hd, c)
+            assert sorted(order.tolist()) == list(range(hd))
+            assert order[-256] <= c and c + cols <= order[-256] + 256
+    assert slice_order(768, 300).tolist()[:256:255] == [512, 767]
+
+
 def test_split_rule_bounds():
     """Never more parts than steps, never fewer than one, and enough for two
     waves wherever the steps allow it."""
@@ -240,7 +305,7 @@ def test_split_rule_bounds():
 
 if __name__ == "__main__":
     out = {}
-    for hd in (256, 128, 64, 32, 16):
+    for hd in (768, 512, 256, 128, 64, 32, 16):
         for group in (1, 4):
             for causal in (True, False):
                 key = f"hd{hd}/group{group}/{'causal' if causal else 'full'}"

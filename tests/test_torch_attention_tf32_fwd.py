@@ -2,14 +2,15 @@
 (``csrc/flash_attention_tf32_fwd.cu``), modelled in float32 on the CPU against
 the plain version and against the JAX package's forward; the bf16
 instances of all three kernels (lo terms skipped: bf16 is exact in TF32);
-and head dims outside the kernels' six (ROADMAP C3), zero-padded by the
-dispatcher, against JAX.
+and head dims the kernels do not take, zero-padded by the dispatcher (up
+to the next of HEAD_DIMS, above 256 to the next multiple of 256), against
+JAX.
 
 The model: TF32 rounding and the hi/lo split as
 ``tests/test_torch_attention_tf32.py`` has them (``cvt.rna.tf32.f32``);
 every product adds lo·hi, hi·lo and hi·hi 8 terms of the reduction at a
 time (mma.sync m16n8k8), dropping the terms of an operand that has no lo
-part. B1 walks 64-key tiles (32 at hd 256, ``fa.STREAM_ROWS``): S = Q K^T
+part. B1 walks 64-key tiles (32 from hd 256, ``fa.stream_rows``): S = Q K^T
 times scale·log2 e, masked to -inf, the online softmax in exp2 (m in log2
 units), P split as the left operand of O += P V, then O / max(l, 1e-30)
 and lse = m ln 2 + ln l.
@@ -100,7 +101,7 @@ def tf32_fwd(q, k, v, causal, kernel=Kernel(), scale=None):
     m = torch.full(qf.shape[:2], -math.inf)
     l = torch.zeros(qf.shape[:2])
     acc = torch.zeros(qf.shape)
-    tile = fa.STREAM_ROWS.get(hd, 64)
+    tile = fa.stream_rows(hd)
     for j0 in range(0, sk, tile):
         kj, vj = k[:, j0:j0 + tile].float(), v[:, j0:j0 + tile].float()
         s = kernel.inputs(qf, kj.transpose(1, 2)) * (scale * LOG2E)
@@ -155,7 +156,7 @@ def forward_needs(hd, group, causal, kernel, s=150):
     return needed(o, o_ref, F32_TOL[1]), needed(lse, lse_ref, F32_TOL[1]), (o, o_ref)
 
 
-@pytest.mark.parametrize("hd", [256, 128, 64, 32, 16])
+@pytest.mark.parametrize("hd", [512, 256, 128, 64, 32, 16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("group", [1, 4])
 def test_three_product_forward_within_f32_tolerance(hd, causal, group):
@@ -263,14 +264,29 @@ def test_head_dims_outside_the_six_match_jax(hd, group, causal):
         np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("hd", [264, 512])
+@pytest.mark.parametrize("hd", [264, 320, 512])
 def test_head_dims_above_128_raise_naming_c3(hd):
-    """Above 256 (the limit since hd 256 was ported; 128 before it) the
-    kernels' tiles do not reach: ValueError naming ROADMAP C3, on the CPU
-    as on the card, and nothing falls back."""
-    q = torch.zeros(1, 8, 2, hd)
-    with pytest.raises(ValueError, match="C3"):
-        flash_attention(q, q, q)
+    """Head dims above 256 (which raised naming ROADMAP C3 until it was
+    closed) run: 264 and 320 zero-padded to 512, 512 as it is, through the
+    kernels that sum their first products over slices of 256 columns. The
+    output and dQ, dK, dV match the JAX dispatcher's at (2e-5, 2e-5) and
+    (1e-4, 1e-4), GQA and MHA, causal and not, and the padded width is
+    ``fa.width``."""
+    group, causal = {264: (2, True), 320: (1, False), 512: (4, True)}[hd]
+    assert fa.width(hd) == 512 and fa.takes(hd) == (hd == 512)
+    b, s, h = 1, 48, 4
+    hkv = h // group
+    q, k, v, ct = (x.numpy() for x in arrays((b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd),
+                                             (b, s, h, hd), seed=25))
+    want_out, want = jax_value_and_grads(q, k, v, ct, causal)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    (out * torch.from_numpy(ct)).sum().backward()
+    assert out.shape == q.shape
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want_out), rtol=2e-5, atol=2e-5)
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad.shape == leaf.shape
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-4)
 
 
 def test_tf32_forward_launch_failure_raises(monkeypatch):

@@ -9,13 +9,14 @@ PyTorch; there, skip the repo's JAX-side conftest:
 
 Tolerance, as in chip_smoke.py: ``atol * max|ref| + rtol * |ref|``, rtol
 1e-4 (f32) or 2**-7 (bf16: outputs may land one bf16 ulp apart). The
-three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16 and 256)
-keep float32's accuracy but for ~2**-22: atol 1e-4 in float32; in bf16
-the inputs are exact in TF32 and the float32-accurate sums are rounded to
-bf16, atol 2e-3. The wgmma kernels (bf16: B1, B2, B3 at hd 128, 96, 80,
-64 and 32; hd 80 in the hd-96 tile) also round P (B1), dS (B2), P and dS
-(B3) to bf16 before the last product, where the plain versions keep
-float32: atol 2**-8. lse, and the dispatcher's float32 outputs and
+three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16, B1
+in bf16 at 256, both dtypes above 256) keep float32's accuracy but for
+~2**-22: atol 1e-4 in float32; in bf16 the inputs are exact in TF32 and
+the float32-accurate sums are rounded to bf16, atol 2e-3. The wgmma
+kernels (bf16: B1, B2, B3 at hd 128, 96, 80, 64 and 32, hd 80 in the hd-96
+tile; B2 and B3 at 256) also round P (B1), dS (B2), P and dS (B3) to bf16
+before the last product, where the plain versions keep float32: atol
+2**-8. lse, and the dispatcher's float32 outputs and
 gradients card against CPU, are held at atol 2e-3.
 """
 
@@ -270,12 +271,13 @@ def test_tensor_core_dq_row_without_probability_gives_zeros_not_nan(causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+@pytest.mark.parametrize("hd", [*fa.HEAD_DIMS, 512])
 @pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
                                                   (8, 2, 333, True)])
 def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     """float32 B2 and B3 on the tensor cores (three TF32 products) at every
-    head dim, ragged S, MHA and GQA 4, causal and not, with the loops
+    head dim (and at 512, over two slices of 256 columns and in column
+    parts), ragged S, MHA and GQA 4, causal and not, with the loops
     unsplit (BH 32, S 520: 288 CTAs each) and split (BH 8: 4-6 parts for
     B2, 16-22 for B3, summed by a second pass): within (1e-4, 1e-4) of the
     plain versions; the first launch's outputs head marker-filled buffers
@@ -315,9 +317,9 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
 
 
 # (dtype, hd) of every tf32x3 forward instance: float32 at every head dim,
-# bf16 at hd 16 and 256
-TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [(torch.bfloat16, 16),
-                                                              (torch.bfloat16, 256)]
+# bf16 at hd 16 and 256, and both above 256 (at 512)
+TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [
+    (torch.bfloat16, 16), (torch.bfloat16, 256), (torch.float32, 512), (torch.bfloat16, 512)]
 
 
 @pytest.mark.cuda
@@ -326,8 +328,9 @@ TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [(torch.bfloat16, 16
                                                   (8, 2, 333, True)])
 def test_tf32x3_forward_matches_plain(dtype, hd, bh, bh_kv, s, causal, monkeypatch):
     """B1 on the tensor cores as three-product TF32 (bf16 at hd 16 and 256:
-    one product for S, two for P V) at every float32 head dim and at bf16 hd
-    16 and 256, ragged S, MHA and GQA 4, causal and not: O within the tf32x3
+    one product for S, two for P V) at every float32 head dim, at bf16 hd
+    16 and 256, and at 512 in both (O's columns in two parts, S over two
+    slices), ragged S, MHA and GQA 4, causal and not: O within the tf32x3
     tolerance of the plain version, lse within 1e-4; the first launch's O
     heads a marker-filled buffer whose tail comes back unchanged; a second
     launch gives the same bits."""
@@ -392,11 +395,23 @@ def test_tf32x3_bf16_hd16_backward_matches_plain(bh, bh_kv, s, causal, monkeypat
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
                                                   (8, 1, 333, True)])
-def test_tf32x3_bf16_hd256_backward_matches_plain(bh, bh_kv, s, causal, monkeypatch):
-    """bf16 B2 and B3 at hd 256 (tiles widened as read, 32-row streamed
-    tiles, B3's columns split between two CTAs), unsplit and split, MHA,
-    GQA 4 and GQA 8: as at hd 16."""
+def test_wgmma_bf16_hd256_backward_matches_plain(bh, bh_kv, s, causal, monkeypatch):
+    """bf16 B2 and B3 at hd 256 on the wgmma kernels (B2: one consumer
+    warpgroup of 64 q rows a CTA, m64n256 dQ += dS K; B3: two CTAs a key
+    tile, each owning 128 of dK's and dV's columns), MHA, GQA 4 and GQA 8,
+    a ragged S, causal and not: within (2**-8, 2**-7) of the plain
+    versions; outputs inside their tensors; a second launch gives the same
+    bits."""
     bf16_backward_matches_plain(256, bh, bh_kv, s, causal, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, bh_kv, s, causal", [(8, 2, 200, False), (4, 1, 333, True)])
+def test_tf32x3_bf16_hd512_backward_matches_plain(bh, bh_kv, s, causal, monkeypatch):
+    """bf16 B2 and B3 at hd 512 on the tf32x3 kernels that sum their first
+    products over two slices of 256 columns (dQ in two parts of 256
+    columns, dK and dV in four of 128), split: as at hd 16."""
+    bf16_backward_matches_plain(512, bh, bh_kv, s, causal, monkeypatch)
 
 
 def bf16_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
@@ -418,18 +433,20 @@ def bf16_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
     assert len(bufs) == 3
     for buf, n in bufs:
         assert torch.equal(buf[n:], torch.full((4096,), 7.0, device="cuda", dtype=bf16))
+    variant = {n: fa.route(n, bf16, hd) for n in ("flash_bwd_dq", "flash_bwd_dkv")}
     assert {n: c for n, c in fa.variant_counts().items() if n != "flash_fwd"} == {
-        n: {"wgmma": 0, "tf32x3": 2} for n in ("flash_bwd_dq", "flash_bwd_dkv")}
+        n: {v: 2 * (v == variant[n]) for v in fa.VARIANTS} for n in variant}
     for got, second in zip((dq, dk, dv), again):
         assert torch.equal(got, second)
-    close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), bf16, "tf32x3")
+    close(dq, fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, causal), bf16,
+          variant["flash_bwd_dq"])
     for got, want in zip((dk, dv), fa.flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal)):
-        close(got, want, bf16, "tf32x3")
+        close(got, want, bf16, variant["flash_bwd_dkv"])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd, width", [(48, 64), (8, 16), (112, 128), (136, 256)])
+@pytest.mark.parametrize("hd, width", [(48, 64), (8, 16), (112, 128), (136, 256), (320, 512)])
 def test_padded_head_dim_matches_plain_at_its_own_width(dtype, hd, width):
     """A head dim outside HEAD_DIMS (ROADMAP C3) runs through the kernels
     zero-padded to the next one: the dispatcher's output and dQ, dK, dV on
@@ -460,9 +477,9 @@ def test_padded_head_dim_matches_plain_at_its_own_width(dtype, hd, width):
     want = (fa.flash_fwd_plain(qf, kf, vf, True)[0],
             fa.flash_bwd_dq_plain(qf, kf, vf, dof, lse, delta, True),
             *fa.flash_bwd_dkv_plain(qf, kf, vf, dof, lse, delta, True))
-    variant = fa.ROUTES["flash_fwd", dtype, width]
-    for got, ref in zip((out, *(x.grad for x in leaves)), want):
-        close(flat(got), ref, dtype, variant)
+    variant = [fa.route(name, dtype, width) for name in fa.KERNEL_NAMES]
+    for got, ref, v in zip((out, *(x.grad for x in leaves)), want, (*variant, variant[2])):
+        close(flat(got), ref, dtype, v)
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
-"""Head dims up to 256 (ROADMAP C3, open above 256) on the CPU, against the
-JAX package: the dispatcher at hd 136, 192 (zero-padded to 256) and 256,
-one DiLoCo round of a model at hd 256, and the split rule of the tf32x3
+"""Head dims up to 256 (ROADMAP C3; above 256 in
+``tests/test_torch_attention_tf32_fwd.py``) on the CPU, against the JAX
+package: the dispatcher at hd 136, 192 (zero-padded to 256) and 256, one
+DiLoCo round of a model at hd 256, the split rules of the tf32x3
 backward at the hd-256 tiles (32-row streamed tiles, B3's columns in two
-CTAs).
+CTAs) and of the wgmma B3, and the routes at 256 and above.
 
 On the CPU the port's dispatcher runs each kernel's plain version at the
 padded width, the JAX dispatcher its scan path: the same float32 sums in
@@ -206,32 +207,70 @@ def test_split_rule_at_hd_256(shape, dq_splits, dkv_splits):
     assert got == (dq_splits, dkv_splits)
 
 
+# (B, H, Hkv, S, causal): chip_smoke.py's bf16 hd-256 shapes
+@pytest.mark.parametrize("shape, dkv_splits", [
+    ((4, 8, 1, 2048, True), 1),      # train_hd256: 256 CTAs, over one wave already
+    ((2, 8, 1, 2048, True), 3),      # gemma2b_hd256: 128 CTAs, 256 pairs each
+    ((1, 4, 2, 333, True), 11),      # ragged_gqa2_bf16_hd256: 24 CTAs, 12 pairs
+    ((1, 4, 2, 130, False), 6),      # noncausal_gqa2_bf16_hd256: 12 CTAs, 6 pairs
+])
+def test_wgmma_split_rule_at_hd_256(shape, dkv_splits):
+    """The wgmma B3 at bf16 hd 256 has two CTAs (column halves) per (KV
+    head, 64-key tile), one an SM, looping over group x 64-row q tiles: it
+    splits that loop only where the grid is under one wave of 132, into
+    the fewest parts that give two, never more than the loop's steps. The
+    wgmma B2 never splits, nor does any wgmma kernel below 256."""
+    b, h, hkv, s, causal = shape
+    args = (b * h, b * hkv, s, s, causal)
+    assert fa.bwd_splits("flash_bwd_dkv", *args, 256, "wgmma") == dkv_splits
+    assert fa.bwd_splits("flash_bwd_dq", *args, 256, "wgmma") == 1
+    assert fa.bwd_splits("flash_bwd_dkv", *args, 128, "wgmma") == 1
+
+
 def test_route_table_at_256():
-    """hd 256 is a route of all three kernels in float32 and bf16, on the
-    three-product TF32 kernels: no wgmma kernel takes it."""
+    """hd 256 is a route of all three kernels in float32 and bf16. In bf16
+    B2 and B3 run the wgmma kernels and B1 three-product TF32; in float32
+    all three run three-product TF32."""
     assert 256 in fa.HEAD_DIMS
+    want = {torch.float32: ("tf32x3",) * 3, torch.bfloat16: ("tf32x3", "wgmma", "wgmma")}
+    for dtype, variants in want.items():
+        assert tuple(fa.ROUTES[name, dtype, 256] for name in fa.KERNEL_NAMES) == variants
+
+
+@pytest.mark.parametrize("hd", [512, 768, 1024])
+def test_routes_above_256_are_tf32x3(hd):
+    """Every multiple of 256 above 256 is taken, by rule (it is no row of
+    ROUTES), and routed to three-product TF32 in both dtypes; the head dims
+    between are padded up to it."""
+    assert fa.takes(hd) and not fa.takes(hd - 8)
+    assert not any(key[2] == hd for key in fa.ROUTES)
+    assert fa.width(hd - 248) == fa.width(hd) == hd
     for name in fa.KERNEL_NAMES:
         for dtype in (torch.float32, torch.bfloat16):
-            assert fa.ROUTES[name, dtype, 256] == "tf32x3"
+            assert fa.route(name, dtype, hd) == "tf32x3"
 
 
 @pytest.mark.parametrize("drift", [None, (256, 64, 2), (256, 32, 1), (128, 32, 1)])
 def test_split_rule_tables_are_held_against_the_library(drift):
-    """``_tf32_lib`` holds STREAM_ROWS and COL_PARTS against each library's
-    ``nd_tf32_geometry`` (the kernels' Layout) at every (dtype, head dim)
-    the tf32x3 kernels serve: a library that agrees loads, one whose tiles
-    drifted at one head dim raises naming it."""
+    """``_tf32_lib`` holds stream_rows and col_parts against each library's
+    ``nd_tf32_geometry`` (the kernels' Layout) for every kernel at every
+    (dtype, head dim) the tf32x3 kernels serve, two wide head dims
+    included: a library that agrees loads, one whose tiles drifted at one
+    head dim raises naming it."""
     asked = []
 
-    def geometry(dtype, hd, rows, parts):
-        asked.append((dtype, hd))
-        want = (fa.STREAM_ROWS.get(hd, 64), fa.COL_PARTS.get(hd, 1))
+    def geometry(kernel, dtype, hd, rows, parts):
+        asked.append((kernel, dtype, hd))
+        want = (fa.stream_rows(hd), fa.col_parts(fa.KERNEL_NAMES[kernel], hd))
         rows._obj.value, parts._obj.value = drift[1:] if drift and drift[0] == hd else want
         return 0
 
     if drift is None:
         fa._check_geometry(geometry)
-        assert sorted(asked) == sorted({(0, hd) for hd in fa.HEAD_DIMS} | {(1, 16), (1, 256)})
+        f32 = {(0, hd) for hd in (*fa.HEAD_DIMS, 512, 768)}
+        bf16 = {(1, 16), (1, 512), (1, 768)}
+        assert sorted(asked) == sorted({(0, 1, 256)} | {(kernel, *row) for kernel in range(3)
+                                                         for row in f32 | bf16})
     else:
         with pytest.raises(RuntimeError, match=f"hd {drift[0]}"):
             fa._check_geometry(geometry)
