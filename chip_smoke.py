@@ -12,9 +12,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  card at the tolerance of its route, at shapes that cover
                  every (dtype, head dim) row of the route table (hd 16, 32,
                  64, 80, 96, 128, 256; ragged S, non-causal, S under one
-                 tile, MHA and GQA): bf16 B1, B2 and B3 at hd 128, 96, 80,
-                 64 and 32 and bf16 B2 and B3 at 256 run wgmma, the rest
-                 (every float32 row, bf16 at hd 16, bf16 B1 at 256)
+                 tile, MHA and GQA): bf16 B1, B2 and B3 at hd 256, 128, 96,
+                 80, 64 and 32 run wgmma (B1 at 256 the warp-specialised
+                 forward), the rest (every float32 row, bf16 at hd 16)
                  three-product TF32 on mma.sync (tf32x3). Above 256, where
                  the tf32x3 kernels sum over slices of 256 columns, three
                  rows: hd 512 in float32 and in bf16 (ragged S, GQA 4), and
@@ -83,8 +83,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  depth cut from 18 layers to 2) in bf16 over float32
                  masters with attention_impl="flash": W 2 x b 2 x S 2048,
                  H 2, 2 rounds. Every B1, B2 and B3 launch must be at
-                 (bf16, hd 256), B1 on tf32x3 and B2 and B3 on wgmma, and
-                 the losses finite; tokens/s and peak memory.
+                 (bf16, hd 256), all three on wgmma (B1 the
+                 warp-specialised forward), and the losses finite; tokens/s
+                 and peak memory.
 
 7. diloco_options_small - every DiLoCo option (quarantine, the bf16,
                  int8 and int4-integer wires, dynamics, heterogeneous H
@@ -1274,9 +1275,10 @@ def phase_train_hd256(smi: str) -> None:
     """train() at Gemma-2B's widths (GEMMA2B_WIDTH, depth cut to 2 of 18
     layers; weights and tokens from seed 0), bf16 compute over float32
     masters, flash attention: W 2 workers x b 2 sequences x S 2048, H 2, 2
-    rounds. Every B1, B2 and B3 launch must be at (bf16, hd 256), B1 on
-    tf32x3 and B2 and B3 on wgmma, the losses finite and every outer step
-    must move the snapshot."""
+    rounds. Every B1, B2 and B3 launch must be at (bf16, hd 256) and on
+    the variant fa.route names there: wgmma for all three since B1 runs
+    the warp-specialised forward (flash_fwd_ws_kernel). The losses must be
+    finite and every outer step must move the snapshot."""
     cfg = TrainConfig(
         seed=0, batch_size=2, per_device_batch_size=2, seq_length=2048,
         warmup_steps=1, total_steps=4, inner_steps=2, num_workers=2,

@@ -1,13 +1,13 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16: forward (B1), dQ
-// (B2) and dK/dV (B3) at head dims 128, 96, 80, 64 and 32, and B2 and B3 at
-// 256. The float32 path, bf16 at hd 16, B1 at bf16 hd 256 and every head dim
-// above 256 run the three-product TF32 kernels of
-// flash_attention_tf32_{fwd,dq,dkv}.cu;
+// (B2) and dK/dV (B3) at head dims 256, 128, 96, 80, 64 and 32. The float32
+// path, bf16 at hd 16 and every head dim above 256 run the three-product TF32
+// kernels of flash_attention_tf32_{fwd,dq,dkv}.cu;
 // ops/cuda/flash_attention.py holds the route table that picks one kernel per
 // (kernel, dtype, head dim).
 //
 // Replaces the Pallas TPU kernels of nanodiloco_tpu/ops/pallas/flash_attention.py:
 //   B1 flash_fwd_tc_kernel<HD>      <- _fwd_call / _fwd_kernel
+//      flash_fwd_ws_kernel<256>     (hd 256)
 //   B2 flash_bwd_dq_tc_kernel<HD>   <- _flash_bwd / _bwd_dq_kernel
 //   B3 flash_bwd_dkv_tc_kernel<HD>  <- _flash_bwd / _bwd_dkv_kernel
 // Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, HD]; k, v, dK, dV
@@ -154,6 +154,51 @@
 //       unsplit ran 1.42x slower at Gemma-2B's shape (128 CTAs) and 3%
 //       faster at train_hd256's (256 CTAs: split in two, the second pass
 //       cost more than the balance gained), hence the one-wave condition.
+//   B1 at HD 256 (flash_fwd_ws_kernel). What bounds it: operations, two
+//       S x S x 256 products a head (at train_hd256's shape, B 4 x 8 query
+//       heads on 1 KV head, S 2048, causal: 0.0695 ms at 989 TFLOP/s; at
+//       Gemma-2B's, B 2: 0.0348), against 8 MB of Q, K, V and O. The hd-128
+//       kernel's shape does not fit at 256: Q (128 rows, 64 KB) and two
+//       stages of 128-key K and V (64 KB each) are 320 KB of the 227 a CTA
+//       may have, and a consumer thread would hold O (128 registers), S (64)
+//       and packed P (32), 224 before any address, where 288 threads leave
+//       ptxas 168. Design, as
+//       FlashAttention-3's forward (Shah et al. 2024, arXiv:2407.08608,
+//       sections 3.1-3.2): 128 q rows a CTA in two consumer warpgroups, so K
+//       and V are read once for 128 rows as at hd 128; 64-key K and V tiles,
+//       each in a two-stage TMA ring with its own full/empty barriers, so K
+//       of a tile is refilled as soon as its S is done, V after its product
+//       (Q 64 KB + 2 x (32 + 32) KB = 192 KB); S = Q K^T on m64n64k16 (SS,
+//       16 k-slices across the four boxes), O += P V on m64n256k16 (RS, V
+//       MN-major across the four boxes). The producer is a whole warpgroup
+//       (384 threads) that drops to 24 registers (setmaxnreg) so that the
+//       consumers rise to 240: O 128, S 32, packed P 16. (a) Each consumer
+//       issues S_j and, after rescaling O, O += P_{j-1} V_{j-1}, waits for S
+//       alone (wgmma_wait<1>) and runs the softmax of S_j in place while the
+//       second product is in flight; P_j is packed after that product
+//       retires. (b) The two warpgroups issue their products in turns on
+//       two named barriers, so that one's softmax runs while the other's
+//       products hold the tensor cores. ptxas (scripts/torch_kernel_report.py):
+//       168 registers at launch, the consumers reaching R221 under
+//       setmaxnreg 240, no spills, no serialized wgmma. Two compiler rules
+//       shaped it: a non-wgmma instruction that wrote a register of a
+//       product in flight (P packed while O += P V ran) made ptxas
+//       serialize every wgmma of the kernel (C7513), hence P packed after
+//       the wait (the products also take scale-d as a constant in the
+//       instruction, and the first S product writes its registers without
+//       reading them: hopper.cuh's _first / _acc forms); and an inline trap
+//       on a wait's path (mbar_wait's timeout) left the consumers allocated
+//       within the launch's 168 registers (spills, C7512), hence
+//       mbar_wait_outlined.
+//       Each step of the design was timed against this kernel in one call
+//       of scripts/torch_flash_ab.py each, its tree with that step taken
+//       back (device_ms medians at train_hd256's / Gemma-2B's shape; this
+//       kernel 0.1391-0.1404 / 0.0693-0.0702 ms on one H100; PERF.md section
+//       6): the unpipelined loop with one producer warp (288 threads,
+//       ptxas 168 registers, 332 bytes spilled, C7512) 0.2507 / 0.1263;
+//       that loop with the producer warpgroup and setmaxnreg (R183, no
+//       spills) 0.1462 / 0.0732; and (a) without (b) (R200) 0.1427 / 0.0726.
+//       80-key tiles (FlashAttention-3's own choice at 256) were not built.
 // P (B1) and P and dS (B3, B2) are rounded to bf16 as the left operand of the
 // last product, as every tensor-core flash attention does; the plain versions
 // keep them in float32, so the tolerance against them is wider than one
@@ -360,6 +405,261 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
       __syncwarp();
       if (lane == 0) mbar_arrive(empty(s));
     }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int row = row_lo + 8 * h;
+      if (row >= sq) continue;
+      const float inv = 1.f / fmaxf(l[h], 1e-30f);
+      uint32_t* out = reinterpret_cast<uint32_t*>(o + (static_cast<size_t>(bh) * sq + row) * HD);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        out[4 * j + (lane & 3)] = pack_bf16(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+      if ((lane & 3) == 0)
+        lse[static_cast<size_t>(bh) * sq + row] =
+            l[h] > 0.f ? (m[h] + log2f(l[h])) * kLn2 : -INFINITY;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1 at HD 256: the warp-specialised forward (the source note). Grid and
+// rows as flash_fwd_tc_kernel; 64-key K and V tiles, each in a two-stage ring
+// of its own. Threads 0-255 are the two consumer warpgroups, 256-383 the
+// producer warpgroup, which hands its registers to them (setmaxnreg).
+// ---------------------------------------------------------------------------
+constexpr int kWsKeys = 64;        // keys per K or V tile
+constexpr int kWsThreads = 384;
+constexpr int kWsProducerRegs = 24;
+constexpr int kWsConsumerRegs = 240;  // 128 x 24 + 256 x 240 <= 65,536
+
+template <int HD>
+struct FwdWs {
+  using T = Tile<HD>;
+  static constexpr uint32_t kQTile = T::bytes(kFwdRows);  // 64 KB at hd 256
+  static constexpr uint32_t kKvTile = T::bytes(kWsKeys);  // K or V: 32 KB at hd 256
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQTile;                   // K[s] at kK + s tiles
+  static constexpr uint32_t kV = kK + 2 * kKvTile;         // V[s] at kV + s tiles
+  static constexpr uint32_t kBars = kV + 2 * kKvTile;      // 192 KB at hd 256
+  static constexpr size_t kSmem = 1024 + kBars + 128;
+};
+
+// S = Q K^T of one 64-key tile into sc (SS, HD / 16 k-slices), committed as
+// one group. qa: this warpgroup's 64 rows of the 128-row Q tile.
+template <int HD>
+__device__ __forceinline__ void ws_scores(float (&sc)[kWsKeys / 2], uint32_t qa, uint32_t ka) {
+  using T = Tile<HD>;
+  wgmma_fence();
+  wgmma_m64n64k16_ss_first(sc, T::kmajor(qa), T::kmajor(ka));
+#pragma unroll
+  for (int kk = 1; kk < HD / 16; ++kk)
+    wgmma_m64n64k16_ss_acc(sc, T::kmajor(qa + T::kslice(kk, kFwdRows)),
+                           T::kmajor(ka + T::kslice(kk, kWsKeys)));
+  wgmma_commit();
+}
+
+// O += P V of one 64-key tile (RS, P packed bf16 in registers, V MN-major),
+// committed as one group.
+template <int HD>
+__device__ __forceinline__ void ws_pv(float (&acc)[Tile<HD>::kN / 2],
+                                      const uint32_t (&pf)[kWsKeys / 4], uint32_t va) {
+  using T = Tile<HD>;
+  static_assert(T::kN == 256, "ws_pv: the m64n256 product (instantiated at hd 256 only)");
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kWsKeys / 16; ++kk)
+    wgmma_m64n256k16_rs_tb_acc(acc, pf[4 * kk], pf[4 * kk + 1], pf[4 * kk + 2], pf[4 * kk + 3],
+                               T::mnmajor(va, kk, kWsKeys));
+  wgmma_commit();
+}
+
+// The online softmax of one score tile (keys kb ..) in place: masks it,
+// updates the row max m (log2 units) and sum l, leaves P in sc and returns
+// each row half's correction of O in corr.
+__device__ __forceinline__ void ws_softmax(float (&sc)[kWsKeys / 2], float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int kb, int row_lo, int row_min,
+                                           int lane, int sk, int causal, float c) {
+  if (kb + kWsKeys > sk || (causal && kb + kWsKeys - 1 > row_min)) {
+#pragma unroll
+    for (int i = 0; i < kWsKeys / 2; ++i) {
+      const int col = kb + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int row = row_lo + 8 * ((i >> 1) & 1);
+      if (col >= sk || (causal && col > row)) sc[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kWsKeys / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+  float msafe[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float m_new = fmaxf(m[h], mx[h] * c);
+    msafe[h] = m_new == -INFINITY ? 0.f : m_new;
+    corr[h] = exp2f(m[h] - msafe[h]);
+    m[h] = m_new;
+    l[h] *= corr[h];
+  }
+#pragma unroll
+  for (int i = 0; i < kWsKeys / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    const float p = exp2f(fmaf(sc[i], c, -msafe[h]));
+    sc[i] = p;
+    l[h] += p;  // this thread's share; the four lanes of a row add up at the end
+  }
+}
+
+// P (in sc) packed to bf16 pairs: the A fragments of O += P V.
+__device__ __forceinline__ void ws_pack(const float (&sc)[kWsKeys / 2], uint32_t (&pf)[kWsKeys / 4]) {
+#pragma unroll
+  for (int j = 0; j < kWsKeys / 4; ++j) pf[j] = pack_bf16(sc[2 * j], sc[2 * j + 1]);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kWsThreads, 1)
+    flash_fwd_ws_kernel(const __grid_constant__ CUtensorMap q_map,
+                        const __grid_constant__ CUtensorMap k_map,
+                        const __grid_constant__ CUtensorMap v_map,
+                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int group,
+                        int sq, int sk, int causal, float scale) {
+  using T = Tile<HD>;
+  using L = FwdWs<HD>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sQ = base + L::kQ;
+  const uint32_t bars = base + L::kBars;
+  const uint32_t q_full = bars;
+  // stage s of K: full at bars + 8 + 8 s, empty at + 40 + 8 s; of V at + 24, + 56
+  auto k_full = [&](int s) { return bars + 8 + 8 * s; };
+  auto v_full = [&](int s) { return bars + 24 + 8 * s; };
+  auto k_empty = [&](int s) { return bars + 40 + 8 * s; };
+  auto v_empty = [&](int s) { return bars + 56 + 8 * s; };
+  auto tile_k = [&](int s) { return base + L::kK + L::kKvTile * s; };
+  auto tile_v = [&](int s) { return base + L::kV + L::kKvTile * s; };
+
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
+  const int nk = (sk + kWsKeys - 1) / kWsKeys;
+  const int last_q = min(q0 + kFwdRows, sq) - 1;
+  const int n_kt = causal ? min(nk, last_q / kWsKeys + 1) : nk;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), 8);  // lane 0 of each consumer warp
+      mbar_init(v_empty(s), 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ---- producer: one thread issues every TMA load ----
+    setmaxnreg_dec<kWsProducerRegs>();
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      mbar_arrive_expect_tx(q_full, L::kQTile);
+      for (int b = 0; b < T::kBoxes; ++b)
+        tma_load_3d(sQ + b * T::box(kFwdRows), &q_map, q_full, T::kCols * b, q0, bh);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt & 1;
+        const uint32_t ph = ((kt >> 1) & 1) ^ 1;
+        mbar_wait_outlined(k_empty(s), ph);
+        mbar_arrive_expect_tx(k_full(s), L::kKvTile);
+        for (int b = 0; b < T::kBoxes; ++b)
+          tma_load_3d(tile_k(s) + b * T::box(kWsKeys), &k_map, k_full(s), T::kCols * b,
+                      kt * kWsKeys, bkv);
+        mbar_wait_outlined(v_empty(s), ph);
+        mbar_arrive_expect_tx(v_full(s), L::kKvTile);
+        for (int b = 0; b < T::kBoxes; ++b)
+          tma_load_3d(tile_v(s) + b * T::box(kWsKeys), &v_map, v_full(s), T::kCols * b,
+                      kt * kWsKeys, bkv);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: q rows q0 + 64 wg .. + 63 ----
+    setmaxnreg_inc<kWsConsumerRegs>();
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int row_lo = q0 + 64 * wg + 16 * warp + (lane >> 2);  // and row_lo + 8
+    const int row_min = q0 + 64 * wg;
+    const float c = scale * kLog2e;
+    const uint32_t qa = sQ + wg * 64 * T::kSw;
+    auto release = [&](uint32_t bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    float acc[T::kN / 2];
+#pragma unroll
+    for (int i = 0; i < T::kN / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+    float sc[kWsKeys / 2];
+    uint32_t pf[kWsKeys / 4];
+
+    mbar_wait_outlined(q_full, 0);
+    // (b): named barrier 1 + wg is this warpgroup's turn to issue its
+    // products, which the other opens by arriving at it after its own turn;
+    // the second warpgroup opens the first's first turn and leaves its own
+    // last turn unanswered, so every arrive meets a sync.
+    auto turn_begin = [&]() { named_bar_sync(1 + wg, 256); };
+    auto turn_end = [&](bool last) {
+      if (!(last && wg == 1)) named_bar_arrive(2 - wg, 256);
+    };
+    if (wg == 1) named_bar_arrive(1, 256);
+    // (a): S_j and O += P_{j-1} V_{j-1} in flight together, the softmax of
+    // S_j run under the second. As in FlashAttention-3's forward, P_j stays
+    // float in sc until that product retires and O is rescaled between the
+    // two issues, so no register of a product in flight is written (the
+    // source note: ptxas would serialize every wgmma).
+    mbar_wait_outlined(k_full(0), 0);
+    turn_begin();
+    ws_scores<HD>(sc, qa, tile_k(0));
+    turn_end(false);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(k_empty(0));
+    ws_softmax(sc, m, l, corr, 0, row_lo, row_min, lane, sk, causal, c);
+    ws_pack(sc, pf);
+    for (int kt = 1; kt < n_kt; ++kt) {
+      const int s = kt & 1, sp = s ^ 1;
+      mbar_wait_outlined(k_full(s), (kt >> 1) & 1);
+      mbar_wait_outlined(v_full(sp), ((kt - 1) >> 1) & 1);
+      turn_begin();
+      ws_scores<HD>(sc, qa, tile_k(s));
+#pragma unroll
+      for (int i = 0; i < T::kN / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+      ws_pv<HD>(acc, pf, tile_v(sp));
+      turn_end(false);
+      wgmma_wait<1>();  // S_j; O += P_{j-1} V_{j-1} still in flight
+      fence_regs(sc);
+      release(k_empty(s));
+      ws_softmax(sc, m, l, corr, kt * kWsKeys, row_lo, row_min, lane, sk, causal, c);
+      fence_regs(sc);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pf);
+      release(v_empty(sp));
+      ws_pack(sc, pf);
+    }
+    const int s = (n_kt - 1) & 1;
+    mbar_wait_outlined(v_full(s), ((n_kt - 1) >> 1) & 1);
+    turn_begin();
+#pragma unroll
+    for (int i = 0; i < T::kN / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    ws_pv<HD>(acc, pf, tile_v(s));
+    turn_end(true);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pf);
+    release(v_empty(s));
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -813,6 +1113,27 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* l
 }
 
 template <int HD>
+int launch_fwd_ws(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+                  int group, int sq, int sk, int causal, float scale, cudaStream_t stream) {
+  using T = Tile<HD>;
+  using L = FwdWs<HD>;
+  CUtensorMap qm, km, vm;
+  if (!bf16_rows_map(&qm, q, bh, sq, kFwdRows, HD, T::kCols) ||
+      !bf16_rows_map(&km, k, bh / group, sk, kWsKeys, HD, T::kCols) ||
+      !bf16_rows_map(&vm, v, bh / group, sk, kWsKeys, HD, T::kCols))
+    return kErrTensorMap;
+  constexpr size_t smem = L::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_ws_kernel<HD>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(bh, (sq + kFwdRows - 1) / kFwdRows);
+  flash_fwd_ws_kernel<HD><<<grid, kWsThreads, smem, stream>>>(
+      qm, km, vm, static_cast<__nv_bfloat16*>(o), lse, group, sq, sk, causal, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                  const float* delta, void* dq, int bh, int group, int sq, int sk, int causal,
                  float scale, cudaStream_t stream) {
@@ -872,7 +1193,7 @@ extern "C" {
 
 const char* nd_tc_error_string(int code) {
   if (code == kErrHeadDim)
-    return "the tensor-core kernels take head dims 32, 64, 80, 96 and 128 (B2 and B3 also 256)";
+    return "the tensor-core kernels take head dims 32, 64, 80, 96, 128 and 256";
   if (code == kErrTensorMap)
     return "cuTensorMapEncodeTiled refused a tensor (alignment, strides or driver)";
   if (code == kErrSplit)
@@ -885,6 +1206,8 @@ const char* nd_tc_error_string(int code) {
 int nd_flash_fwd_tc(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
                     int bh, int group, int sq, int sk, int causal, float scale, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (hd == 256)
+    return launch_fwd_ws<256>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
   if (hd == 128) return launch_fwd_tc<128>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
   if (hd == 96) return launch_fwd_tc<96>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);
   if (hd == 80) return launch_fwd_tc<80>(q, k, v, o, lse, bh, group, sq, sk, causal, scale, st);

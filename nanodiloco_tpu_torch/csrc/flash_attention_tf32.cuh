@@ -1,7 +1,7 @@
 // Flash attention on Hopper (sm_90a) as three-product TF32 ("3xTF32") on the
 // tensor cores: the forward (B1), dQ (B2) and dK/dV (B3) for float32 at every
-// head dim, for bf16 at hd 16, B1 for bf16 at hd 256, and both dtypes at hd
-// 256 n above 256 (bf16 at hd 32-256 otherwise runs the wgmma kernels of
+// head dim, for bf16 at hd 16, and both dtypes at hd 256 n above 256 (bf16
+// at hd 32-256 runs the wgmma kernels of
 // flash_attention_tc.cu; ops/cuda/flash_attention.py's route() picks one
 // kernel per (kernel, dtype, head dim)). This header holds what the three
 // share; each kernel has a source of its own, so that nvcc builds them in
@@ -14,8 +14,8 @@
 // Layouts are the TPU kernels' own: q, o, dO, dQ [BH, Sq, HD]; k, v, dK, dV
 // [BH / group, Sk, HD] (GQA: query head bh reads KV head bh / group, K/V are
 // never expanded); lse and delta [BH, Sq] float32. Head dims 16, 32, 64, 80,
-// 96, 128 and 256 in float32, 16 in bf16 (B1 also 256), and every multiple
-// of 256 above 256 in both.
+// 96, 128 and 256 in float32, 16 in bf16, and every multiple of 256 above
+// 256 in both.
 //
 // Bound on the H100. B1 does 2, B2 3 and B3 4 S x S x HD products per head on
 // O(S x HD) bytes: operations bound all three. The CUDA cores' float32 peak
@@ -41,8 +41,8 @@
 // are widened to float32 once, where float32 tiles are split (at hd 256 they
 // stay bf16 and are widened as read, below); dQ, dK, dV and O are rounded to
 // bf16 as they are stored. The bf16 instances serve hd 16, which wgmma's
-// m64nNk16 tiles do not take, B1 at hd 256, which the wgmma forward's tiles
-// do not reach, and the head dims above 256.
+// m64nNk16 tiles do not take, and the head dims above 256 (through the
+// hd-256 tiles, below).
 //
 // Design. 128 threads, four warps of 16 rows of a 64-row tile. Every tile
 // lies row-major in shared memory with a row stride of HD + 4 floats
@@ -141,7 +141,7 @@
 //     B2 and B3 200 KB (as at 256; B3 reads K and V again for every pair);
 //   - the backward's loop split (bwd_splits) and its second pass stay.
 // ptxas: B1 239 registers (float32) and 255 with 28 bytes spilled (bf16: 9
-// LDL, 5 STL; the state of the slice loop on top of the hd-256 kernel's 252),
+// LDL, 5 STL; the state of the slice loop on top of the hd-256 tiles' own),
 // B2 254 / 244, B3 254 / 255, no C7512. No model has these head dims: they
 // are exact, not fast (PERF.md has their times beside their bounds).
 
@@ -495,9 +495,8 @@ int tile_geometry_wide(int, int kernel, int hd, int* rows, int* col_parts) {
 }  // namespace
 
 // dtype 0 = float32 at every head dim, 1 = bf16 at hd 16 (the head dim no
-// wgmma kernel of flash_attention_tc.cu takes; B1 also instantiates bf16 at
-// 256, in its own source), both at hd 256 n above 256 (LAUNCH##_wide<T>,
-// which takes hd first).
+// wgmma kernel of flash_attention_tc.cu takes), both at hd 256 n above 256
+// (LAUNCH##_wide<T>, which takes hd first).
 #define ND_TF32(LAUNCH, ...)                                   \
   if (hd > 256 && hd % 256 == 0) {                             \
     if (dtype == 0) return LAUNCH##_wide<float>(hd, __VA_ARGS__); \
@@ -523,7 +522,7 @@ int tile_geometry_wide(int, int kernel, int hd, int* rows, int* col_parts) {
 extern "C" const char* nd_tf32_error_string(int code) {
   if (code == -1)
     return "dtype or head dim not instantiated (float32: 16, 32, 64, 80, 96, 128, 256; "
-           "bfloat16: 16, and 256 in the forward; both: 256 n above 256)";
+           "bfloat16: 16; both: 256 n above 256)";
   if (code == -2) return "split count out of [1, 65535], or a split launch without a workspace";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
@@ -534,6 +533,5 @@ extern "C" const char* nd_tf32_error_string(int code) {
 // CPU and holds it against this when it loads a library; -1 as the
 // launchers.
 extern "C" int nd_tf32_geometry(int kernel, int dtype, int hd, int* rows, int* col_parts) {
-  if (dtype == 1 && hd == 256) return tile_geometry<bf16, 256>(kernel, hd, rows, col_parts);
   ND_TF32(tile_geometry, kernel, hd, rows, col_parts)
 }

@@ -1,8 +1,9 @@
 // The forward (B1) on Hopper (sm_90a) as three-product TF32: replaces
 // _fwd_call / _fwd_kernel of nanodiloco_tpu/ops/pallas/flash_attention.py for
-// float32 at every head dim and bf16 at hd 16 and 256. It does two S x S x HD
-// products per head on O(S x HD) bytes: operations bound it. The design,
-// the bound and the bf16 instances: flash_attention_tf32.cuh.
+// float32 at every head dim, bf16 at hd 16, and both above 256 (hd 256 n).
+// It does two S x S x HD products per head on O(S x HD) bytes: operations
+// bound it. The design, the bound and the bf16 instances:
+// flash_attention_tf32.cuh.
 
 #include "flash_attention_tf32.cuh"
 
@@ -322,9 +323,6 @@ extern "C" {
 int nd_flash_fwd_tf32(int dtype, int hd, const void* q, const void* k, const void* v, void* o,
                       float* lse, int bh, int group, int sq, int sk, int causal, float scale,
                       void* stream) {
-  if (dtype == 1 && hd == 256)
-    return launch_fwd_tf32<bf16, 256>(q, k, v, o, lse, bh, group, sq, sk, causal, scale,
-                                      static_cast<cudaStream_t>(stream));
   ND_TF32(launch_fwd_tf32, q, k, v, o, lse, bh, group, sq, sk, causal, scale,
           static_cast<cudaStream_t>(stream))
 }

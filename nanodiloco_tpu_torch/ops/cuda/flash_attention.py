@@ -18,15 +18,15 @@ and ``cuda_flash_attention`` pads it up to ``width(hd)``. ``ROUTES`` is
 
 - ``wgmma``: wgmma fed by TMA
   (``nanodiloco_tpu_torch/csrc/flash_attention_tc.cu``), for bf16: all
-  three kernels at hd 128, 96, 80, 64 and 32 (hd 80 in the hd-96 tile,
-  its last 16 columns zeros), and B2 and B3 at hd 256 (B2 with one
-  consumer warpgroup a CTA, B3 with two CTAs a key tile that split dK's
-  and dV's columns: the source note);
+  three kernels at hd 256, 128, 96, 80, 64 and 32 (hd 80 in the hd-96
+  tile, its last 16 columns zeros; at hd 256 B1 is a warp-specialised
+  kernel whose softmax runs under the products, B2 has one consumer
+  warpgroup a CTA, and B3 two CTAs a key tile that split dK's and dV's
+  columns: the source note);
 - ``tf32x3``: three-product TF32 with mma.sync
   (``nanodiloco_tpu_torch/csrc/flash_attention_tf32_{fwd,dq,dkv}.cu`` on
   ``flash_attention_tf32.cuh``), for all three kernels in float32 at every
-  head dim, in bf16 at hd 16, B1 in bf16 at hd 256, and both dtypes above
-  256. One TF32
+  head dim, in bf16 at hd 16, and both dtypes above 256. One TF32
   product keeps 10 mantissa bits and would not hold the float32
   tolerance; hi·hi + hi·lo + lo·hi of each operand's split keeps about
   2^-22. A bf16 value is exact in TF32 (lo = 0), so the bf16 instances
@@ -78,9 +78,8 @@ HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_NAMES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 VARIANTS = ("wgmma", "tf32x3")
-# the head dims the wgmma kernels take, in bf16 only: all three kernels,
-# and B2 and B3 at 256 too
-_TENSOR_CORE_HEAD_DIMS = (32, 64, 80, 96, 128)
+# the head dims the wgmma kernels take, in bf16 only: all three kernels
+_TENSOR_CORE_HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 
 
 def takes(hd: int) -> bool:
@@ -97,11 +96,10 @@ def width(hd: int) -> int:
 
 def route(name: str, dtype, hd: int) -> str:
     """The variant that serves kernel ``name`` at (dtype, hd): wgmma for
-    bf16 where it takes the head dim (B2 and B3 also at 256),
-    three-product TF32 for the rest (every float32 row, bf16 at hd 16, B1
-    at bf16 hd 256, and every head dim above 256)."""
-    if dtype == torch.bfloat16 and (hd in _TENSOR_CORE_HEAD_DIMS
-                                    or (hd == 256 and name != "flash_fwd")):
+    bf16 where it takes the head dim (32 to 256), three-product TF32 for
+    the rest (every float32 row, bf16 at hd 16, and every head dim above
+    256). All three kernels share the route."""
+    if dtype == torch.bfloat16 and hd in _TENSOR_CORE_HEAD_DIMS:
         return "wgmma"
     return "tf32x3"
 

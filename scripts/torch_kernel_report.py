@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
 """Build the port's CUDA kernels of one checkout and report, per kernel
 instance, what the compiler made of it: ptxas' registers and spill bytes,
-whether ptxas serialized its wgmma instructions (warning C7512), and the
-local-memory loads and stores (LDL, STL) and wgmma instructions (HGMMA) in
-its SASS.
+whether ptxas serialized its wgmma instructions (warning C7512 or C7513:
+the warning's code, else false), and in its SASS the local-memory loads and
+stores (LDL, STL), the wgmma instructions (HGMMA), the waits on them
+(WARPGROUP.DEPBAR: one after every HGMMA where ptxas serialized them) and
+the highest register a thread touches (max_register: above ``registers``,
+ptxas' count at launch, where a warpgroup raised its limit with
+setmaxnreg).
 
     python3 scripts/torch_kernel_report.py [--tree <checkout>] [--source flash_attention_tc ...]
 
@@ -11,8 +15,8 @@ its SASS.
 kernels build into its own ``build/kernels/<hash>/``. ``--source`` names
 one or more sources of ``csrc/`` (without ``.cu``). Prints one JSON line:
 ``{"tree", "source", "build_s", "kernels": {name<HD>: {"registers",
-"spill_stores", "spill_loads", "serialized_wgmma", "LDL", "STL",
-"HGMMA"}}}``. Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit of the
+"spill_stores", "spill_loads", "serialized_wgmma", "LDL", "STL", "HGMMA",
+"DEPBAR", "max_register"}}}``. Needs ``nvcc`` and ``cuobjdump`` (the CUDA toolkit of the
 card's machine); it launches nothing, so it needs no card.
 """
 
@@ -38,25 +42,31 @@ def _demangle(symbols: list[str]) -> list[str]:
 
 
 def ptxas_report(log: str) -> dict[str, dict]:
-    """Registers, spills and C7512 per kernel from an ``-Xptxas=-v`` log."""
+    """Registers, spills and serialized wgmma (C7512, C7513) per kernel from
+    an ``-Xptxas=-v`` log."""
     entries, current = {}, None
     for line in log.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             current = m.group(1)
             entries.setdefault(current, {"serialized_wgmma": False})
+        elif m := re.search(r"Function properties for (\S+)", line):
+            # a device function's own block (mbar_timeout) is not the kernel's
+            current = m.group(1) if m.group(1) in entries else None
         elif current and (m := re.search(r"Used (\d+) registers", line)):
             entries[current]["registers"] = int(m.group(1))
         elif current and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                          line)):
             entries[current]["spill_stores"] = int(m.group(1))
             entries[current]["spill_loads"] = int(m.group(2))
-        if "C7512" in line and (m := re.search(r"function '(\S+)'", line)):
-            entries.setdefault(m.group(1), {})["serialized_wgmma"] = True
+        if (code := re.search(r"\((C751[23])\)", line)) and (
+                m := re.search(r"function '(\S+)'", line)):
+            entries.setdefault(m.group(1), {})["serialized_wgmma"] = code.group(1)
     return dict(zip(_demangle(list(entries)), entries.values()))
 
 
 def sass_report(lib: Path) -> dict[str, dict]:
-    """LDL, STL and HGMMA instruction counts per kernel in a library's SASS."""
+    """LDL, STL, HGMMA and WARPGROUP.DEPBAR counts and the highest register
+    per kernel in a library's SASS."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -64,11 +74,13 @@ def sass_report(lib: Path) -> dict[str, dict]:
     for line in sass.splitlines():
         if m := re.search(r"Function : (\S+)", line):
             current = m.group(1)
-            counts[current] = {"LDL": 0, "STL": 0, "HGMMA": 0}
+            counts[current] = {"LDL": 0, "STL": 0, "HGMMA": 0, "DEPBAR": 0, "max_register": -1}
         elif current:
-            for op in counts[current]:
+            for op in ("LDL", "STL", "HGMMA", "DEPBAR"):
                 if re.search(rf"\b{op}\b", line):
                     counts[current][op] += 1
+            regs = [int(r) for r in re.findall(r"\bR(\d+)\b", line)]
+            counts[current]["max_register"] = max([counts[current]["max_register"], *regs])
     return dict(zip(_demangle(list(counts)), counts.values()))
 
 

@@ -198,13 +198,11 @@ def test_shape_counts_key_each_launch_and_outlive_reset_launch_counts():
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_route_table(name, dtype, hd):
     """Two designs, both on the tensor cores: bf16 goes to the wgmma kernels
-    at hd 128, 96, 80, 64 and 32 (and B2 and B3 at 256), and to
-    three-product TF32 at hd 16 (and B1 at 256); every float32 row goes to
-    three-product TF32. ROUTES is route() row by row, and no FMA variant is
-    left."""
+    at hd 256, 128, 96, 80, 64 and 32, all three kernels, and to
+    three-product TF32 at hd 16; every float32 row goes to three-product
+    TF32. ROUTES is route() row by row, and no FMA variant is left."""
     if dtype == torch.bfloat16:
-        tc = hd in (128, 96, 80, 64, 32) or (hd == 256 and name != "flash_fwd")
-        want = "wgmma" if tc else "tf32x3"
+        want = "wgmma" if hd in (256, 128, 96, 80, 64, 32) else "tf32x3"
     else:
         want = "tf32x3"
     assert fa.ROUTES[name, dtype, hd] == want == fa.route(name, dtype, hd)
@@ -276,12 +274,19 @@ def test_tensor_core_dq_matches_jax_flash_attention(hd, group, causal):
     torch.testing.assert_close(got, want, rtol=2.0 ** -7, atol=2.0 ** -8 * want.abs().max().item())
 
 
-def tensor_core_fwd(q, k, v, causal):
+# keys per K/V tile of the wgmma B1: 64 in the warp-specialised kernel of hd
+# 256 (flash_fwd_ws_kernel), 128 below it (flash_fwd_tc_kernel)
+def fwd_key_tile(hd):
+    return 64 if hd == 256 else 128
+
+
+def tensor_core_fwd(q, k, v, causal, keys=128):
     """The tensor-core B1's numerics in plain float32: S from the bf16 inputs
-    with float32 sums, the online softmax over 128-key tiles (the kernel's
-    K/V tile), P rounded to bf16 before O += P V (it is the register operand
-    of that wgmma) while the row sum l adds the float32 P, then O / l rounded
-    to bf16 as the epilogue does. Returns (O, lse [BH, Sq, 1])."""
+    with float32 sums, the online softmax over tiles of ``keys`` keys (the
+    kernel's K/V tile, ``fwd_key_tile``), P rounded to bf16 before
+    O += P V (it is the register operand of that wgmma) while the row sum l
+    adds the float32 P, then O / l rounded to bf16 as the epilogue does.
+    Returns (O, lse [BH, Sq, 1])."""
     g = q.shape[0] // k.shape[0]
     kf, vf = (x.float().repeat_interleave(g, dim=0) for x in (k, v))
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -291,15 +296,15 @@ def tensor_core_fwd(q, k, v, causal):
     m = torch.full(s.shape[:2], -math.inf)
     l = torch.zeros(s.shape[:2])
     acc = torch.zeros(q.shape)
-    for j0 in range(0, s.shape[2], 128):
-        sj = s[..., j0:j0 + 128]
+    for j0 in range(0, s.shape[2], keys):
+        sj = s[..., j0:j0 + keys]
         m_new = torch.maximum(m, sj.amax(-1))
         m_safe = torch.where(m_new == -math.inf, torch.zeros_like(m_new), m_new)
         corr = torch.exp(m - m_safe)
         p = torch.exp(sj - m_safe[..., None])
         l = l * corr + p.sum(-1)
         acc = acc * corr[..., None] + torch.matmul(p.to(torch.bfloat16).float(),
-                                                   vf[:, j0:j0 + 128])
+                                                   vf[:, j0:j0 + keys])
         m = m_new
     o = (acc / l.clamp_min(1e-30)[..., None]).to(torch.bfloat16)
     lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), torch.full_like(l, -math.inf))
@@ -336,7 +341,7 @@ def tensor_core_close(got, want):
                                atol=2.0 ** -8 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("hd", [128, 96, 80, 64, 32])
+@pytest.mark.parametrize("hd", [256, 128, 96, 80, 64, 32])
 @pytest.mark.parametrize("group, s, causal", [(1, 64, True), (4, 200, True), (2, 200, False)])
 def test_tensor_core_fwd_and_dkv_rounding_within_their_tolerance(group, s, causal, hd):
     """The tolerance chip_smoke.py holds the tensor-core B1 and B3 to
@@ -344,13 +349,13 @@ def test_tensor_core_fwd_and_dkv_rounding_within_their_tolerance(group, s, causa
     (B3) to bf16 before the last product: the kernels' numerics, emulated
     on the CPU, stay within it of flash_fwd_plain and flash_bwd_dkv_plain at
     every head dim they serve (hd 80 as hd 80: its tile's zero columns add
-    exactly 0), over one and two 128-key tiles, MHA and GQA, causal and
-    not."""
+    exactly 0), over one and more key tiles (128 keys, 64 at hd 256), MHA
+    and GQA, causal and not."""
     bh = 8
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
         (bh, s, hd), (bh // group, s, hd), (bh // group, s, hd), (bh, s, hd), seed=6))
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
-    o, lse = tensor_core_fwd(q, k, v, causal)
+    o, lse = tensor_core_fwd(q, k, v, causal, fwd_key_tile(hd))
     tensor_core_close(o, o_ref)
     torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
     delta = (do.float() * o_ref.float()).sum(-1, keepdim=True)
@@ -380,20 +385,21 @@ def heads_first(x):
     return x[0].transpose(0, 1).contiguous()
 
 
-@pytest.mark.parametrize("hd", [96, 80])
+@pytest.mark.parametrize("hd", [96, 80, 256])
 @pytest.mark.parametrize("group, causal", [(4, True), (1, False), (2, True)])
 def test_tensor_core_fwd_and_dkv_match_jax_flash_attention(hd, group, causal):
-    """The tensor-core B1's and B3's numerics at hd 96 and 80, emulated on
-    the CPU, against the output and dK/dV of jax.grad through the JAX
+    """The tensor-core B1's and B3's numerics at hd 96, 80 and 256, emulated
+    on the CPU, against the output and dK/dV of jax.grad through the JAX
     dispatcher's scan path, on the same bf16-representable inputs, at the
-    tensor-core tolerance; S 144 spans two of B1's 128-key tiles."""
+    tensor-core tolerance; S 144 spans two of B1's 128-key tiles (three of
+    its 64-key tiles at hd 256)."""
     b, s, h = 1, 144, 4
     hkv = h // group
     q, k, v, do = (torch.from_numpy(x).to(torch.bfloat16) for x in arrays(
         (b, s, h, hd), (b, s, hkv, hd), (b, s, hkv, hd), (b, s, h, hd), seed=7))
     want_out, (_, want_dk, want_dv) = jax_flash_grads(q, k, v, do, causal)
     qf, kf, vf, dof = map(heads_first, (q, k, v, do))
-    o, _ = tensor_core_fwd(qf, kf, vf, causal)
+    o, _ = tensor_core_fwd(qf, kf, vf, causal, fwd_key_tile(hd))
     tensor_core_close(o, heads_first(want_out))
     o_ref, lse = fa.flash_fwd_plain(qf.float(), kf.float(), vf.float(), causal)
     delta = (dof.float() * o_ref).sum(-1, keepdim=True)

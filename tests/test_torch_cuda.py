@@ -9,12 +9,12 @@ PyTorch; there, skip the repo's JAX-side conftest:
 
 Tolerance, as in chip_smoke.py: ``atol * max|ref| + rtol * |ref|``, rtol
 1e-4 (f32) or 2**-7 (bf16: outputs may land one bf16 ulp apart). The
-three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16, B1
-in bf16 at 256, both dtypes above 256) keep float32's accuracy but for
-~2**-22: atol 1e-4 in float32; in bf16 the inputs are exact in TF32 and
-the float32-accurate sums are rounded to bf16, atol 2e-3. The wgmma
-kernels (bf16: B1, B2, B3 at hd 128, 96, 80, 64 and 32, hd 80 in the hd-96
-tile; B2 and B3 at 256) also round P (B1), dS (B2), P and dS (B3) to bf16
+three-product TF32 kernels (tf32x3: every float32 row, bf16 at hd 16, both
+dtypes above 256) keep float32's accuracy but for ~2**-22: atol 1e-4 in
+float32; in bf16 the inputs are exact in TF32 and the float32-accurate
+sums are rounded to bf16, atol 2e-3. The wgmma kernels (bf16: B1, B2, B3
+at hd 256, 128, 96, 80, 64 and 32, hd 80 in the hd-96 tile, B1 at 256 the
+warp-specialised forward) also round P (B1), dS (B2), P and dS (B3) to bf16
 before the last product, where the plain versions keep float32: atol
 2**-8. lse, and the dispatcher's float32 outputs and
 gradients card against CPU, are held at atol 2e-3.
@@ -199,7 +199,7 @@ def test_tensor_core_stores_stay_inside_their_tensors(hd, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [128, 96, 80, 64, 32])
+@pytest.mark.parametrize("hd", [256, 128, 96, 80, 64, 32])
 def test_tensor_core_forward_fully_masked_row_gives_zeros_not_nan(hd):
     """A query row whose every score is -inf (its first column -inf, the
     rest 0, every key's first column positive) keeps m = -inf in the
@@ -317,9 +317,9 @@ def test_tf32x3_backward_matches_plain(hd, bh, bh_kv, s, causal, monkeypatch):
 
 
 # (dtype, hd) of every tf32x3 forward instance: float32 at every head dim,
-# bf16 at hd 16 and 256, and both above 256 (at 512)
+# bf16 at hd 16, and both above 256 (at 512)
 TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [
-    (torch.bfloat16, 16), (torch.bfloat16, 256), (torch.float32, 512), (torch.bfloat16, 512)]
+    (torch.bfloat16, 16), (torch.float32, 512), (torch.bfloat16, 512)]
 
 
 @pytest.mark.cuda
@@ -327,10 +327,10 @@ TF32X3_FWD = [(torch.float32, hd) for hd in fa.HEAD_DIMS] + [
 @pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
                                                   (8, 2, 333, True)])
 def test_tf32x3_forward_matches_plain(dtype, hd, bh, bh_kv, s, causal, monkeypatch):
-    """B1 on the tensor cores as three-product TF32 (bf16 at hd 16 and 256:
-    one product for S, two for P V) at every float32 head dim, at bf16 hd
-    16 and 256, and at 512 in both (O's columns in two parts, S over two
-    slices), ragged S, MHA and GQA 4, causal and not: O within the tf32x3
+    """B1 on the tensor cores as three-product TF32 (bf16 at hd 16: one
+    product for S, two for P V) at every float32 head dim, at bf16 hd 16,
+    and at 512 in both (O's columns in two parts, S over two slices),
+    ragged S, MHA and GQA 4, causal and not: O within the tf32x3
     tolerance of the plain version, lse within 1e-4; the first launch's O
     heads a marker-filled buffer whose tail comes back unchanged; a second
     launch gives the same bits."""
@@ -352,6 +352,38 @@ def test_tf32x3_forward_matches_plain(dtype, hd, bh, bh_kv, s, causal, monkeypat
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
     close(o, o_ref, dtype, "tf32x3")
     close(lse, lse_ref, torch.float32, "tf32x3")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, bh_kv, s, causal", [(32, 32, 520, False), (8, 2, 200, False),
+                                                  (8, 2, 333, True), (16, 2, 2048, True),
+                                                  (8, 1, 40, True)])
+def test_wgmma_bf16_hd256_forward_matches_plain(bh, bh_kv, s, causal, monkeypatch):
+    """bf16 B1 at hd 256 on the warp-specialised wgmma kernel (two consumer
+    warpgroups of 64 q rows, 64-key K and V tiles, the softmax under the
+    products), ragged S, S under one tile, MHA, GQA 4 and 8, causal and
+    not: O within (2**-8, 2**-7) of the plain version, lse within 2e-3; the
+    first launch's O heads a marker-filled buffer whose tail comes back
+    unchanged; a second launch gives the same bits; both count on wgmma."""
+    gen = card()
+    bf16 = torch.bfloat16
+    q = torch.randn(bh, s, 256, generator=gen, device="cuda").to(bf16)
+    k, v = (torch.randn(bh_kv, s, 256, generator=gen, device="cuda").to(bf16) for _ in range(2))
+    bufs = []
+    fa.reset_launch_counts()
+    monkeypatch.setattr(torch, "empty_like", guarded_empty_like(bufs))
+    o, lse = fa.flash_fwd(q, k, v, causal)
+    monkeypatch.undo()
+    again = fa.flash_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert len(bufs) == 1
+    assert torch.equal(bufs[0][0][bufs[0][1]:], torch.full((4096,), 7.0, device="cuda",
+                                                           dtype=bf16))
+    assert fa.variant_counts()["flash_fwd"] == {"wgmma": 2, "tf32x3": 0}
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal)
+    close(o, o_ref, bf16, "wgmma")
+    close(lse, lse_ref, torch.float32)
 
 
 @pytest.mark.cuda

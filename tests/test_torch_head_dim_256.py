@@ -229,10 +229,10 @@ def test_wgmma_split_rule_at_hd_256(shape, dkv_splits):
 
 def test_route_table_at_256():
     """hd 256 is a route of all three kernels in float32 and bf16. In bf16
-    B2 and B3 run the wgmma kernels and B1 three-product TF32; in float32
-    all three run three-product TF32."""
+    all three run the wgmma kernels (B1 the warp-specialised forward); in
+    float32 all three run three-product TF32."""
     assert 256 in fa.HEAD_DIMS
-    want = {torch.float32: ("tf32x3",) * 3, torch.bfloat16: ("tf32x3", "wgmma", "wgmma")}
+    want = {torch.float32: ("tf32x3",) * 3, torch.bfloat16: ("wgmma",) * 3}
     for dtype, variants in want.items():
         assert tuple(fa.ROUTES[name, dtype, 256] for name in fa.KERNEL_NAMES) == variants
 
@@ -269,8 +269,8 @@ def test_split_rule_tables_are_held_against_the_library(drift):
         fa._check_geometry(geometry)
         f32 = {(0, hd) for hd in (*fa.HEAD_DIMS, 512, 768)}
         bf16 = {(1, 16), (1, 512), (1, 768)}
-        assert sorted(asked) == sorted({(0, 1, 256)} | {(kernel, *row) for kernel in range(3)
-                                                         for row in f32 | bf16})
+        assert sorted(asked) == sorted({(kernel, *row) for kernel in range(3)
+                                        for row in f32 | bf16})
     else:
         with pytest.raises(RuntimeError, match=f"hd {drift[0]}"):
             fa._check_geometry(geometry)
