@@ -52,14 +52,9 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  the first leaf that differs and the spread); one round
                  with a checkpoint, then a resumed run to round 3, which
                  must equal the uninterrupted one bit for bit (or within
-                 the measured spread); `python -m nanodiloco_tpu_torch` on
-                 a .tshrd shard in a subprocess (with the reference's
-                 --project and --wandb-config-file, whose measure_comms
-                 must fence the syncs), sent SIGTERM
-                 after its first round, must exit 75 with a checkpoint at
-                 a round boundary, and a rerun must finish the remaining
-                 rounds;
-                 the checkpoint's bytes, save and restore seconds.
+                 the measured spread); the checkpoint's bytes, save and
+                 restore seconds. (The CLI's SIGTERM drill runs inside
+                 supervise_small.)
 6. train       - the port's train(): two DiLoCo rounds at Llama-3-8B
                  width (1 layer, W=2 workers, H=2, grad_accum 2, S=2048)
                  with attention_impl="flash", an eval of the snapshot after
@@ -77,6 +72,25 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  sums, with the restore's peak device memory (left out,
                  with a line that says so, if the disk lacks 1.5x the
                  state's bytes).
+6a. dist       - one process per group of DiLoCo workers (ROADMAP item
+                 7a): (a) torch.cuda.device_count() and the backend the
+                 two ranks use (NCCL one card a rank with two or more
+                 cards; with one, both ranks on cuda:0 over gloo, the
+                 collectives through the host); (b) rank 0 of a world of
+                 one over NCCL in this process: train_small's model at
+                 W 4 with and without the group, the int8 integer wire's
+                 snapshot bit for bit, the f32 wire's within 1e-5, the
+                 collectives' bytes = sync_wire_bytes(); (c) two ranks
+                 (`chip_smoke.py --dist-rank`) at the train phase's config,
+                 one worker a rank: losses step by step and each snapshot
+                 leaf against the train phase's (DIST_*_RTOL), B1-B3 on
+                 wgmma in each rank, t_sync against the bytes a rank put
+                 on the wire, each rank's peak memory; (d) two ranks at
+                 the resume size: one round, a checkpoint, a resume to
+                 round 3 equal to the uninterrupted two-rank run bit for
+                 bit, the same file resumed by one process within
+                 DIST_*_RTOL, one JSONL and one run name, the ranks'
+                 trace shards merged.
 6b. train_hd256 - train() at Gemma-2B's attention and MLP widths
                  (GEMMA2B_WIDTH: hidden 2048, 8 query heads on 1 KV head of
                  256, intermediate 16384, vocab 256000, tied embeddings;
@@ -198,9 +212,14 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  checkpoint (3 shards and the index) re-imports equal to the
                  checkpoint's snapshot, leaf by leaf. Prints the cost_analysis
                  record, the run's analytic MFU and tokens/s.
-15. supervise_small - `supervise` at the resume phase's size over a crash
+15. supervise_small - `supervise` at the resume phase's size, on a .tshrd
+                 shard with an eval every round and the reference's
+                 --project and --wandb-config-file (whose measure_comms
+                 must fence the syncs), over a crash
                  fault at step 5 (exit 71, restart after a backoff) and a
-                 SIGTERM to the second child (exit 75, immediate restart):
+                 SIGTERM to the second child (exit 75 with one preempt
+                 record naming a committed checkpoint at a round boundary,
+                 immediate restart):
                  the final snapshot equals an uninterrupted run's bit for bit,
                  the third lifetime's resume record has restart_count 2, and
                  `report faults` / `report goodput` show the three lifetimes
@@ -962,11 +981,11 @@ SMALL_DILOCO = dict(num_workers=2, inner_steps=2, warmup_steps=1, total_steps=4,
 SMALL_TOL = 1e-3
 
 
-def small_rounds(n: int = 2) -> list[tuple[np.ndarray, np.ndarray]]:
+def small_rounds(n: int = 2, workers: int = 2) -> list[tuple[np.ndarray, np.ndarray]]:
     """n rounds of [H, W, accum, B, S] tokens and masks; S = 200 is no
     multiple of the kernels' 64-row tiles: the ragged edge."""
     rows = pack_corpus(synthetic_corpus(seed=0), ByteTokenizer(), 200)
-    batches = iter(DilocoBatcher(rows, num_workers=2, grad_accum=2, per_device_batch=1))
+    batches = iter(DilocoBatcher(rows, num_workers=workers, grad_accum=2, per_device_batch=1))
     rounds = []
     for _ in range(n):
         steps = [next(batches) for _ in range(SMALL_DILOCO["inner_steps"])]
@@ -1088,105 +1107,41 @@ def phase_resume() -> None:
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     ckpt_bytes = os.path.getsize(ck.path(6))
-    preempt = phase_resume_sigterm(work)
     emit(phase="resume", ok=True, bit_identical_runs=first_diff is None,
          first_differing_leaf=first_diff, run_to_run_spread=spread,
          resumed_bit_exact=resume_diff is None, resumed_first_diff=resume_diff,
          resumed_max_rel_err=resume_err, losses=a["losses"],
-         checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s, **preempt)
+         checkpoint_bytes=ckpt_bytes, save_s=save_s, restore_s=restore_s)
     del a, b, d
     torch.cuda.empty_cache()
 
 
-def phase_resume_sigterm(work: Path) -> dict:
-    """``python -m nanodiloco_tpu_torch`` on a .tshrd shard, SIGTERM after
-    the first round: exit 75 with a checkpoint at a round boundary; a
-    rerun resumes there and finishes."""
+def resume_shard(work: Path) -> Path:
+    """The resume size's synthetic corpus as a .tshrd shard with its
+    manifest."""
     shard = work / "data.tshrd"
     with tokenshard.ShardWriter(str(shard), RESUME_RUN["seq_length"]) as w:
         pack_corpus_to_shard(synthetic_corpus(seed=0), ByteTokenizer(),
                              RESUME_RUN["seq_length"], w)
     with open(str(shard) + ".manifest.json", "w") as f:
         json.dump({"vocab_size": ByteTokenizer.vocab_size, "tokenizer": "byte-level"}, f)
-    model_file = work / "model.json"
-    model_file.write_text(json.dumps(RESUME_MODEL.to_dict()))
-    # the reference's wandb config (configs/wandb_default.json's keys)
-    wandb_file = work / "wandb.json"
-    wandb_file.write_text(json.dumps({"nodes": 2, "location": "h100", "backend": "nccl",
-                                      "measure_comms": True}))
-    total, jsonl, ck_dir = 20, work / "cli_runs" / "sig.jsonl", work / "ck_sig"
-    cmd = [sys.executable, "-m", "nanodiloco_tpu_torch", "--llama-config-file", str(model_file),
-           "--dataset-path", str(shard), "--seed", "0", "--batch-size", "2",
-           "--per-device-batch-size", "1", "--seq-length", str(RESUME_RUN["seq_length"]),
-           "--warmup-steps", "1", "--total-steps", str(total), "--inner-steps", "2",
-           "--num-workers", "2", "--eval-every", "1", "--eval-batches", "2",
-           "--checkpoint-dir", str(ck_dir), "--checkpoint-every", "1000",
-           "--log-dir", str(jsonl.parent), "--run-name", "sig", "--quiet",
-           "--project", "chip-smoke", "--wandb-config-file", str(wandb_file)]
-    # not --wandb: the card's machine has a wandb package, and this run
-    # starts no client that could reach for the network (the sink is held
-    # against the JAX package's with a stub wandb, tests/test_torch_wandb.py)
+    return shard
 
-    def records() -> list[dict]:
-        return read_jsonl_records(str(jsonl))[0] if jsonl.exists() else []
 
-    def launch(log: str) -> subprocess.Popen:
-        out = open(work / log, "w")
-        return subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
-
-    proc = launch("sig_first.log")
-    try:
-        t0 = time.perf_counter()
-        while not any(r.get("outer_synced") for r in records()):
-            if proc.poll() is not None or time.perf_counter() - t0 > 300:
-                fail("resume", f"the CLI run ended (rc {proc.returncode}) or stalled before "
-                               f"its first round: {(work / 'sig_first.log').read_text()[-2000:]}")
-            time.sleep(0.05)
-        t_signal = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=300)
-        exit_s = time.perf_counter() - t_signal
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-    preempts = [r for r in records() if "preempt" in r]
-    latest = CheckpointManager(str(ck_dir)).latest_step
-    if rc != 75 or len(preempts) != 1 or preempts[0]["checkpoint_step"] != latest:
-        fail("resume", f"SIGTERM: exit {rc}, preempt records {preempts}, checkpoint {latest}")
-    if not latest or latest % 2 or latest >= total:
-        fail("resume", f"SIGTERM checkpoint at step {latest}, not a round boundary < {total}")
-    proc = launch("sig_rerun.log")
-    try:
-        rc = proc.wait(timeout=600)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-    recs = records()
-    resumes = [r["resume"] for r in recs if "resume" in r]
-    last = max(r["step"] for r in recs if "loss" in r)
-    if rc != 0 or resumes != [latest] or last != total:
-        fail("resume", f"rerun: exit {rc}, resumed from {resumes}, last step {last}: "
-                       f"{(work / 'sig_rerun.log').read_text()[-2000:]}")
-    if not any(r.get("avg_sync_time_s") is not None for r in recs if r.get("outer_synced")):
-        fail("resume", "the wandb config's measure_comms true left every sync unfenced")
-    return {"sigterm_exit_code": 75, "sigterm_checkpoint_step": latest,
-            "sigterm_exit_s": exit_s, "rerun_exit_code": rc, "rerun_last_step": last,
-            "logging_flags": cmd[-4:],
-            "wandb_installed": importlib.util.find_spec("wandb") is not None}
+# the train phase's run: Llama-3-8B width, depth cut to one layer (the dist
+# phase runs it again at two ranks)
+TRAIN_8B = dict(seed=0, batch_size=2, per_device_batch_size=1, seq_length=2048,
+                warmup_steps=1, total_steps=4, inner_steps=2, num_workers=2,
+                model=dataclasses.replace(LLAMA3_8B, num_hidden_layers=1), fit_vocab=False,
+                quiet=True, eval_every=1, eval_batches=2)
 
 
 def phase_train(smi: str) -> dict:
     """Two DiLoCo rounds at Llama-3-8B width, depth cut to one layer, with
     an eval of the snapshot after each round and the metrics JSONL."""
-    model = dataclasses.replace(LLAMA3_8B, num_hidden_layers=1)
     log_dir = WORK / "train_runs"
     shutil.rmtree(log_dir, ignore_errors=True)
-    cfg = TrainConfig(
-        seed=0, batch_size=2, per_device_batch_size=1, seq_length=2048,
-        warmup_steps=1, total_steps=4, inner_steps=2, num_workers=2,
-        model=model, fit_vocab=False, quiet=True,
-        eval_every=1, eval_batches=2, log_dir=str(log_dir), run_name="train8b",
-    )
+    cfg = TrainConfig(**TRAIN_8B, log_dir=str(log_dir), run_name="train8b")
     fa.reset_launch_counts()
     summary = train(cfg, device="cuda")
     launches = fa.launch_counts()
@@ -1353,6 +1308,323 @@ def phase_checkpoint_full(summary: dict, smi: str) -> None:
          restore_s=restore_s, save_gb_per_s=file_bytes / save_s / 1e9,
          restore_gb_per_s=file_bytes / restore_s / 1e9, bytes_in_use_before_restore=in_use,
          restore_peak_bytes=peak)
+
+
+# -- one process per group of DiLoCo workers (phase dist) -------------------------
+
+# the world of one runs train_small's model at W = 4: the int8 wire's sum
+# is int16 from W = 2, and W = 4 is two rows a rank once there are two
+DIST_WORKERS = 4
+# two ranks against one process in bf16 (the 8B-width run against the
+# train phase's, and a resume by one process of the two ranks' file): the
+# ranks merge sum_w c_w (s - p_w) where one process takes s - sum_w c_w p_w,
+# float32 roundoff apart, and each rank's batched matmuls cover one worker
+# where one process's cover two (cuBLAS may pick another kernel, another
+# summation order). bf16 rounds the next forward's weights, so an element
+# at a rounding edge moves by 2**-8 of itself; the losses are means over
+# thousands of tokens: within 2**-7 relative. AdamW's first steps are near
+# lr * sign(g), so an element whose gradient is within bf16 noise of zero
+# may flip: each leaf's snapshot within 5% (L2) of its update's norm.
+DIST_LOSS_RTOL = 2.0 ** -7
+DIST_UPDATE_RTOL = 0.05
+DIST_WAIT_S = 600
+
+
+def dist_backend() -> str:
+    """NCCL, one card a rank, with two or more cards; with one, both ranks
+    on cuda:0 over gloo (NCCL cannot put two ranks on one card). The
+    smoke decides this, never the port's CLI."""
+    return "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+
+
+def wire_record(records: list[dict], syncs: int) -> dict:
+    """The merge's collectives of ``syncs`` outer steps: bytes a sync, by
+    dtype, and the readout's and checkpoint's apart."""
+    merge = [r for r in records if r["tag"] in ("pseudograd", "scale")]
+    by_tag: dict = {}
+    for r in records:
+        by_tag[r["tag"]] = by_tag.get(r["tag"], 0) + r["bytes"]
+    return {"merge_bytes_per_sync": sum(r["bytes"] for r in merge) / syncs,
+            "merge_dtypes": sorted({r["dtype"] for r in merge}),
+            "bytes_by_tag": by_tag}
+
+
+def phase_dist_world_of_one(smi: str) -> dict:
+    """Rank 0 of a world of one over NCCL, in this process: train_small's
+    float32 model through Diloco at W = 4, two rounds, with the group and
+    without it (an explicit one-process mesh). The int8 integer wire (an
+    int16 sum, two lanes to an int32 word) must give the no-group run's
+    snapshot bits; the f32 wire its snapshot within 1e-5 relative + 1e-6
+    absolute (the merge's roundoff, carried by the next round's AdamW).
+    What the outer steps hand to the collective must be sync_wire_bytes()
+    (the integer wire's less its 4-byte survivor count, read from the
+    gathered mask)."""
+    import torch.distributed as dist
+
+    from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh, record_collectives
+
+    phase = "dist"
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        params = init_params(torch.Generator().manual_seed(0), SMALL_MODEL, device="cpu")
+        rounds = small_rounds(workers=DIST_WORKERS)
+        out = {}
+        for wire in ("int8", None):
+            kw = dict(SMALL_DILOCO, num_workers=DIST_WORKERS, outer_comm_dtype=wire,
+                      outer_wire_collective=wire is not None)
+            runs = {}
+            for mode, mesh in (("group", None), ("alone", WorkerMesh(DIST_WORKERS))):
+                dl = Diloco(SMALL_MODEL, DilocoConfig(**kw), device="cuda", mesh=mesh)
+                if dl.mesh.distributed != (mode == "group"):
+                    fail(phase, f"the {mode} run's mesh is {dl.mesh}")
+                state = dl.init_state(params=params)
+                with record_collectives() as rec:
+                    losses = torch.cat([dl.round_step(state, t, m)[1].cpu() for t, m in rounds])
+                runs[mode] = (losses, [x.cpu() for x in tree_leaves(state.snapshot)], rec,
+                              dl.sync_wire_bytes(state.snapshot))
+            (lg, sg, rec, ledger), (la, sa, rec_alone, _) = runs["group"], runs["alone"]
+            if rec_alone:
+                fail(phase, f"the no-group run called a collective: {rec_alone[:3]}")
+            name = wire or "f32"
+            wire_rec = wire_record(rec, len(rounds))
+            want_bytes = ledger["wire_bytes_per_sync"] - (4 if wire else 0)
+            if wire_rec["merge_bytes_per_sync"] != want_bytes or wire_rec["merge_dtypes"] != (
+                    ["float32", "int32"] if wire else ["float32"]):
+                fail(phase, f"{name} wire: {wire_rec} against sync_wire_bytes {ledger}")
+            if wire:
+                same = torch.equal(lg, la) and all(torch.equal(a, b) for a, b in zip(sg, sa))
+                if not same:
+                    fail(phase, f"int8 wire: the world of one's snapshot is not the no-group "
+                                f"run's bits (losses {lg.tolist()} vs {la.tolist()})")
+                err = 0.0
+            else:
+                err = max(float(((a.double() - b.double()).abs()
+                                 - 1e-5 * b.double().abs()).max()) for a, b in zip(sg, sa))
+                if err > 1e-6 or not torch.allclose(lg, la, rtol=1e-5):
+                    fail(phase, f"f32 wire: snapshot off by {err:.3e} beyond 1e-5 relative, "
+                                f"losses {lg.tolist()} vs {la.tolist()}")
+            out[name] = {"losses": lg.tolist(), "bit_identical": bool(wire),
+                         "excess_over_rtol": err, "sync_wire_bytes": ledger, **wire_rec}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def dist_reference(summary: dict, work: Path) -> dict:
+    """What the two ranks are held to: the train phase's per-step losses,
+    its final snapshot (written to ``work`` for rank 0 to read leaf by
+    leaf) and each leaf's update norm ||snapshot - init|| (the init made
+    again from the seed, as train() makes it)."""
+    model = TRAIN_8B["model"]
+    snap = summary["state"].snapshot
+    init = init_params(torch.Generator(device="cuda").manual_seed(TRAIN_8B["seed"]), model,
+                       "cuda")
+    norms = {n: float(torch.linalg.vector_norm(s - i, dtype=torch.float64))
+             for (n, s), (_, i) in zip(named_leaves(snap), named_leaves(init))}
+    del init
+    torch.save({n: t.cpu() for n, t in named_leaves(snap)}, work / "ref_snapshot.pt")
+    return {"losses": summary["losses"], "update_norms": norms}
+
+
+def dist_rank_main(work: Path) -> None:
+    """One rank of the dist phase (``chip_smoke.py --dist-rank DIR``, with
+    torchrun's variables): (c) the train phase's run at two ranks, one
+    worker a rank; (d) the resume size's three rounds, a checkpoint after
+    one and a resume to three. Its results in ``DIR/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from nanodiloco_tpu_torch.parallel.mesh import init_from_env, record_collectives
+
+    spec = json.loads((work / "spec.json").read_text())
+    if spec["backend"] == "nccl":
+        device = init_from_env("cuda", timeout_s=DIST_WAIT_S)
+    else:  # both ranks on the one card, the collectives through the host
+        device = torch.device("cuda", 0)
+        torch.cuda.set_device(device)
+        from datetime import timedelta
+
+        dist.init_process_group("gloo", timeout=timedelta(seconds=DIST_WAIT_S))
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the train phase ran
+    res: dict = {"rank": rank, "device": str(device)}
+    # (c) the train phase's run, one worker a rank
+    before = (fa.variant_counts(), fa.shape_counts())
+    torch.cuda.reset_peak_memory_stats(device)
+    # the dynamics readout off: it is a pure readout (the run's bits are the
+    # same with it on or off), its replicas' gather would double what goes
+    # through the host, and t_sync then times the merge alone
+    with record_collectives() as rec:
+        summary = train(TrainConfig(**TRAIN_8B, log_dir=str(work / "train_runs"),
+                                    run_name="dist8b", dynamics_metrics=False),
+                        device=device)
+    res["train"] = {
+        "losses": summary["losses"], "seconds": summary["seconds"],
+        "round_seconds": summary["round_seconds"],
+        "avg_sync_time_s": summary["avg_sync_time_s"],
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+        "variants": {k: {v: n - before[0][k][v] for v, n in c.items()}
+                     for k, c in fa.variant_counts().items()},
+        **wire_record(rec, TRAIN_8B["total_steps"] // TRAIN_8B["inner_steps"]),
+        "sync_wire_bytes": summary["wire_bytes_per_sync"],
+    }
+    if rank == 0:
+        ref = torch.load(work / "ref_snapshot.pt", map_location="cpu", mmap=True,
+                         weights_only=True)
+        res["train"]["update_rel_l2"] = {
+            n: float(torch.linalg.vector_norm(t - ref[n].to(device), dtype=torch.float64)
+                     / max(spec["update_norms"][n], 1e-30))
+            for n, t in named_leaves(summary["state"].snapshot)}
+        del ref
+    del summary
+    torch.cuda.empty_cache()
+    # (d) the resume size: uninterrupted, one round + checkpoint, resumed
+    run = dict(RESUME_RUN, log_dir=str(work / "runs"))
+    u = train(TrainConfig(**run, total_steps=6, trace_out=str(work / "trace.json")),
+              device=device)
+    ck = work / "ck"
+    train(TrainConfig(**run, total_steps=2, checkpoint_dir=str(ck), run_name="dist_c"),
+          device=device)
+    if rank == 0:  # the one-process resume's copy, before the resume adds steps
+        shutil.copytree(ck, work / "ck_one")
+    dist.barrier()
+    r = train(TrainConfig(**run, total_steps=6, checkpoint_dir=str(ck), run_name="dist_r"),
+              device=device)
+    r["losses"] = u["losses"][:2] + r["losses"]  # compare whole trajectories
+    first, spread = run_spread(r, u)
+    res["resume"] = {"run_name": u["run_name"], "resumed_first_diff": first,
+                     "resumed_spread": spread, "losses": u["losses"]}
+    if rank == 0:
+        torch.save([t.cpu() for t in tree_leaves(u["state"].snapshot)], work / "u_snapshot.pt")
+    after = fa.shape_counts()
+    res["shapes"] = {k: {key: n - before[1][k].get(key, 0) for key, n in v.items()
+                         if n > before[1][k].get(key, 0)} for k, v in after.items()}
+    (work / f"rank{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_dist(ref: dict, work: Path, smi: str) -> dict:
+    """One process per group of DiLoCo workers (ROADMAP item 7a): (a) the
+    card count and the backend; (b) rank 0 of a world of one over NCCL;
+    (c) two ranks at the train phase's config, one worker a rank, against
+    the train phase (losses step by step, each snapshot leaf against its
+    update), B1, B2 and B3 on wgmma in each rank, the wire's bytes against
+    t_sync and each rank's peak memory; (d) two ranks at the resume size:
+    a checkpoint after one round resumed to three equals the
+    uninterrupted two-rank run bit for bit, one process resuming the same
+    file agrees within DIST_*_RTOL, one JSONL and one run name, and the
+    ranks' trace shards merge. Returns the ranks' launch counts by shape."""
+    from nanodiloco_tpu_torch.obs.tracer import merge_chrome_traces
+
+    phase, t_phase = "dist", time.perf_counter()
+    count, backend = torch.cuda.device_count(), dist_backend()
+    emit(phase=phase, part="a", device_count=count, backend=backend)
+    t0 = time.perf_counter()
+    one = phase_dist_world_of_one(smi)
+    emit(phase=phase, part="b", ok=True, backend="nccl", world=1, nvidia_smi=smi,
+         workers=DIST_WORKERS, seconds=time.perf_counter() - t0, **one)
+    (work / "spec.json").write_text(json.dumps({"backend": backend,
+                                                "update_norms": ref["update_norms"]}))
+    port, world = free_port(), 2
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+        log = open(work / f"rank{r}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                       "--dist-rank", str(work)], cwd=ROOT, env=env,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.perf_counter() + DIST_WAIT_S
+        rcs = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    if rcs != [0] * world:
+        fail(phase, f"ranks exited {rcs}: " + " | ".join(
+            (work / f"rank{r}.log").read_text()[-3000:] for r in range(world)))
+    res = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+    # (c) against the train phase
+    want = torch.tensor(ref["losses"], dtype=torch.float64)
+    losses = [torch.tensor(x["train"]["losses"], dtype=torch.float64) for x in res]
+    loss_err = float(((losses[0] - want).abs() / want.abs()).max())
+    upd = res[0]["train"]["update_rel_l2"]
+    worst = max(upd, key=upd.get)
+    if any(not torch.equal(x, losses[0]) for x in losses) or loss_err > DIST_LOSS_RTOL:
+        fail(phase, f"two ranks' losses {losses[0].tolist()} against the train phase's "
+                    f"{ref['losses']}: {loss_err:.3e} > {DIST_LOSS_RTOL}")
+    if upd[worst] > DIST_UPDATE_RTOL:
+        fail(phase, f"snapshot leaf {worst} off by {upd[worst]:.3e} of its update "
+                    f"(> {DIST_UPDATE_RTOL}): {upd}")
+    for x in res:
+        v = x["train"]["variants"]
+        if any(not c["wgmma"] or sum(c.values()) != c["wgmma"] for c in v.values()):
+            fail(phase, f"rank {x['rank']} did not run B1, B2 and B3 on wgmma alone: {v}")
+        if x["train"]["merge_bytes_per_sync"] != x["train"]["sync_wire_bytes"]:
+            fail(phase, f"rank {x['rank']} put {x['train']['merge_bytes_per_sync']} bytes a "
+                        f"sync on the wire, sync_wire_bytes says "
+                        f"{x['train']['sync_wire_bytes']}")
+    recs = [r for r in read_jsonl_records(str(work / "train_runs" / "dist8b.jsonl"))[0]
+            if r.get("outer_synced")]
+    t_sync = [r["t_sync"] for r in recs]
+    wire_b = res[0]["train"]["merge_bytes_per_sync"]
+    emit(phase=phase, part="c", ok=True, backend=backend, world=world, nvidia_smi=smi,
+         losses=res[0]["train"]["losses"], train_phase_losses=ref["losses"],
+         loss_max_rel_err=loss_err, loss_rtol=DIST_LOSS_RTOL,
+         update_rel_l2_max=upd[worst], update_rel_l2_worst_leaf=worst,
+         update_rtol=DIST_UPDATE_RTOL, t_sync_s=t_sync,
+         avg_sync_time_s=res[0]["train"]["avg_sync_time_s"],
+         wire_bytes_per_sync_per_rank=wire_b,
+         wire_gb_per_s=[wire_b / t / 1e9 for t in t_sync],
+         bytes_by_tag=[x["train"]["bytes_by_tag"] for x in res],
+         peak_memory_bytes=[x["train"]["peak_memory_bytes"] for x in res],
+         round_seconds=[x["train"]["round_seconds"] for x in res],
+         variant_launches=[x["train"]["variants"] for x in res], ranks_seconds=ranks_s)
+    # (d) resume at two ranks, at one, and the rank-0 sinks
+    for x in res:
+        if x["resume"]["resumed_first_diff"] is not None:
+            fail(phase, f"rank {x['rank']}: the resumed two-rank run differs from the "
+                        f"uninterrupted one first at {x['resume']['resumed_first_diff']} "
+                        f"(spread {x['resume']['resumed_spread']:.3e})")
+    one_proc = train(TrainConfig(**RESUME_RUN, total_steps=6, checkpoint_dir=str(work / "ck_one"),
+                                 log_dir=None), device="cuda")
+    u_snap = torch.load(work / "u_snapshot.pt", weights_only=True)
+    u_losses = torch.tensor(res[0]["resume"]["losses"][2:], dtype=torch.float64)
+    one_err = float(((torch.tensor(one_proc["losses"], dtype=torch.float64) - u_losses).abs()
+                     / u_losses.abs()).max())
+    snap_err = max(rel_err(a.cpu(), b) for a, b in zip(tree_leaves(one_proc["state"].snapshot),
+                                                       u_snap))
+    del one_proc
+    if one_err > DIST_LOSS_RTOL:
+        fail(phase, f"one process resuming the two ranks' file: losses off by {one_err:.3e}")
+    name = res[0]["resume"]["run_name"]
+    files = sorted(p.name for p in (work / "runs").glob("*.jsonl"))
+    if res[1]["resume"]["run_name"] != name or files != sorted(
+            [f"{name}.jsonl", "dist_c.jsonl", "dist_r.jsonl"]):
+        fail(phase, f"run names {[x['resume']['run_name'] for x in res]}, JSONL files {files}")
+    merged = merge_chrome_traces([json.loads((work / f).read_text())
+                                  for f in ("trace.json", "trace.rank1.json")])
+    pids = sorted({e["pid"] for e in merged["traceEvents"] if e.get("ph") == "X"})
+    if pids != [0, 1]:
+        fail(phase, f"merged trace shards have pids {pids}")
+    emit(phase=phase, part="d", ok=True, backend=backend, world=world,
+         resumed_bit_exact=True, one_process_loss_max_rel_err=one_err,
+         one_process_snapshot_max_rel_err=snap_err, run_name=name, jsonl_files=files,
+         trace_pids=pids, seconds=time.perf_counter() - t_phase)
+    shapes: dict = {}
+    for x in res:
+        for k, v in x["shapes"].items():
+            for key, n in v.items():
+                shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + n
+    return shapes
 
 
 # -- the DiLoCo options ----------------------------------------------------------
@@ -2845,14 +3117,25 @@ def phase_supervise_small(mem: Path, smi: str) -> None:
     total = 2 * SUPERVISE_ROUNDS
     plan = work / "plan.json"
     plan.write_text(json.dumps({"faults": [{"kind": "crash", "step": 5}]}))
+    shard = resume_shard(work)
+    # the reference's wandb config (configs/wandb_default.json's keys)
+    wandb_file = work / "wandb.json"
+    wandb_file.write_text(json.dumps({"nodes": 2, "location": "h100", "backend": "nccl",
+                                      "measure_comms": True}))
+    # not --wandb: the card's machine has a wandb package, and this run
+    # starts no client that could reach for the network (the sink is held
+    # against the JAX package's with a stub wandb, tests/test_torch_wandb.py)
+    logging_flags = ["--project", "chip-smoke", "--wandb-config-file", str(wandb_file)]
 
     def args(name: str) -> list[str]:
-        return ["--llama-config-file", str(model_file), "--seed", "0", "--batch-size", "2",
+        return ["--llama-config-file", str(model_file), "--dataset-path", str(shard),
+                "--seed", "0", "--batch-size", "2",
                 "--per-device-batch-size", "1", "--seq-length", "512", "--warmup-steps", "1",
                 "--inner-steps", "2", "--total-steps", str(total), "--num-workers", "2",
+                "--eval-every", "1", "--eval-batches", "2",
                 "--checkpoint-dir", str(work / f"ck_{name}"), "--checkpoint-every", "2",
                 "--log-dir", str(work / "runs"),
-                "--run-name", name, "--quiet"]
+                "--run-name", name, "--quiet", *logging_flags]
 
     jsonl = work / "runs" / "sup.jsonl"
 
@@ -2907,6 +3190,19 @@ def phase_supervise_small(mem: Path, smi: str) -> None:
     if ([r["restart_count"] for r in resumes] != [1, 2] or resumes[0]["resume"] != 4
             or [(p["preempt"], p["exit_code"]) for p in preempts] != [("preempt", 75)]):
         fail("supervise_small", f"resume records {resumes}, preempt records {preempts}")
+    # the SIGTERM drill: the preempted lifetime's checkpoint is a committed
+    # round boundary, the next lifetime resumes there and the run finishes
+    sig_step = preempts[0]["checkpoint_step"]
+    committed = CheckpointManager(str(work / "ck_sup")).steps()
+    if (not sig_step or sig_step % 2 or sig_step not in committed + [total]
+            or resumes[1]["resume"] != sig_step
+            or max(r["step"] for r in recs if "loss" in r) != total):
+        fail("supervise_small", f"SIGTERM checkpoint {sig_step} (committed {committed}), "
+                                f"resumes {resumes}")
+    if not all(r.get("avg_sync_time_s") is not None for r in recs if r.get("outer_synced")):
+        fail("supervise_small", "the wandb config's measure_comms true left a sync unfenced")
+    if not any("eval_loss" in r for r in recs):
+        fail("supervise_small", "no eval_loss on the shard run")
     snap = CheckpointManager(str(work / "ck_sup")).restore_raw(total, only={"snapshot"})
     twin_snap = CheckpointManager(str(work / "ck_twin")).restore_raw(total, only={"snapshot"})
     diff = [n for (n, a), (_, b) in zip(named_leaves(snap["snapshot"]),
@@ -2928,6 +3224,8 @@ def phase_supervise_small(mem: Path, smi: str) -> None:
     emit(phase="supervise_small", ok=True, nvidia_smi=smi, seconds=seconds,
          rounds=SUPERVISE_ROUNDS, events=events, exit_codes=[71, 75],
          restart_count=resumes[-1]["restart_count"], snapshot_bit_identical=True,
+         sigterm_checkpoint_step=sig_step, logging_flags=logging_flags,
+         wandb_installed=importlib.util.find_spec("wandb") is not None,
          report_faults=faults_out.getvalue().splitlines(), goodput=goodput)
 
 
@@ -4147,9 +4445,16 @@ def main() -> None:
     took("resume")
     summary = phase_train(smi)
     took("train")
-    phase_checkpoint_full(summary, smi)
-    del summary
-    torch.cuda.empty_cache()
+    dist_dir = Path(tempfile.mkdtemp(prefix="nanodiloco_chip_dist_", dir=MEM_PARENT))
+    try:
+        ref = dist_reference(summary, dist_dir)
+        phase_checkpoint_full(summary, smi)
+        del summary
+        gc.collect()
+        torch.cuda.empty_cache()
+        took("dist", phase_dist(ref, dist_dir, smi))
+    finally:
+        shutil.rmtree(dist_dir, ignore_errors=True)
     phase_train_hd256(smi)
     took("train_hd256")
     torch.cuda.empty_cache()
@@ -4203,4 +4508,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-rank"]:
+        dist_rank_main(Path(sys.argv[2]))
+    else:
+        main()

@@ -19,7 +19,10 @@ SIGINT checkpoint at the next round boundary and exit 75;
 ``--fault-plan``; the ``--watch-*`` sentinels and ``--watch-action
 checkpoint-exit``, exit 76; ``--status-file``; ``--metrics-port``;
 ``--cost-analysis``). Prints the metrics records and the run summary
-last. Runs on the CUDA card unless ``--device cpu``.
+last. Runs on the CUDA card unless ``--device cpu``. Started by torchrun
+(``WORLD_SIZE`` above 1 in the environment) each process runs a group of
+``num_workers / WORLD_SIZE`` workers: NCCL, one card a rank, or gloo with
+``--device cpu``; rank 0 alone prints and writes the run's files.
 
 ``supervise [flags] -- <train flags>`` runs training as a supervised
 child process (resilience/supervisor.py): preempt exits resume at once,
@@ -1897,8 +1900,32 @@ def main(argv=None) -> dict | None:
         serve_main(argv[1:])
         return None
     a = parse_args(argv)
-    summary = train(config_from_args(a), device=a.device)
-    print(json.dumps({k: v for k, v in summary.items() if k not in ("losses", "state")}))
+    device, grouped = a.device, int(os.environ.get("WORLD_SIZE", "1")) > 1
+    if grouped:
+        # launched by torchrun (one process per group of workers): NCCL on
+        # cuda:LOCAL_RANK, gloo with --device cpu; rank 0 builds the
+        # kernels while the others wait, so N ranks run nvcc once
+        import torch.distributed as dist
+
+        from nanodiloco_tpu_torch.parallel.mesh import init_from_env
+
+        device = init_from_env(a.device)
+        if device.type == "cuda":
+            from nanodiloco_tpu_torch.ops.cuda import build
+
+            if dist.get_rank() == 0:
+                build.build_all()
+            dist.barrier()
+    try:
+        summary = train(config_from_args(a), device=device)
+    finally:
+        if grouped:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    if not grouped or summary["rank"] == 0:
+        print(json.dumps({k: v for k, v in summary.items() if k not in ("losses", "state")}))
     return summary
 
 

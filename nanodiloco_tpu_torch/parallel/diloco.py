@@ -2,11 +2,13 @@
 rounds and every option of its ``DilocoConfig`` but the pipeline
 schedule (pipeline parallelism is ROADMAP item 7).
 
-One process and one device hold all W workers. Every worker's
+One process and one device hold all W workers, or, under a
+``torch.distributed`` process group (``parallel/mesh.py``), each rank
+holds a contiguous slice of ``W / world`` of them. Every worker's
 parameters live in one tensor per weight with a leading worker axis
-``[W, ...]`` (the JAX package's stacked pytree, which it ``vmap``s): the
-model runs all workers in one batched pass, so each op, the attention
-kernels included, launches once for W workers. Workers stay independent
+(the JAX package's stacked pytree, which it ``vmap``s): the model runs
+the rank's workers in one batched pass, so each op, the attention
+kernels included, launches once for them. Workers stay independent
 under autograd because the summed per-worker losses touch disjoint
 slices (the backward of a sum is ones whatever the values, so one
 worker's NaN loss leaves the others' gradients finite).
@@ -22,6 +24,20 @@ worker's NaN loss leaves the others' gradients finite).
   functional Nesterov step on the snapshot, every worker reset to it.
   The inner AdamW state is not reset, as in the JAX package. The outer
   step runs leaf by leaf, so its temporaries are one tensor's size.
+
+Under a process group the merge is this rank's partial sum over its
+rows, then one all-reduce per leaf (SUM): each worker's delta ``s - p_w``
+is quantized locally on a float wire and the weighted sum taken in
+float32, as on one process. The integer wire's shared scale is one MAX
+all-reduce of an f32 ``[n_leaves]`` vector of the ranks' absmaxes (the one
+float shape JAX's wire audit allows); its integers are summed on the
+collective in the accumulator dtype, which for int16 (no 16-bit integer
+exists on NCCL or gloo) travels as two offset lanes packed into one int32
+word (``_packed_int16_sum``: exact, 2 bytes a parameter). The quarantine
+mask, the heterogeneous-H budgets and the dynamics readout's replicas are
+gathered, so every rank computes the same coefficients and readout; the
+snapshot is broadcast from rank 0 at init. On one rank all of this runs
+too (a world of one), with every collective the identity.
 
 The options, as in the JAX package: a quantized outer wire (a float cast
 or a per-worker absmax integer quantizer), the integer wire whose sum
@@ -55,6 +71,7 @@ from nanodiloco_tpu_torch.models.llama import (
     tree_leaves,
     tree_map,
 )
+from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
 from nanodiloco_tpu_torch.training.optim import (
     StackedAdamW,
     clip_per_worker_,
@@ -75,6 +92,9 @@ INT_WIRES = {  # name: (q_max, storage dtype, bytes per element)
     "int32": (2**31 - 1, torch.int32, 4),
 }
 _TINY = torch.finfo(torch.float32).tiny
+# the dynamics readout gathers replicas in slices of this many elements a
+# worker (256 MB of float32), not a whole embedding at a time
+_GATHER_ELEMS = 1 << 26
 _INT32_MAX = 2**31 - 1
 
 
@@ -85,6 +105,31 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
     on the device keeps the division, so the card's quantizer gives the
     CPU's (and JAX's) integers and scales."""
     return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def _packed_int16_sum(mesh: WorkerMesh, part: torch.Tensor, bound: int) -> torch.Tensor:
+    """The exact sum over the ranks of the integer tensors ``part`` whose
+    total is an int16 (``|total| <= bound = W * q_max <= 32767``) on 2
+    bytes an element, in int32 words: NCCL has no 16-bit integer type and
+    gloo refuses one. The flat tensor is cut in halves ``a | b`` (one zero
+    pads an odd length); each rank sends ``b * 2**16 + (a + off)`` with
+    ``off = W_local * q_max``, so its low lane is in ``[0, 2 * off]``. Over
+    any set of ranks the low lanes sum into ``[0, 2 * bound] < 2**16`` (no
+    carry into the high lane) and the high lanes into ``[-bound, bound]``,
+    so no partial sum leaves int32 in any reduction order. Returns the
+    int32 total in ``part``'s shape."""
+    n = part.numel()
+    half = (n + 1) // 2
+    flat = part.reshape(-1).to(torch.int64)
+    a, b = flat[:half], torch.zeros(half, dtype=torch.int64, device=flat.device)
+    b[: n - half] = flat[half:]
+    off = bound // mesh.world
+    word = (b * 65536 + (a + off)).to(torch.int32)
+    mesh.all_reduce_(word, "sum", tag="pseudograd")
+    total = word.to(torch.int64)
+    low = total & 0xFFFF
+    out = torch.cat([low - off * mesh.world, (total - low) // 65536])
+    return out[:n].to(torch.int32).reshape(part.shape)
 
 
 def _wire_accumulator_dtype(num_workers: int, q_max: float) -> torch.dtype:
@@ -244,11 +289,15 @@ class Diloco:
     """Owns the inner and outer steps of DiLoCo on one device."""
 
     def __init__(self, model_cfg: LlamaConfig, cfg: DilocoConfig,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: WorkerMesh | None = None):
         self.model_cfg = model_cfg
         self.cfg = cfg
         self.device = resolve_device(device)
         W = cfg.num_workers
+        # the workers this rank holds (all W without a process group)
+        self.mesh = WorkerMesh.current(W) if mesh is None else mesh
+        if self.mesh.num_workers != W:
+            raise ValueError(f"mesh is for {self.mesh.num_workers} workers, the config {W}")
         self._float_wire = self._int_wire = None
         if cfg.outer_comm_dtype is not None:
             name = cfg.outer_comm_dtype
@@ -364,8 +413,9 @@ class Diloco:
             if generator is None:
                 raise ValueError("init_state needs a generator or params")
             params = init_params(generator, self.model_cfg, self.device)
-        W = self.cfg.num_workers
+        W = self.mesh.local_workers
         snapshot = tree_map(lambda p: p.detach().to(self.device).clone(), params)
+        self.broadcast_snapshot(snapshot)
         stacked = tree_map(
             lambda p: p.unsqueeze(0).repeat((W,) + (1,) * p.ndim).requires_grad_(True),
             snapshot,
@@ -379,6 +429,24 @@ class Diloco:
         if self.cfg.async_outer:
             return self._as_async_state(base)
         return self._offload(base)
+
+    @torch.no_grad()
+    def broadcast_snapshot(self, snapshot: Params) -> Params:
+        """Rank 0's snapshot into every rank, in place (the reference's
+        init broadcast; after a restore too). The identity without a
+        process group."""
+        if self.mesh.distributed:
+            for s in tree_leaves(snapshot):
+                self.mesh.broadcast_(s, tag="init")
+        return snapshot
+
+    def gather_workers(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's per-worker values (its W_local entries along
+        ``dim``) gathered to all W, in worker order; ``t`` itself without
+        a process group."""
+        if not self.mesh.distributed:
+            return t
+        return self.mesh.all_gather(t, dim=dim, tag="workers")
 
     def _as_async_state(self, base: DilocoState) -> AsyncDilocoState:
         """Every pending slot starts as a copy of the init snapshot with
@@ -399,7 +467,8 @@ class Diloco:
         return t.to(device=self.device, dtype=torch.long)
 
     def inner_step(self, state: DilocoState, tokens, loss_mask):
-        """tokens/loss_mask: [W, accum, B, S]. One AdamW update per worker
+        """tokens/loss_mask: [W, accum, B, S] (this rank's W_local rows
+        under a process group). One AdamW update per worker
         from ``accum`` token-weighted microbatch gradients. Returns
         (state, [W] losses), each the mean of the microbatch mean losses.
 
@@ -410,11 +479,12 @@ class Diloco:
         replica on the step's batch."""
         tokens = self._as_tokens(tokens)
         loss_mask = self._as_tokens(loss_mask)
-        W, A = self.cfg.num_workers, self.cfg.grad_accum
+        W, A = self.mesh.local_workers, self.cfg.grad_accum
         if tokens.ndim != 4:
             raise ValueError(f"tokens must be [W, accum, B, S]; got shape {tuple(tokens.shape)}")
         if tokens.shape[0] != W:
-            raise ValueError(f"batch worker axis is {tokens.shape[0]} but num_workers is {W}")
+            raise ValueError(f"batch worker axis is {tokens.shape[0]} but this rank holds "
+                             f"{W} of num_workers={self.cfg.num_workers}")
         if tokens.shape[1] != A:
             raise ValueError(f"batch accumulation axis is {tokens.shape[1]} but grad_accum is {A}")
         leaves = tree_leaves(state.params)
@@ -442,7 +512,7 @@ class Diloco:
         active = None
         if self._h_budget is not None:
             pos = state.inner_step_count % self.cfg.inner_steps
-            active = [pos < h for h in self._h_budget]
+            active = [pos < h for h in self._h_budget[self.mesh.lo:self.mesh.hi]]
         opt = state.inner_opt
         opt.step([self.schedule(c) for c in opt.counts()], active)
         opt.zero_grad()
@@ -507,16 +577,25 @@ class Diloco:
         return [x / denom for x in w]
 
     def _pseudograd_of(self, s: torch.Tensor, p: torch.Tensor,
-                       weights: list[float] | None) -> torch.Tensor:
+                       weights: list[float] | None,
+                       scale: torch.Tensor | None = None) -> torch.Tensor:
         """The pseudo-gradient of one leaf from the old snapshot ``s`` and
         the replicas ``p`` [W, ...], with the coefficients ``c`` of
         ``_merge_coefs``: ``s - sum_w c_w p_w`` (JAX's ``s - mean(p)``
         without weights), or on a wire ``sum_w c_w wire(s - p_w)``, each
         worker's delta quantized first and summed in float32. Only the
         survivors' rows are read, so a dead worker's NaN cannot reach the
-        merge through 0 * NaN; all-dead gives a zero pseudo-gradient."""
+        merge through 0 * NaN; all-dead gives a zero pseudo-gradient.
+
+        Under a process group ``p`` holds this rank's rows and the result
+        is ``sum_w c_w wire(s - p_w)`` (the identity for wire) summed over
+        the ranks: its roundoff is in units of the deltas, not of the
+        snapshot. ``scale`` is the integer wire's shared scale, if the
+        caller already has it."""
         if self.cfg.outer_wire_collective:
-            return self._integer_wire_leaf(s, p, weights)
+            return self._integer_wire_leaf(s, p, weights, scale)
+        if self.mesh.distributed:
+            return self._pseudograd_ranks(s, p, weights)
         coefs = self._merge_coefs(weights)
         live = [w for w, c in enumerate(coefs) if c > 0]
         if not live:
@@ -532,33 +611,97 @@ class Diloco:
             merged.add_(d[w], alpha=coefs[w])
         return merged.to(s.dtype)
 
+    def _pseudograd_ranks(self, s: torch.Tensor, p: torch.Tensor,
+                          weights: list[float] | None) -> torch.Tensor:
+        """The float merge under a process group: this rank's partial sum
+        of its live rows' weighted (wire) deltas in float32, then one SUM
+        all-reduce. Every rank holds the global coefficients, so all agree
+        whether any worker survives."""
+        coefs = self._merge_coefs(weights)
+        if not any(c > 0 for c in coefs):
+            return torch.zeros_like(s)
+        lo = self.mesh.lo
+        merged = torch.zeros(s.shape, dtype=torch.float32, device=s.device)
+        live = [w for w in range(self.mesh.local_workers) if coefs[lo + w] > 0]
+        if live:
+            if self.cfg.outer_comm_dtype is None:
+                for w in live:
+                    merged.add_(s.float() - p[w].float(), alpha=coefs[lo + w])
+            else:
+                d = self._wire_quantize(s.unsqueeze(0) - p)
+                for w in live:
+                    merged.add_(d[w], alpha=coefs[lo + w])
+        self.mesh.all_reduce_(merged, "sum", tag="pseudograd")
+        return merged.to(s.dtype)
+
+    def _masked_deltas(self, s: torch.Tensor, p: torch.Tensor,
+                       weights: list[float] | None) -> torch.Tensor:
+        """``s - p`` [rows, ...] in float32 with masked rows zeroed (a dead
+        worker's NaN must poison neither the scale nor the integer cast);
+        the rows are this rank's under a process group."""
+        d = (s.unsqueeze(0) - p).float()
+        if weights is not None:
+            lo = self.mesh.lo
+            keep = torch.tensor([w > 0 for w in weights[lo:lo + p.shape[0]]], device=p.device)
+            d = torch.where(keep.view((-1,) + (1,) * (d.ndim - 1)), d,
+                            torch.zeros((), device=p.device))
+        return d
+
+    @torch.no_grad()
+    def shared_scales(self, snapshot: Params, params_w: Params,
+                      weights: list[float] | None) -> list[torch.Tensor]:
+        """The integer wire's per-leaf shared scales: the survivors'
+        absmax / q_max of every leaf, the absmaxes taken across the ranks
+        by one MAX all-reduce of an f32 [n_leaves] vector."""
+        q_max = self._int_wire[0]
+        amax = torch.stack([
+            torch.linalg.vector_norm(self._masked_deltas(s, p.detach(), weights),
+                                     ord=float("inf"))
+            for s, p in zip(tree_leaves(snapshot), tree_leaves(params_w))
+        ]).float()
+        if self.mesh.distributed:
+            self.mesh.all_reduce_(amax, "max", tag="scale")
+        return [_div(a, q_max).clamp_min(_TINY) for a in amax]
+
     @torch.no_grad()
     def integer_wire_payload(self, s: torch.Tensor, p: torch.Tensor,
-                             weights: list[float] | None) -> tuple[torch.Tensor, torch.Tensor]:
+                             weights: list[float] | None,
+                             scale: torch.Tensor | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
         """What every worker puts on the integer wire for one leaf: the
         deltas ``s - p`` [W, ...] with masked rows zeroed first (a dead
         worker's NaN must poison neither the scale nor the integer cast),
         quantized with one scale shared by every worker (the survivors'
-        absmax / q_max). Returns (integers in the wire's storage dtype,
-        the float32 scale)."""
+        absmax / q_max, over every rank's rows under a process group).
+        Returns (integers in the wire's storage dtype, the float32
+        scale)."""
         q_max, storage, _ = self._int_wire
-        d = (s.unsqueeze(0) - p).float()
-        if weights is not None:
-            keep = torch.tensor([w > 0 for w in weights], device=p.device)
-            d = torch.where(keep.view((-1,) + (1,) * (d.ndim - 1)), d,
-                            torch.zeros((), device=p.device))
-        scale = _div(torch.linalg.vector_norm(d, ord=float("inf")), q_max).clamp_min(_TINY)
+        d = self._masked_deltas(s, p, weights)
+        if scale is None:
+            amax = torch.linalg.vector_norm(d, ord=float("inf")).float()
+            if self.mesh.distributed:
+                self.mesh.all_reduce_(amax.reshape(1), "max", tag="scale")
+            scale = _div(amax, q_max).clamp_min(_TINY)
         return (d / scale).round_().clamp_(-q_max, q_max).to(storage), scale
 
     def _integer_wire_leaf(self, s: torch.Tensor, p: torch.Tensor,
-                           weights: list[float] | None) -> torch.Tensor:
+                           weights: list[float] | None,
+                           scale: torch.Tensor | None = None) -> torch.Tensor:
         """The integer wire (JAX ``_pseudograd_integer_wire``) for one
         leaf: the payload's integers summed in the accumulator dtype
-        (exact: ``W * q_max`` fits), the sum dequantized and divided by
-        the survivor count."""
+        (exact: ``W * q_max`` fits), across the ranks on the collective
+        under a process group, the sum dequantized and divided by the
+        survivor count (from the gathered mask, on the host)."""
         W = self.cfg.num_workers
-        q, scale = self.integer_wire_payload(s, p, weights)
-        total = q.sum(dim=0, dtype=_wire_accumulator_dtype(W, self._int_wire[0]))
+        q_max = self._int_wire[0]
+        q, scale = self.integer_wire_payload(s, p, weights, scale)
+        acc = _wire_accumulator_dtype(W, q_max)
+        total = q.sum(dim=0, dtype=acc)
+        if self.mesh.distributed:
+            if acc == torch.int16:
+                total = _packed_int16_sum(self.mesh, total, int(W * q_max))
+            else:
+                self.mesh.all_reduce_(total, "sum", tag="pseudograd")
         denom = float(W) if weights is None else max(sum(weights), 1.0)
         return _div(total.float() * scale, denom).to(s.dtype)
 
@@ -622,15 +765,24 @@ class Diloco:
         """[W] bool: worker w's replica holds only finite values (the exact
         quarantine criterion: a loss is computed before the step's update,
         so a blow-up on a round's last update shows only here)."""
-        W = self.cfg.num_workers
+        W = self.mesh.local_workers
         flags = [torch.isfinite(p).reshape(W, -1).all(dim=1) for p in tree_leaves(params_w)]
-        return torch.stack(flags).all(dim=0)
+        local = torch.stack(flags).all(dim=0)
+        if not self.mesh.distributed:
+            return local
+        return self.mesh.all_gather(local.to(torch.uint8), tag="mask").to(torch.bool)
 
     # -- outer step (the only cross-worker traffic) --------------------------
 
     def _merge_weights(self, worker_mask, budget) -> list[float] | None:
         """Host [W] weights of the merge: the mask (0/1) times the realized
-        step budgets, None when neither is given."""
+        step budgets, None when neither is given. Under a process group
+        each rank's budgets for its own workers are gathered, so every
+        rank merges with the same weights."""
+        if budget is not None and self.mesh.distributed:
+            mine = torch.tensor(list(budget)[self.mesh.lo:self.mesh.hi], dtype=torch.int32,
+                                device=self.device)
+            budget = self.mesh.all_gather(mine, tag="budget").tolist()
         weights = None
         if worker_mask is not None:
             weights = [float(bool(m)) for m in torch.as_tensor(worker_mask).tolist()]
@@ -657,18 +809,36 @@ class Diloco:
         so the update is the same with it on or off."""
         acc = _Dynamics(self.cfg.num_workers, self.device) if dynamics else None
         cfg = self.cfg
+        scales = None
+        if cfg.outer_wire_collective and self.mesh.distributed:
+            scales = self.shared_scales(snapshot, params_w, weights)
         for i, (s, p, buf) in enumerate(zip(tree_leaves(snapshot), tree_leaves(params_w),
                                             tree_leaves(momentum))):
             p = p.detach()
-            delta = self._pseudograd_of(s, p, weights)
+            delta = self._pseudograd_of(s, p, weights, None if scales is None else scales[i])
             if acc is not None:
-                acc.add_replicas(s, p)
+                self._read_replicas(acc, s, p)
             direction = nesterov_direction(delta, buf, cfg.outer_momentum, cfg.nesterov)
             if acc is not None:
                 acc.add_update(delta, direction, buf)
             del delta
             apply(i, direction, -cfg.outer_lr)
         return None if acc is None else acc.result()
+
+    def _read_replicas(self, acc: _Dynamics, s: torch.Tensor, p: torch.Tensor) -> None:
+        """The readout of one leaf's replicas. Its pairwise drift needs
+        every replica, so under a process group the rows are gathered, in
+        slices of at most ``_GATHER_ELEMS`` elements a worker (the sums it
+        accumulates split over slices; a smaller leaf is the one-process
+        arithmetic on the same values)."""
+        if not self.mesh.distributed:
+            acc.add_replicas(s, p)
+            return
+        flat_s, flat_p = s.reshape(-1), p.reshape(p.shape[0], -1)
+        for lo in range(0, flat_s.numel(), _GATHER_ELEMS):
+            hi = lo + _GATHER_ELEMS
+            acc.add_replicas(flat_s[lo:hi],
+                             self.mesh.all_gather(flat_p[:, lo:hi], tag="dynamics"))
 
     @torch.no_grad()
     def outer_step(self, state: DilocoState, worker_mask=None):
@@ -677,14 +847,15 @@ class Diloco:
         Returns ``(state, effective_mask, dynamics)``: the [W] bool mask of
         the workers that entered the mean (caller's mask AND replica
         finiteness under quarantine; all true otherwise) and the dynamics
-        dict (None unless ``dynamics_metrics``)."""
+        dict (None unless ``dynamics_metrics``). ``worker_mask`` is global
+        ([W]) under a process group too."""
         W = self.cfg.num_workers
         if worker_mask is not None:
             worker_mask = torch.as_tensor(worker_mask).to(torch.bool)
         if self.cfg.quarantine_nonfinite:
             pmask = self.replica_finite_mask(state.params).cpu()
             worker_mask = pmask if worker_mask is None else (worker_mask.cpu() & pmask)
-            state.inner_opt.reset_moments(worker_mask.tolist())
+            state.inner_opt.reset_moments(worker_mask.tolist()[self.mesh.lo:self.mesh.hi])
         weights = self._merge_weights(worker_mask, self._h_budget)
         eff = (torch.ones(W, dtype=torch.bool) if weights is None
                else torch.tensor([w > 0 for w in weights]))
@@ -704,8 +875,10 @@ class Diloco:
         """One full round: ``inner_round``, then the outer sync. Returns
         (state, [H, W] losses, [W] effective mask), plus the dynamics dict
         as a 4th element under ``dynamics_metrics``. Under quarantine a
-        non-finite round loss is one more reason to mask a worker."""
+        non-finite round loss is one more reason to mask a worker. Under a
+        process group the losses are gathered to [H, W]."""
         state, losses = self.inner_round(state, tokens, loss_mask)
+        losses = self.gather_workers(losses, dim=1)
         wmask = torch.isfinite(losses).all(dim=0) if self.cfg.quarantine_nonfinite else None
         state, eff, dyn = self.outer_step(state, wmask)
         if self.cfg.dynamics_metrics:

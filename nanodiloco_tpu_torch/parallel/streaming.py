@@ -19,7 +19,9 @@ Cadence (1-based inner-step index t): fragment p launches when
 after, so fragment P-1 launches at t = H, 2H, ... as classic DiLoCo syncs.
 
 A fragment's tensors are views into the stacked parameters and the
-snapshot: launches and applies write through them in place. Streaming
+snapshot: launches and applies write through them in place. Under a
+process group a launch's merge is the classic one's (``Diloco``'s partial
+sums and one all-reduce a leaf), on the fragment's leaves. Streaming
 over pipeline or sequence parallelism is not ported (ROADMAP item 7):
 the port's model refuses ring attention and has no pipeline stages.
 """
@@ -102,8 +104,8 @@ class StreamingDiloco(Diloco):
     or a whole round at a time with ``round_step``."""
 
     def __init__(self, model_cfg, cfg: DilocoConfig, scfg: StreamingConfig,
-                 device: str | torch.device = "cuda"):
-        super().__init__(model_cfg, cfg, device)
+                 device: str | torch.device = "cuda", mesh=None):
+        super().__init__(model_cfg, cfg, device, mesh)
         if cfg.quarantine_nonfinite:
             raise ValueError(
                 "quarantine_nonfinite is classic-DiLoCo-only: streaming's fragment "
@@ -204,7 +206,8 @@ class StreamingDiloco(Diloco):
     def round_step(self, state: StreamingState, tokens, loss_mask):  # type: ignore[override]
         """One H-step round. tokens/loss_mask: [H, W, accum, B, S]. Returns
         (state, [H, W] losses, an all-ones [W] mask): the shape of the
-        classic ``round_step`` (quarantine is refused here)."""
+        classic ``round_step`` (quarantine is refused here), the losses
+        gathered from every rank under a process group."""
         H = self.cfg.inner_steps
         if len(tokens) != H or np.ndim(tokens) != 5:
             raise ValueError(
@@ -216,7 +219,8 @@ class StreamingDiloco(Diloco):
             state, loss = self.step(state, tokens[h], loss_mask[h],
                                     state.inner_step_count + 1)
             losses.append(loss)
-        return state, torch.stack(losses), torch.ones(self.cfg.num_workers, dtype=torch.bool)
+        return (state, self.gather_workers(torch.stack(losses), dim=1),
+                torch.ones(self.cfg.num_workers, dtype=torch.bool))
 
     @torch.no_grad()
     def _launch_fragment(self, state: StreamingState, p: int) -> None:

@@ -361,16 +361,20 @@ def maybe_stall() -> float:
     return s
 
 
-def maybe_straggle() -> dict[int, float]:
+def maybe_straggle(owned=None) -> dict[int, float]:
     """straggler hook (train-loop round body, once per round): sleep the
     due per-worker straggler seconds ON the round's clock — a real
     wall-clock delay the round time, straggler policy, and goodput
     ledger all observe — and return the ``{worker: seconds}``
-    attribution. One ``is None`` check on the fault-free path."""
+    attribution. ``owned``: the workers this process holds (all by
+    default); under a process group only the rank holding a worker sleeps
+    for it, and every rank returns the whole attribution. One ``is None``
+    check on the fault-free path."""
     if _PLAN is None:
         return {}
     due = _PLAN.straggle_due()
-    total = sum(due.values())
+    owned = None if owned is None else set(owned)
+    total = sum(s for w, s in due.items() if owned is None or w in owned)
     if total > 0:
         time.sleep(total)
     return due

@@ -21,6 +21,16 @@ and, for the async outer path (JAX ``AsyncDilocoState``), ``pending``
 
 A save writes ``step_<n>.tmp``, fsyncs it, renames it into place and
 fsyncs the directory, so a crash mid-save never becomes ``latest_step``.
+
+Under a process group (``parallel/mesh.py``) the file is the same, with
+every worker's rows: rank 0 writes the tree's skeleton at the full
+``[W, ...]`` shapes without its bytes (``torch.serialization.skip_data``),
+maps the file shared and fills it leaf by leaf, gathering the other
+ranks' rows of one leaf at a time (it never holds more than one leaf of
+theirs); the step is committed by rank 0 alone and the other ranks wait
+for its verdict. A restore reads the file on every rank, each keeping its
+own rows, so a checkpoint does not depend on the world size it was
+written at: it resumes at another, and at another W elastically.
 It writes no CRC-32 into the zip records: ``torch.load`` never reads one
 back (a flipped data byte loads silently with or without it), and
 computing it took about half of a save's time.
@@ -34,12 +44,15 @@ never holds two states: at Llama-3-8B width one state is most of it.
 
 from __future__ import annotations
 
+import mmap
 import os
 import re
 from typing import Any, Callable
 
 import torch
 from torch.utils.serialization import config as serialization_config
+
+from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
 
 from nanodiloco_tpu_torch.models.llama import Params, tree_leaves
 from nanodiloco_tpu_torch.resilience import faults
@@ -121,12 +134,61 @@ def _check_kind(saved: dict, state) -> None:
         )
 
 
+def _stacked_paths(tree: dict) -> set[tuple]:
+    """Paths of the per-worker leaves of a ``state_tree``: the params and
+    the inner moments and step counts (their leading axis is the
+    workers')."""
+    paths = {("params",) + tuple(n.split("/")) for n, _ in named_leaves(tree["params"])}
+    for name, st in tree["inner_opt_state"].items():
+        paths |= {("inner_opt_state", name, k) for k in st}
+    return paths
+
+
+def _tensor_items(tree, path: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
+    """Every tensor of a nested dict/list tree with its path, in a fixed
+    (insertion) order."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items() for x in _tensor_items(v, path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree) for x in _tensor_items(v, path + (i,))]
+    return [(path, tree)] if torch.is_tensor(tree) else []
+
+
+def _at(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _skeleton(tree: dict, num_workers: int, stacked: set[tuple]):
+    """``tree`` with each per-worker leaf replaced by a fake tensor of the
+    full ``[W, ...]`` shape (no storage): what rank 0 writes without data
+    and fills afterwards."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = FakeTensorMode()
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(t)]
+        if torch.is_tensor(t) and path in stacked:
+            with mode:
+                return torch.empty((num_workers,) + tuple(t.shape[1:]), dtype=t.dtype)
+        return t
+
+    return walk(tree, ())
+
+
 class CheckpointManager:
     """``retry``: a RetryPolicy wrapped around every save and restore
     attempt (jittered exponential backoff with a deadline); None keeps
     the raw single attempt. ``on_event`` receives a ``{"retry": op,
     "attempt": ..., ...}`` record per backoff (the train loop passes the
-    metrics logger, so IO flakiness lands in the run's JSONL)."""
+    metrics logger, so IO flakiness lands in the run's JSONL). ``mesh``:
+    the process group's view of the workers (None, or one without a
+    group: the state holds every worker)."""
 
     def __init__(
         self,
@@ -134,11 +196,13 @@ class CheckpointManager:
         max_to_keep: int = 3,
         retry: RetryPolicy | None = None,
         on_event: Callable[[dict], None] | None = None,
+        mesh: WorkerMesh | None = None,
     ) -> None:
         self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
         self.retry = retry
         self._on_event = on_event or (lambda rec: None)
+        self.mesh = mesh if mesh is not None and mesh.distributed else None
         os.makedirs(self.directory, exist_ok=True)
 
     def _attempt(self, op: str, fn: Callable[[], Any]) -> Any:
@@ -167,9 +231,12 @@ class CheckpointManager:
 
     def save(self, step: int, state) -> None:
         """Write ``step_<step>.pt`` (replacing one of that step) and keep
-        the newest ``max_to_keep``."""
+        the newest ``max_to_keep``. Under a process group every rank
+        calls it: see ``_save_gathered``."""
         tree = state_tree(state)
         final, tmp = self.path(step), os.path.join(self.directory, f"step_{step}.tmp")
+        if self.mesh is not None:
+            return self._save_gathered(step, tree, final, tmp)
 
         def attempt():
             faults.check_io("save")  # injection hook (io_error op=save)
@@ -182,6 +249,84 @@ class CheckpointManager:
         self._attempt("ckpt_save", attempt)
         for old in self.steps()[: -self.max_to_keep]:
             os.remove(self.path(old))
+
+    @torch.no_grad()
+    def _save_gathered(self, step: int, tree: dict, final: str, tmp: str) -> None:
+        """The save under a process group. Rank 0 writes the tree's
+        skeleton, the per-worker leaves at the full ``[W, ...]`` shapes,
+        without its bytes (``torch.serialization.skip_data``), reserves its
+        blocks (a full disk fails here, as an error, not as a fault in the
+        fill), maps the file shared and fills it leaf by leaf, gathering
+        the other ranks' rows of one leaf at a time; it alone commits, and
+        every rank learns each outcome."""
+        mesh = self.mesh
+        stacked = _stacked_paths(tree)
+        err = None
+        if mesh.is_root:
+            skeleton = _skeleton(tree, mesh.num_workers, stacked)
+
+            def attempt():
+                faults.check_io("save")  # injection hook (io_error op=save)
+                with torch.serialization.skip_data(materialize_fake_tensors=True), \
+                        serialization_config.patch({"save.compute_crc32": False}):
+                    torch.save(skeleton, tmp)
+                _reserve(tmp)
+
+            try:
+                self._attempt("ckpt_save", attempt)
+            except Exception as e:
+                err = e
+            del skeleton
+        self._verdict(err, f"write checkpoint step {step}")
+        out = None
+        if mesh.is_root:
+            with torch.serialization.set_default_mmap_options(mmap.MAP_SHARED):
+                out = torch.load(tmp, map_location="cpu", mmap=True, weights_only=True)
+        n = mesh.local_workers
+        for path, t in _tensor_items(tree):
+            if path in stacked:
+                parts = mesh.gather_to_root(t, tag="checkpoint")
+                if out is not None:
+                    dst = _at(out, path)
+                    for r, part in enumerate(parts):
+                        dst[r * n:(r + 1) * n].copy_(part)
+                del parts
+            elif out is not None:
+                _at(out, path).copy_(t)
+        err = None
+        if mesh.is_root:
+            del out
+            try:
+                _fsync(tmp)
+                os.replace(tmp, final)
+                _fsync(self.directory)
+                for old in self.steps()[: -self.max_to_keep]:
+                    os.remove(self.path(old))
+            except Exception as e:
+                err = e
+        self._verdict(err, f"commit checkpoint step {step}")
+
+    def _verdict(self, err: BaseException | None, what: str) -> None:
+        """Rank 0's outcome of a step of a gathered save, on every rank: a
+        failure raises everywhere at the same point (no rank is left
+        waiting in a collective)."""
+        flag = torch.tensor([int(err is None)], dtype=torch.int32)
+        self.mesh.broadcast_(flag, tag="checkpoint")
+        if int(flag.item()):
+            return
+        if err is not None:
+            raise err
+        raise RuntimeError(f"rank 0 failed to {what}")
+
+    def _rows(self, tree):
+        """This rank's worker rows of a saved per-worker tree (the whole
+        tree without a process group)."""
+        if self.mesh is None:
+            return tree
+        lo, hi = self.mesh.lo, self.mesh.hi
+        if isinstance(tree, dict):
+            return {k: self._rows(v) for k, v in tree.items()}
+        return tree[lo:hi] if tree.ndim else tree
 
     def _load(self, step: int | None) -> dict[str, Any]:
         step = self.latest_step if step is None else step
@@ -222,11 +367,12 @@ class CheckpointManager:
         streaming pending merges included."""
         saved = self._load(step)
         _check_kind(saved, state)
-        _copy_into(state.params, saved["params"], "params")
+        _copy_into(state.params, self._rows(saved["params"]), "params")
         _copy_into(state.snapshot, saved["snapshot"], "snapshot")
         W = int(tree_leaves(state.params)[0].shape[0])
         for name, p in named_leaves(state.params):
             st = saved["inner_opt_state"].get(name)
+            st = None if st is None else self._rows(st)
             if st is not None:
                 live = state.inner_opt.state[p]
                 for k in ("exp_avg", "exp_avg_sq"):
@@ -321,6 +467,17 @@ def _restore_outer(state, saved: dict[str, Any]) -> None:
             )
         for live, sv in zip(state.pending, saved["pending"]):
             _copy_into(live, sv, "pending")
+
+
+def _reserve(path: str) -> None:
+    """Allocate every block of ``path`` (a sparse skeleton's holes
+    included), so filling it through a shared mapping cannot run out of
+    space."""
+    fd = os.open(path, os.O_RDWR)
+    try:
+        os.posix_fallocate(fd, 0, os.fstat(fd).st_size)
+    finally:
+        os.close(fd)
 
 
 def _fsync(path: str) -> None:

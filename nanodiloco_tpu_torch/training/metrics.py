@@ -66,11 +66,11 @@ class MetricsLogger:
         wandb_project: str = "nano-diloco",
         config: dict | None = None,
         quiet: bool = False,
+        process_index: int | None = None,
     ) -> None:
         self.run_name = run_name
-        self.quiet = quiet
-        # ALWAYS set, even for file-less runs: any consumer probing
-        # logger.path must read None, not AttributeError
+        # ALWAYS set, even for file-less runs and non-writer ranks: any
+        # consumer probing logger.path must read None, not AttributeError
         self.path: str | None = None
         # optional live scrape mirror (obs/telemetry.TelemetryServer):
         # every record log() writes also updates its gauges, so /metrics
@@ -81,11 +81,23 @@ class MetricsLogger:
         # summarize_run has to paper over)
         self._lock = threading.Lock()
         self._file = None
+        self._wandb = None
+        if process_index is None:
+            import torch.distributed as dist
+
+            process_index = (dist.get_rank()
+                             if dist.is_available() and dist.is_initialized() else 0)
+        # every sink is rank 0's: under a process group, N unguarded ranks
+        # would mean N JSONL files, N wandb runs and N interleaved stdout
+        # streams for one job (JAX metrics.py; injectable for tests)
+        self.is_writer = process_index == 0
+        self.quiet = quiet or not self.is_writer
+        if not self.is_writer:
+            return
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             self.path = os.path.join(out_dir, f"{run_name}.jsonl")
             self._file = open(self.path, "a")
-        self._wandb = None
         if use_wandb:
             try:
                 import wandb

@@ -48,6 +48,21 @@ inner steps and one outer sync until ``total_steps``. Around the rounds:
   ``cost_analysis`` record (``obs/costs.py``) and the live telemetry
   endpoint (``metrics_port``).
 
+Under a ``torch.distributed`` process group (``parallel/mesh.py``; the
+CLI starts one from torchrun's environment) each rank holds ``W / world``
+workers and runs this same loop: it keeps its workers' rows of the global
+batch (``parallel/feed.py``), the outer step's merge goes over the
+collective (``parallel/diloco.py``), the round's [H, W] losses are
+gathered, the run name is rank 0's, and rank 0 alone writes the JSONL,
+stdout, wandb, the status file, the telemetry port, the flight-recorder
+dump and the checkpoint (of every rank's rows; ``training/checkpoint.py``).
+Each rank writes its own trace shard (``trace_shard_path``). A fault
+plan's worker index is global: the rank holding the worker poisons or
+stalls it. The stop latch (preemption, watchdog, resize) is agreed across
+the ranks at each round boundary, so a stop on any rank stops all of them
+at the same boundary, after one checkpoint. The summary's ``state`` holds
+this rank's rows.
+
 The straggler policy reads per-worker round seconds as the JAX loop
 models them: the shared round wall time scaled by each worker's realized
 step share, plus the seconds an injected ``straggler`` fault slept for
@@ -94,7 +109,12 @@ from nanodiloco_tpu_torch.obs import flightrec
 from nanodiloco_tpu_torch.obs.costs import build_cost_record, microbatch_flops
 from nanodiloco_tpu_torch.obs.devtime import DispatchAccountant
 from nanodiloco_tpu_torch.obs.goodput import GoodputLedger
-from nanodiloco_tpu_torch.obs.tracer import SpanTracer, set_tracer, trace_span
+from nanodiloco_tpu_torch.obs.tracer import (
+    SpanTracer,
+    set_tracer,
+    trace_shard_path,
+    trace_span,
+)
 from nanodiloco_tpu_torch.obs.watchdog import Watchdog, WatchdogConfig
 from nanodiloco_tpu_torch.ops.cuda.flash_attention import (
     launch_counts,
@@ -102,6 +122,8 @@ from nanodiloco_tpu_torch.ops.cuda.flash_attention import (
     variant_counts,
 )
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig, host_dynamics
+from nanodiloco_tpu_torch.parallel.feed import BatchFeeder
+from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
 from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
 from nanodiloco_tpu_torch.resilience import faults
 from nanodiloco_tpu_torch.resilience.retry import RetryPolicy, retry_call
@@ -120,7 +142,7 @@ from nanodiloco_tpu_torch.training.elastic import (
 )
 from nanodiloco_tpu_torch.training.evaluate import Evaluator, holdout_batches
 from nanodiloco_tpu_torch.training.metrics import MetricsLogger, SyncTimer
-from nanodiloco_tpu_torch.utils import create_run_name, device_memory_stats
+from nanodiloco_tpu_torch.utils import create_run_name, device_memory_stats, resolve_run_name
 
 
 class _EmergencyExit(Exception):
@@ -292,16 +314,17 @@ def _fence(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _stack_round(batches, inner_steps: int,
-                 pin: bool) -> tuple[torch.Tensor, torch.Tensor, float]:
+def _stack_round(batches, inner_steps: int, pin: bool,
+                 feed: BatchFeeder) -> tuple[torch.Tensor, torch.Tensor, float]:
     """Draw one round of batches and stack them into [H, W, accum, B, S]
-    host tensors, pinned when they go to a card. The fault plan's stall
-    hook runs here, on the prefetch thread, as on the JAX feeder; its
-    slept seconds come back third (0.0 without a plan)."""
+    host tensors (this rank's worker rows under a process group), pinned
+    when they go to a card. The fault plan's stall hook runs here, on the
+    prefetch thread, as on the JAX feeder; its slept seconds come back
+    third (0.0 without a plan)."""
     stalled = faults.maybe_stall()
     steps = [next(batches) for _ in range(inner_steps)]
-    toks = torch.from_numpy(np.stack([t for t, _ in steps]))
-    masks = torch.from_numpy(np.stack([m for _, m in steps]))
+    toks = torch.from_numpy(feed(np.stack([t for t, _ in steps])))
+    masks = torch.from_numpy(feed(np.stack([m for _, m in steps])))
     if pin:
         toks, masks = toks.pin_memory(), masks.pin_memory()
     return toks, masks, stalled
@@ -316,7 +339,8 @@ def _finite_worker_mean(losses: torch.Tensor) -> torch.Tensor:
 
 
 def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, Any]:
-    """Run the DiLoCo training job on one device; returns the summary."""
+    """Run the DiLoCo training job on one device (this rank's, under a
+    process group); returns the summary."""
     # the goodput ledger opens first, so every second of this process's
     # lifetime lands in its partition (unspanned setup as `other`); the
     # supervisor's restart ordinal names the lifetime and its measured
@@ -326,7 +350,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
     if downtime_s > 0:
         ledger.book_external("restart_downtime", downtime_s)
     device = resolve_device(device)
-    quiet = cfg.quiet
+    # this rank's workers (all of them without a process group); raises
+    # when num_workers is not a multiple of the world size
+    mesh = WorkerMesh.current(cfg.num_workers)
+    root = mesh.is_root
+    quiet = cfg.quiet or not root
     if cfg.total_steps % cfg.inner_steps:
         raise ValueError("total_steps must divide evenly by inner_steps")
     if cfg.watch_action not in ("none", "checkpoint-exit"):
@@ -471,9 +499,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         dl = StreamingDiloco(model_cfg, dcfg, StreamingConfig(
             num_fragments=cfg.streaming_fragments, delay=cfg.streaming_delay,
             merge_alpha=cfg.merge_alpha,
-        ), device)
+        ), device, mesh)
     else:
-        dl = Diloco(model_cfg, dcfg, device)
+        dl = Diloco(model_cfg, dcfg, device, mesh)
     if cfg.num_workers > 1 and not quiet:
         rep = dl.sync_payload_report()
         print(f"[nanodiloco] outer-sync payload: {rep['bytes_per_sync'] / 1e6:.1f} "
@@ -508,14 +536,15 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             cfg.checkpoint_dir,
             retry=RetryPolicy(max_attempts=4, base_delay_s=0.25, max_delay_s=4.0,
                               deadline_s=60.0),
-            on_event=_ckpt_event,
+            on_event=_ckpt_event, mesh=mesh,
         )
         # self-describing checkpoints: the model is rebuilt from this
         # sidecar alone, without the training flags
-        with open(os.path.join(cfg.checkpoint_dir, "model_config.json"), "w") as f:
-            json.dump({"model": dataclasses.asdict(model_cfg),
-                       "num_workers": cfg.num_workers,
-                       "tokenizer": sidecar_tokenizer}, f, indent=1)
+        if root:
+            with open(os.path.join(cfg.checkpoint_dir, "model_config.json"), "w") as f:
+                json.dump({"model": dataclasses.asdict(model_cfg),
+                           "num_workers": cfg.num_workers,
+                           "tokenizer": sidecar_tokenizer}, f, indent=1)
         if cfg.resume and ckpt.latest_step is not None:
             t_restore0 = time.perf_counter()
             saved_w = ckpt.saved_worker_count()
@@ -527,8 +556,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                           f"workers, run has {cfg.num_workers}; snapshot/outer state "
                           "restored exactly, inner moments reset (LR schedule continues)")
                 ckpt.restore_elastic(state)
+            dl.broadcast_snapshot(state.snapshot)
+            if saved_w != cfg.num_workers:
                 elastic_pending.append({
-                    "elastic": "resize_widen" if cfg.num_workers > saved_w else "resize_shrink",
+                    "elastic": "resize_widen" if cfg.num_workers > saved_w
+                    else "resize_shrink",
                     "workers_from": saved_w, "workers_to": cfg.num_workers,
                 })
             _fence(device)
@@ -564,11 +596,12 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         _fence(device)
         torch.cuda.reset_peak_memory_stats(device)
 
-    run_name = cfg.run_name or create_run_name(
-        "nanodiloco-torch", {"nodes": cfg.num_workers, **cfg.wandb_config})
+    run_name = resolve_run_name(cfg.run_name or create_run_name(
+        "nanodiloco-torch", {"nodes": cfg.num_workers, **cfg.wandb_config}))
     logger = MetricsLogger(
         run_name, out_dir=cfg.log_dir, use_wandb=cfg.use_wandb, wandb_project=cfg.project,
-        config={**dataclasses.asdict(cfg.model), **cfg.wandb_config}, quiet=quiet)
+        config={**dataclasses.asdict(cfg.model), **cfg.wandb_config}, quiet=quiet,
+        process_index=mesh.rank)
     for rec in pre_logger_events:
         logger.log(rec)
     if resume_rec is not None:
@@ -579,14 +612,15 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
     sync_timer = SyncTimer()
     # the per-phase t_* totals flow into the JSONL either way; the event
     # list is kept only when --trace-out will export it
-    tracer = SpanTracer(max_events=500_000 if cfg.trace_out else 0)
+    tracer = SpanTracer(max_events=500_000 if cfg.trace_out else 0,
+                        process_index=mesh.rank)
     # per-program device-time ledgers: the loop's own fenced round and
     # outer-step times, recorded (the first of each books as compile)
     devtime_acct = DispatchAccountant()
     devtime_layout = f"w{cfg.num_workers}"
     recorder = flightrec.FlightRecorder(
         dump_path=os.path.join(cfg.log_dir, f"{run_name}-blackbox.json")
-        if cfg.log_dir else None
+        if cfg.log_dir and root else None
     )
 
     # ONE latch for every graceful-stop source (a signal, a fatal watchdog
@@ -623,7 +657,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             tps_collapse_frac=cfg.watch_tps_collapse, stall_factor=cfg.watch_stall_factor,
             drift_threshold=cfg.watch_drift,
         ),
-        emit=logger.log, status_path=cfg.status_file, on_fatal=on_fatal,
+        emit=logger.log, status_path=cfg.status_file if root else None, on_fatal=on_fatal,
     )
     prev_sig: dict[int, Any] = {}
 
@@ -642,7 +676,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
 
     def _save_schedule(step: int) -> None:
         """The live H schedule next to the checkpoints (a sidecar blip must
-        not fail a good save)."""
+        not fail a good save); rank 0's, as the checkpoint."""
+        if not root:
+            return
         try:
             save_schedule(cfg.checkpoint_dir, step, cfg.num_workers,
                           list(dl.inner_budget),
@@ -666,7 +702,16 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
     def _maybe_graceful_exit(real_step: int) -> None:
         """Poll the stop latch at a round boundary: checkpoint (unless this
         boundary already saved), log the preempt record, leave with the
-        latched code."""
+        latched code. Under a process group the ranks agree first (the
+        largest latched code wins), so all of them stop here or none: a
+        rank that stopped alone would leave the others in the next
+        collective."""
+        if mesh.distributed:
+            agreed = int(mesh.reduce_values([stop_latch["code"] or 0], "max",
+                                            torch.int32, tag="stop")[0])
+            if agreed:
+                stop_latch["reason"] = stop_latch["reason"] or "peer_stop"
+                stop_latch["code"] = agreed
         if stop_latch["reason"] is None:
             return
         reason, code = stop_latch["reason"], stop_latch["code"]
@@ -689,10 +734,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
             return
         fault_plan.advance(cursor_step)
         for f in fault_plan.take_due("nan_params"):
-            faults.poison_worker_params(state, f["worker"])
+            if mesh.owns(f["worker"]):
+                faults.poison_worker_params(state, f["worker"] - mesh.lo)
         for f in fault_plan.take_due("resize"):
             target_path = f.get("file") or os.environ.get(WORKERS_TARGET_ENV, "")
-            if target_path:
+            if target_path and root:
                 tmp = target_path + ".tmp"
                 with open(tmp, "w") as fh:
                     fh.write(str(f["workers"]))
@@ -774,10 +820,11 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
     def _straggle() -> dict[int, float]:
         """The straggler hook on the round's clock, after the round's
         losses are on the host (a fence first, so the sleep never overlaps
-        queued device work): the slept seconds per worker."""
+        queued device work): the due seconds per worker, slept by the rank
+        that holds the worker."""
         if faults.active_plan() is not None:
             _fence(device)
-        return faults.maybe_straggle()
+        return faults.maybe_straggle(range(mesh.lo, mesh.hi))
 
     def _absorb_straggle(round_budget: dict, round_wall_s: float,
                          straggle_extras: dict[int, float],
@@ -799,6 +846,10 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         realized = (list(straggler_policy.budgets) if straggler_policy
                     else (list(dl.inner_budget) if hetero_on else None))
         if straggler_policy is not None:
+            if mesh.distributed:
+                # every rank's policy must see the same seconds, so every
+                # rank decides the same budgets: the slowest rank's round
+                round_wall_s = mesh.reduce_values([round_wall_s], "max", tag="straggle")[0]
             shared_s = max(0.0, round_wall_s - straggler_s)
             decisions = straggler_policy.observe(
                 [shared_s * realized[w] / cfg.inner_steps + straggle_extras.get(w, 0.0)
@@ -850,7 +901,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         if recorder.dump_path:
             flightrec.arm_fatal_signals()
     try:
-        if cfg.metrics_port is not None:
+        if cfg.metrics_port is not None and root:
             from nanodiloco_tpu_torch.obs.telemetry import TelemetryServer
 
             try:
@@ -880,6 +931,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         tokens_per_step = cfg.num_workers * cfg.grad_accum * cfg.per_device_batch_size * row_len
         # deterministic O(1) resume positioning (no replayed gathers)
         batches = batcher.iter_from(start_step)
+        feed = BatchFeeder(mesh)
         # an async checkpoint lands before its round's boundary (the last
         # round's excepted: it is flushed): launched_round says whether
         # the boundary is still owed
@@ -887,14 +939,14 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                          and state.launched_round < start_step // H)
         first_round, last_round = start_step // H + 1, cfg.total_steps // H
         if first_round <= last_round:
-            pending = prefetcher.submit(_stack_round, batches, H, on_cuda)
+            pending = prefetcher.submit(_stack_round, batches, H, on_cuda, feed)
         for rnd in range(first_round, last_round + 1):
             # the fault hook at the round's top: a fault scheduled for any
             # step the round covers fires here, before the round runs
             _pump_faults(rnd * H)
             with trace_span("data"):
                 toks, masks, stalled_s = pending.result()
-            pending = (prefetcher.submit(_stack_round, batches, H, on_cuda)
+            pending = (prefetcher.submit(_stack_round, batches, H, on_cuda, feed)
                        if rnd < last_round else None)
             if cfg.cost_analysis and rnd == first_round:
                 with trace_span("cost_analysis"):
@@ -918,6 +970,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                     state, losses, _ = dl.round_step(state, toks, masks)
                 else:
                     state, losses = dl.inner_round(state, toks, masks)
+                    losses = dl.gather_workers(losses, dim=1)  # [H, W]
                 if cfg.measure_comm or not sync_follows:
                     _fence(device)
                 straggle_extras = _straggle()
@@ -1089,9 +1142,10 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         flightrec.install(prev_recorder)
         if cfg.trace_out:
             try:
-                tracer.export_chrome(cfg.trace_out)
+                shard = trace_shard_path(cfg.trace_out, mesh.rank)
+                tracer.export_chrome(shard)
                 if not quiet:
-                    print(f"[nanodiloco] host span trace -> {cfg.trace_out}")
+                    print(f"[nanodiloco] host span trace -> {shard}")
             except OSError:
                 pass  # a full disk must not mask the real outcome
         logger.finish()
@@ -1124,6 +1178,8 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         "wire_bytes_total": wire_bytes_total,
         "alarms": watchdog.alarm_count,
         "run_name": run_name,
+        "rank": mesh.rank,
+        "world": mesh.world,
         "state": state,
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if on_cuda else "cpu",
