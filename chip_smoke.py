@@ -90,7 +90,16 @@ Phases, each printing one JSON line; the first failure exits non-zero:
                  round 3 equal to the uninterrupted two-rank run bit for
                  bit, the same file resumed by one process within
                  DIST_*_RTOL, one JSONL and one run name, the ranks'
-                 trace shards merged.
+                 trace shards merged; (e) four ranks (`chip_smoke.py
+                 --dist-shard-rank`, ROADMAP item 7b) as fsdp 2 x tp 2
+                 holding the W 2 workers of one worker group at the train
+                 phase's width (SHARD_RUN: 2 rows a microbatch, one round)
+                 against one process of the same config (DIST_*_RTOL):
+                 B1-B3 on wgmma at each rank's 16 query and 4 KV heads,
+                 each rank's peak memory under the one process's, and
+                 what each rank put on the collectives equal to the
+                 sharding's prediction (sharding.inner_step_bytes, the
+                 merge and the init broadcast a rank's snapshot shard).
 6b. train_hd256 - train() at Gemma-2B's attention and MLP widths
                  (GEMMA2B_WIDTH: hidden 2048, 8 query heads on 1 KV head of
                  256, intermediate 16384, vocab 256000, tied embeddings;
@@ -1328,13 +1337,83 @@ DIST_WORKERS = 4
 DIST_LOSS_RTOL = 2.0 ** -7
 DIST_UPDATE_RTOL = 0.05
 DIST_WAIT_S = 600
+# (e) fsdp 2 x tp 2 (ROADMAP item 7b): four ranks hold the W = 2 workers of
+# one worker group at the train phase's width, each rank 16 of the 32 query
+# heads, 4 of the 8 KV heads and 1 of a worker's 2 rows a microbatch; one
+# round of one inner step (no warmup, so the step updates), against one
+# process of the same config at DIST_*_RTOL: the ranks add the wo and
+# w_down partial products over tp in bf16 (two bf16 roundings where one
+# process rounds one float32-accumulated product once) and the gradients'
+# partial sums over fsdp in another order, and AdamW's sign-like first
+# step carries an element whose gradient is within that noise of zero to
+# the other side. The snapshot is parked in pinned host memory between
+# syncs: on one card the four ranks' states share its 80 GB (the embedding
+# is whole on both tp ranks: ~18 GB a rank, 72 GB together, where one
+# process holds 51). One step, not two: a step of the four ranks is ~31 s
+# of gloo through the host on one H100 (8.5 GB a rank), and the script
+# has 1200 s
+SHARD_FSDP = SHARD_TP = 2
+SHARD_RUN = dict(TRAIN_8B, per_device_batch_size=2, warmup_steps=0, inner_steps=1,
+                 total_steps=1, eval_every=0, dynamics_metrics=False,
+                 offload_snapshot=True, cost_analysis=False)
 
 
-def dist_backend() -> str:
-    """NCCL, one card a rank, with two or more cards; with one, both ranks
+def dist_backend(world: int = 2) -> str:
+    """NCCL, one card a rank, with a card for every rank; else every rank
     on cuda:0 over gloo (NCCL cannot put two ranks on one card). The
     smoke decides this, never the port's CLI."""
-    return "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    return "nccl" if torch.cuda.device_count() >= world else "gloo"
+
+
+def join_group(backend: str) -> torch.device:
+    """This rank's process group from torchrun's variables: NCCL on
+    cuda:LOCAL_RANK, or gloo with every rank on cuda:0 (the collectives
+    through the host)."""
+    import torch.distributed as dist
+
+    from nanodiloco_tpu_torch.parallel.mesh import init_from_env
+
+    if backend == "nccl":
+        return init_from_env("cuda", timeout_s=DIST_WAIT_S)
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    from datetime import timedelta
+
+    dist.init_process_group("gloo", timeout=timedelta(seconds=DIST_WAIT_S))
+    return device
+
+
+def launch_ranks(work: Path, world: int, flag: str, tag: str) -> float:
+    """``chip_smoke.py <flag> <work>`` as ``world`` ranks with torchrun's
+    variables, each rank's output in ``work/<tag><r>.log``; fails the
+    dist phase unless every rank exits 0 within DIST_WAIT_S. Returns the
+    seconds they took."""
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+                   CHIP_SMOKE_LAUNCHED=str(time.time()))
+        log = open(work / f"{tag}{r}.log", "w")
+        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag,
+                                       str(work)], cwd=ROOT, env=env,
+                                      stdout=log, stderr=subprocess.STDOUT))
+    try:
+        deadline = time.perf_counter() + DIST_WAIT_S
+        rcs = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if rcs != [0] * world:
+        fail("dist", f"{tag} ranks exited {rcs}: " + " | ".join(
+            (work / f"{tag}{r}.log").read_text()[-3000:] for r in range(world)))
+    return time.perf_counter() - t0
 
 
 def wire_record(records: list[dict], syncs: int) -> dict:
@@ -1434,17 +1513,10 @@ def dist_rank_main(work: Path) -> None:
     one and a resume to three. Its results in ``DIR/rank<r>.json``."""
     import torch.distributed as dist
 
-    from nanodiloco_tpu_torch.parallel.mesh import init_from_env, record_collectives
+    from nanodiloco_tpu_torch.parallel.mesh import record_collectives
 
     spec = json.loads((work / "spec.json").read_text())
-    if spec["backend"] == "nccl":
-        device = init_from_env("cuda", timeout_s=DIST_WAIT_S)
-    else:  # both ranks on the one card, the collectives through the host
-        device = torch.device("cuda", 0)
-        torch.cuda.set_device(device)
-        from datetime import timedelta
-
-        dist.init_process_group("gloo", timeout=timedelta(seconds=DIST_WAIT_S))
+    device = join_group(spec["backend"])
     rank = dist.get_rank()
     torch.backends.cuda.matmul.allow_tf32 = False  # as the train phase ran
     res: dict = {"rank": rank, "device": str(device)}
@@ -1525,32 +1597,9 @@ def phase_dist(ref: dict, work: Path, smi: str) -> dict:
          workers=DIST_WORKERS, seconds=time.perf_counter() - t0, **one)
     (work / "spec.json").write_text(json.dumps({"backend": backend,
                                                 "update_norms": ref["update_norms"]}))
-    port, world = free_port(), 2
+    world = 2
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    procs = []
-    for r in range(world):
-        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
-                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                   PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
-        log = open(work / f"rank{r}.log", "w")
-        procs.append(subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
-                                       "--dist-rank", str(work)], cwd=ROOT, env=env,
-                                      stdout=log, stderr=subprocess.STDOUT))
-    try:
-        deadline = time.perf_counter() + DIST_WAIT_S
-        rcs = [p.wait(timeout=max(1.0, deadline - time.perf_counter())) for p in procs]
-    except subprocess.TimeoutExpired:
-        rcs = None
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    ranks_s = time.perf_counter() - t0
-    if rcs != [0] * world:
-        fail(phase, f"ranks exited {rcs}: " + " | ".join(
-            (work / f"rank{r}.log").read_text()[-3000:] for r in range(world)))
+    ranks_s = launch_ranks(work, world, "--dist-rank", "rank")
     res = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
     # (c) against the train phase
     want = torch.tensor(ref["losses"], dtype=torch.float64)
@@ -1620,11 +1669,159 @@ def phase_dist(ref: dict, work: Path, smi: str) -> dict:
          one_process_snapshot_max_rel_err=snap_err, run_name=name, jsonl_files=files,
          trace_pids=pids, seconds=time.perf_counter() - t_phase)
     shapes: dict = {}
-    for x in res:
+    for x in res + phase_dist_shard(work, smi):
         for k, v in x["shapes"].items():
             for key, n in v.items():
                 shapes.setdefault(k, {})[key] = shapes.get(k, {}).get(key, 0) + n
     return shapes
+
+
+def dist_shard_rank_main(work: Path) -> None:
+    """One rank of dist (e) (``chip_smoke.py --dist-shard-rank DIR``, with
+    torchrun's variables): SHARD_RUN at fsdp 2 x tp 2. Its results in
+    ``DIR/shard<r>.json``: the losses, times, peak memory, flash launches
+    by variant and shape, what it put on each collective beside the
+    sharding's prediction; its snapshot shards in ``DIR/snap<r>.pt``."""
+    import torch.distributed as dist
+
+    from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh, record_collectives
+    from nanodiloco_tpu_torch.parallel.sharding import inner_step_bytes
+
+    started_s = time.time() - float(os.environ["CHIP_SMOKE_LAUNCHED"])
+    spec = json.loads((work / "shard_spec.json").read_text())
+    device = join_group(spec["backend"])
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the train phase ran
+    before = (fa.variant_counts(), fa.shape_counts())
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    with record_collectives() as rec:
+        summary = train(TrainConfig(**SHARD_RUN, fsdp=SHARD_FSDP, tp=SHARD_TP,
+                                    log_dir=str(work / "shard_runs"), run_name="shard8b"),
+                        device=device)
+    seconds = time.perf_counter() - t0
+    mesh = WorkerMesh.current(SHARD_RUN["num_workers"], SHARD_FSDP, SHARD_TP)
+    cfg, steps = SHARD_RUN["model"], SHARD_RUN["total_steps"]
+    want = {f"{op}/{tag}": steps * n for (op, tag), n in inner_step_bytes(
+        cfg, mesh, SHARD_RUN["per_device_batch_size"] // SHARD_FSDP,
+        SHARD_RUN["seq_length"], accum=1).items()}
+    wire = summary["wire_bytes_per_sync"]  # f32: the snapshot shard's bytes
+    want["all_reduce_sum/pseudograd"] = wire * steps // SHARD_RUN["inner_steps"]
+    want["broadcast/init"] = wire
+    got: dict = {}
+    for r in rec:
+        key = f"{r['op']}/{r['tag']}"
+        got[key] = got.get(key, 0) + r["bytes"]
+    torch.save({n: t.cpu() for n, t in named_leaves(summary["state"].snapshot)},
+               work / f"snap{rank}.pt")
+    res = {"rank": rank, "device": str(device), "coords": summary["coords"],
+           "losses": summary["losses"], "started_s": started_s, "seconds": seconds,
+           "round_seconds": summary["round_seconds"],
+           "avg_sync_time_s": summary["avg_sync_time_s"],
+           "tokens_per_sec": summary["tokens_per_sec"],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+           "variants": {k: {v: n - before[0][k][v] for v, n in c.items()}
+                        for k, c in fa.variant_counts().items()},
+           "shapes": {k: {key: n - before[1][k].get(key, 0) for key, n in v.items()
+                          if n > before[1][k].get(key, 0)}
+                      for k, v in fa.shape_counts().items()},
+           "bytes": got, "bytes_predicted": want}
+    (work / f"shard{rank}.json").write_text(json.dumps(res))
+    dist.destroy_process_group()
+
+
+def phase_dist_shard(work: Path, smi: str) -> list[dict]:
+    """Dist (e): four ranks of SHARD_RUN at fsdp 2 x tp 2, then one process
+    of it (the reference), the ranks held to it: losses step by step and
+    each snapshot leaf against its update (DIST_*_RTOL), B1-B3 on wgmma
+    alone at each rank's local heads, each rank's peak memory under the
+    one process's, its collectives' bytes as predicted. Returns the ranks'
+    results (their launches by shape)."""
+    from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
+    from nanodiloco_tpu_torch.parallel.sharding import counted, local_box, spec_of
+
+    phase, t_phase = "dist", time.perf_counter()
+    world = SHARD_FSDP * SHARD_TP
+    backend = dist_backend(world)
+    (work / "shard_spec.json").write_text(json.dumps({"backend": backend}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks_s = launch_ranks(work, world, "--dist-shard-rank", "shard")
+    res = [json.loads((work / f"shard{r}.json").read_text()) for r in range(world)]
+    torch.cuda.reset_peak_memory_stats()
+    one = train(TrainConfig(**SHARD_RUN, log_dir=None), device="cuda")
+    one_peak = torch.cuda.max_memory_allocated()
+    # the snapshot (on the host between syncs) and each leaf's update norm
+    snap = {n: t.to("cuda") for n, t in named_leaves(one["state"].snapshot)}
+    init = init_params(torch.Generator(device="cuda").manual_seed(SHARD_RUN["seed"]),
+                       SHARD_RUN["model"], "cuda")
+    ref = {"losses": one["losses"], "update_norms": {
+        n: float(torch.linalg.vector_norm(snap[n] - i, dtype=torch.float64))
+        for n, i in named_leaves(init)}}
+    del init
+    dist_sq: dict = {}
+    for r in range(world):
+        mesh = WorkerMesh(SHARD_RUN["num_workers"], r, world, True, backend, SHARD_FSDP,
+                          SHARD_TP)
+        parts = torch.load(work / f"snap{r}.pt", map_location="cpu", mmap=True,
+                           weights_only=True)
+        for n, t in parts.items():
+            if counted(spec_of(n), mesh):
+                want = snap[n][local_box(spec_of(n), snap[n].shape, mesh)].to("cuda")
+                dist_sq[n] = dist_sq.get(n, 0.0) + float(torch.linalg.vector_norm(
+                    t.to("cuda") - want, dtype=torch.float64) ** 2)
+        del parts
+    del one, snap
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = torch.tensor(ref["losses"], dtype=torch.float64)
+    losses = [torch.tensor(x["losses"], dtype=torch.float64) for x in res]
+    loss_err = float(((losses[0] - want).abs() / want.abs()).max())
+    if any(not torch.equal(x, losses[0]) for x in losses) or loss_err > DIST_LOSS_RTOL:
+        fail(phase, f"(e) the ranks' losses {[x.tolist() for x in losses]} against one "
+                    f"process's {ref['losses']}: {loss_err:.3e} > {DIST_LOSS_RTOL}")
+    upd = {n: math.sqrt(dist_sq[n]) / max(norm, 1e-30)
+           for n, norm in ref["update_norms"].items()}
+    worst = max(upd, key=upd.get)
+    if upd[worst] > DIST_UPDATE_RTOL:
+        fail(phase, f"(e) snapshot leaf {worst} off by {upd[worst]:.3e} of its update "
+                    f"(> {DIST_UPDATE_RTOL}): {upd}")
+    heads = SHARD_RUN["model"].num_attention_heads // SHARD_TP
+    kv_heads = SHARD_RUN["model"].kv_heads // SHARD_TP
+    rows = SHARD_RUN["num_workers"] * SHARD_RUN["per_device_batch_size"] // SHARD_FSDP
+    for x in res:
+        v = x["variants"]
+        if any(not c["wgmma"] or sum(c.values()) != c["wgmma"] for c in v.values()):
+            fail(phase, f"(e) rank {x['rank']} did not run B1, B2 and B3 on wgmma alone: {v}")
+        local = {fa.parse_shape_key(key)[1:3] for c in x["shapes"].values() for key in c}
+        if local != {(rows * heads, rows * kv_heads)}:
+            fail(phase, f"(e) rank {x['rank']} launched at (BH, BH_kv) {local}, not its "
+                        f"{heads} query and {kv_heads} KV heads over {rows} rows")
+        if x["peak_memory_bytes"] >= one_peak:
+            fail(phase, f"(e) rank {x['rank']} peaked at {x['peak_memory_bytes']} bytes, one "
+                        f"process at {one_peak}")
+        got = {k: n for k, n in x["bytes"].items() if k in x["bytes_predicted"]}
+        if got != x["bytes_predicted"]:
+            fail(phase, f"(e) rank {x['rank']} put {got} on the collectives, the sharding "
+                        f"predicts {x['bytes_predicted']}")
+    recs = [r for r in read_jsonl_records(str(work / "shard_runs" / "shard8b.jsonl"))[0]
+            if r.get("outer_synced")]
+    emit(phase=phase, part="e", ok=True, backend=backend, world=world, fsdp=SHARD_FSDP,
+         tp=SHARD_TP, nvidia_smi=smi, local_heads=[heads, kv_heads],
+         losses=res[0]["losses"], one_process_losses=ref["losses"],
+         loss_max_rel_err=loss_err, loss_rtol=DIST_LOSS_RTOL,
+         update_rel_l2_max=upd[worst], update_rel_l2_worst_leaf=worst,
+         update_rtol=DIST_UPDATE_RTOL, t_sync_s=[r["t_sync"] for r in recs],
+         round_seconds=[x["round_seconds"] for x in res],
+         rank_started_s=[x["started_s"] for x in res],
+         rank_train_s=[x["seconds"] for x in res],
+         tokens_per_sec=[x["tokens_per_sec"] for x in res],
+         peak_memory_bytes=[x["peak_memory_bytes"] for x in res],
+         one_process_peak_memory_bytes=one_peak,
+         bytes=[x["bytes"] for x in res], bytes_predicted=res[0]["bytes_predicted"],
+         shapes=[x["shapes"] for x in res], coords=[x["coords"] for x in res],
+         ranks_seconds=ranks_s, seconds=time.perf_counter() - t_phase)
+    return res
 
 
 # -- the DiLoCo options ----------------------------------------------------------
@@ -4510,5 +4707,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dist-rank"]:
         dist_rank_main(Path(sys.argv[2]))
+    elif sys.argv[1:2] == ["--dist-shard-rank"]:
+        dist_shard_rank_main(Path(sys.argv[2]))
     else:
         main()

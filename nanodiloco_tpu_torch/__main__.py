@@ -20,9 +20,12 @@ SIGINT checkpoint at the next round boundary and exit 75;
 checkpoint-exit``, exit 76; ``--status-file``; ``--metrics-port``;
 ``--cost-analysis``). Prints the metrics records and the run summary
 last. Runs on the CUDA card unless ``--device cpu``. Started by torchrun
-(``WORLD_SIZE`` above 1 in the environment) each process runs a group of
-``num_workers / WORLD_SIZE`` workers: NCCL, one card a rank, or gloo with
-``--device cpu``; rank 0 alone prints and writes the run's files.
+(``WORLD_SIZE`` above 1 in the environment) each process is one rank of
+a worker group of ``--fsdp`` x ``--tp`` ranks holding ``num_workers / G``
+workers (G = ``WORLD_SIZE / (fsdp * tp)``): NCCL, one card a rank, or gloo
+with ``--device cpu``; rank 0 alone prints and writes the run's files.
+``--dcn-slices`` is the number of nodes, each holding whole worker groups.
+A process that already has a process group trains in it.
 
 ``supervise [flags] -- <train flags>`` runs training as a supervised
 child process (resilience/supervisor.py): preempt exits resume at once,
@@ -125,6 +128,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "rows. padded: one document per row, pad positions masked "
                         "out of the loss")
     p.add_argument("--num-workers", type=int, default=1)
+    p.add_argument("--fsdp", type=int, default=1, help="fsdp mesh axis size per worker")
+    p.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh axis size")
+    p.add_argument("--dcn-slices", type=int, default=1,
+                   help="multi-node deployment: spread the worker groups across this "
+                        "many nodes (torchrun's nodes; fsdp and tp stay inside one, the "
+                        "outer sync crosses them)")
     p.add_argument("--measure-comm", action=argparse.BooleanOptionalAction, default=None,
                    help="fence the card around the outer step so avg_sync_time_s "
                         "and comm_share time the sync alone. Default: the wandb "
@@ -280,7 +289,8 @@ def config_from_args(a: argparse.Namespace) -> TrainConfig:
         warmup_steps=a.warmup_steps, total_steps=a.total_steps,
         inner_steps=a.inner_steps, lr=a.lr, outer_lr=a.outer_lr, project=a.project,
         dataset_path=a.dataset_path, data_layout=a.data_layout,
-        num_workers=a.num_workers, measure_comm=measure_comm, model=model,
+        num_workers=a.num_workers, fsdp=a.fsdp, tp=a.tp, dcn_slices=a.dcn_slices,
+        measure_comm=measure_comm, model=model,
         eval_every=a.eval_every, eval_batches=a.eval_batches, trace_out=a.trace_out,
         preempt_signals=a.preempt_signals, checkpoint_dir=a.checkpoint_dir,
         checkpoint_every=a.checkpoint_every, resume=not a.no_resume,
@@ -1900,13 +1910,15 @@ def main(argv=None) -> dict | None:
         serve_main(argv[1:])
         return None
     a = parse_args(argv)
+    import torch.distributed as dist
+
     device, grouped = a.device, int(os.environ.get("WORLD_SIZE", "1")) > 1
-    if grouped:
-        # launched by torchrun (one process per group of workers): NCCL on
+    # a caller that already started the group keeps it (and ends it)
+    own_group = grouped and not dist.is_initialized()
+    if own_group:
+        # launched by torchrun (one process per rank): NCCL on
         # cuda:LOCAL_RANK, gloo with --device cpu; rank 0 builds the
         # kernels while the others wait, so N ranks run nvcc once
-        import torch.distributed as dist
-
         from nanodiloco_tpu_torch.parallel.mesh import init_from_env
 
         device = init_from_env(a.device)
@@ -1919,11 +1931,8 @@ def main(argv=None) -> dict | None:
     try:
         summary = train(config_from_args(a), device=device)
     finally:
-        if grouped:
-            import torch.distributed as dist
-
-            if dist.is_initialized():
-                dist.destroy_process_group()
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
     if not grouped or summary["rank"] == 0:
         print(json.dumps({k: v for k, v in summary.items() if k not in ("losses", "state")}))
     return summary

@@ -15,6 +15,20 @@ parameter carries a leading worker dimension ``[W, ...]`` and tokens are
 its batch, so each op launches once for all workers. With ``[B, S]``
 tokens and unstacked parameters the functions act as the JAX ones do.
 
+Sharded layout. ``causal_lm_loss`` also takes a ``WorkerMesh`` whose
+``fsdp`` or ``tp`` exceeds 1, with parameters sharded as
+``parallel/sharding.py`` lays them out (a rank's slices, its worker group's
+rows). Under tp a rank computes its heads (``nh / tp`` query and ``nkv /
+tp`` KV heads: the flash kernels see ``[B·W, S, H/tp, hd]``) and its
+``intermediate / tp`` MLP columns, between Megatron's *f* and *g*
+(``parallel/tensor.py``); an untied head's cross-entropy is
+vocab-parallel (``ops/fused_ce.py``), a tied one is the whole embedding on
+every tp rank. Under fsdp each layer's leaves are gathered just before
+the layer runs (again in its backward under ``remat``) and their
+gradients reduce-scattered into the rank's shard; the embedding's lookup
+runs on its vocabulary slices, never gathered (a tied head gathers it).
+The tokens are the rank's ``B / fsdp`` rows.
+
 Numerics follow the JAX package (and HF ``LlamaForCausalLM``):
 rotate-half RoPE, RMSNorm accumulating in float32, SwiGLU, pre-norm
 residuals, softmax in float32, compute dtype ``cfg.dtype`` over
@@ -39,7 +53,14 @@ from torch.utils.checkpoint import (
 from nanodiloco_tpu_torch.models.config import LlamaConfig
 from nanodiloco_tpu_torch.models.moe import moe_mlp
 from nanodiloco_tpu_torch.ops.flash_attention import flash_attention
-from nanodiloco_tpu_torch.ops.fused_ce import chunked_softmax_xent
+from nanodiloco_tpu_torch.ops.fused_ce import chunked_softmax_xent, softmax_xent
+from nanodiloco_tpu_torch.parallel.sharding import spec_of
+from nanodiloco_tpu_torch.parallel.tensor import (
+    copy_to_tp,
+    embed_lookup,
+    gather_fsdp,
+    reduce_from_tp,
+)
 
 Params = dict[str, Any]
 LAYER_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "mlp_norm", "w_gate", "w_up", "w_down")
@@ -79,43 +100,48 @@ def _check_supported(cfg: LlamaConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(
-    generator: torch.Generator, cfg: LlamaConfig, device: str | torch.device = "cuda"
+    generator: torch.Generator, cfg: LlamaConfig, device: str | torch.device = "cuda",
+    leaf=None,
 ) -> Params:
     """N(0, initializer_range) everywhere, RMSNorm scales at 1, drawn
     from ``generator`` (on the generator's device) and placed on
-    ``device`` in ``cfg.param_dtype``."""
+    ``device`` in ``cfg.param_dtype``. ``leaf(name, tensor)``, if given,
+    maps each whole leaf as it is drawn (a rank's shard of it: only one
+    whole leaf exists at a time)."""
     _check_supported(cfg)
     device = resolve_device(device)
     std = cfg.initializer_range
     pdt = dtype_of(cfg.param_dtype)
     d, f, v, l = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size, cfg.num_hidden_layers
     nh, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+    keep = leaf or (lambda name, t: t)
 
-    def normal(*shape):
+    def normal(name, *shape):
         x = torch.randn(*shape, generator=generator, device=generator.device)
-        return (x * std).to(device=device, dtype=pdt)
+        return keep(name, (x * std).to(device=device, dtype=pdt))
 
-    def ones(*shape):
-        return torch.ones(*shape, device=device, dtype=pdt)
+    def ones(name, *shape):
+        return keep(name, torch.ones(*shape, device=device, dtype=pdt))
 
     layers = {
-        "attn_norm": ones(l, d),
-        "wq": normal(l, d, nh * hd),
-        "wk": normal(l, d, nkv * hd),
-        "wv": normal(l, d, nkv * hd),
-        "wo": normal(l, nh * hd, d),
-        "mlp_norm": ones(l, d),
+        "attn_norm": ones("layers/attn_norm", l, d),
+        "wq": normal("layers/wq", l, d, nh * hd),
+        "wk": normal("layers/wk", l, d, nkv * hd),
+        "wv": normal("layers/wv", l, d, nkv * hd),
+        "wo": normal("layers/wo", l, nh * hd, d),
+        "mlp_norm": ones("layers/mlp_norm", l, d),
     }
     e = cfg.num_experts
     ffn = (e,) if e else ()
-    layers["w_gate"] = normal(l, *ffn, d, f)
-    layers["w_up"] = normal(l, *ffn, d, f)
-    layers["w_down"] = normal(l, *ffn, f, d)
-    params: Params = {"embed": normal(v, d), "layers": layers, "final_norm": ones(d)}
+    layers["w_gate"] = normal("layers/w_gate", l, *ffn, d, f)
+    layers["w_up"] = normal("layers/w_up", l, *ffn, d, f)
+    layers["w_down"] = normal("layers/w_down", l, *ffn, f, d)
+    params: Params = {"embed": normal("embed", v, d), "layers": layers,
+                      "final_norm": ones("final_norm", d)}
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = normal(d, v)
+        params["lm_head"] = normal("lm_head", d, v)
     if e:
-        layers["router"] = normal(l, d, e)
+        layers["router"] = normal("layers/router", l, d, e)
     return params
 
 
@@ -261,34 +287,55 @@ def _norm(x, scale, eps):
     return rms_norm(x, scale[:, None, None, :], eps)
 
 
-def mlp_block(cfg: LlamaConfig, x, layer: Params, valid=None, with_stats: bool = False):
+def mlp_block(cfg: LlamaConfig, x, layer: Params, valid=None, with_stats: bool = False,
+              mesh=None):
     """The norm + (dense SwiGLU | MoE) residual half of a decoder layer.
     Returns (x, aux [W]): aux is the router's load-balance term, 0 for a
     dense layer. ``valid`` [W, B, S] marks the tokens that claim expert
     capacity. ``with_stats`` appends [W, 2] = [dropped_frac,
-    router_entropy] (zeros for a dense layer), the diagnostics channel."""
+    router_entropy] (zeros for a dense layer), the diagnostics channel.
+    Under a sharded ``mesh`` the layer's weights are whole along fsdp
+    already and this rank's ``intermediate / tp`` columns."""
     h = _norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
     if cfg.num_experts:
         out = moe_mlp(cfg, h, layer, valid=valid, with_stats=with_stats)
         return (x + out[0], *out[1:])
+    h = copy_to_tp(h, mesh)
     gate = F.silu(_mm(h, layer["w_gate"]))
-    x = x + _mm(gate * _mm(h, layer["w_up"]), layer["w_down"])
+    x = x + reduce_from_tp(_mm(gate * _mm(h, layer["w_up"]), layer["w_down"]), mesh)
     zero = torch.zeros(x.shape[0], device=x.device)
     if with_stats:
         return x, zero, torch.zeros(x.shape[0], 2, device=x.device)
     return x, zero
 
 
+def _gather_layer(cfg: LlamaConfig, layer: Params, mesh) -> Params:
+    """One layer's leaves [W, ...] gathered whole along their fsdp dim (the
+    spec's, the worker axis in the layer axis' place); the leaves
+    themselves without fsdp."""
+    if mesh is None or mesh.fsdp == 1:
+        return layer
+    cdt = dtype_of(cfg.dtype)
+    out = {}
+    for key, w in layer.items():
+        spec = spec_of(f"layers/{key}")
+        out[key] = gather_fsdp(w, mesh, spec.index("fsdp"), cdt) if "fsdp" in spec else w
+    return out
+
+
 def _decoder_layer(cfg: LlamaConfig, x, layer: Params, cos, sin, mask, valid=None,
-                   with_stats: bool = False):
+                   with_stats: bool = False, mesh=None):
     wn, b, s, d = x.shape
-    nh, nkv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
-    h = _norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+    tp = 1 if mesh is None else mesh.tp
+    nh, nkv, hd = cfg.num_attention_heads // tp, cfg.kv_heads // tp, cfg.head_dim
+    layer = _gather_layer(cfg, layer, mesh)
+    h = copy_to_tp(_norm(x, layer["attn_norm"], cfg.rms_norm_eps), mesh)
     q = apply_rope(_mm(h, layer["wq"]).reshape(wn * b, s, nh, hd), cos, sin)
     k = apply_rope(_mm(h, layer["wk"]).reshape(wn * b, s, nkv, hd), cos, sin)
     v = _mm(h, layer["wv"]).reshape(wn * b, s, nkv, hd)
     attn = _attention(cfg, q, k, v, mask).reshape(wn, b, s, nh * hd)
-    return mlp_block(cfg, x + _mm(attn, layer["wo"]), layer, valid, with_stats)
+    out = reduce_from_tp(_mm(attn, layer["wo"]), mesh)
+    return mlp_block(cfg, x + out, layer, valid, with_stats, mesh)
 
 
 def _stacked(params: Params, tokens: torch.Tensor, extra=()):
@@ -301,22 +348,21 @@ def _stacked(params: Params, tokens: torch.Tensor, extra=()):
     return tree_map(lambda p: p[None], params), tokens[None], extra, True
 
 
-def _head(params: Params) -> torch.Tensor:
-    head = params.get("lm_head")
-    return params["embed"].transpose(-1, -2) if head is None else head
-
-
 def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, attn_mask,
-            collect_stats: bool = False):
+            collect_stats: bool = False, mesh=None):
     """(final normed hidden states [W, B, S, d] in the compute dtype, the
-    router aux summed over layers [W], and with ``collect_stats`` the
-    layer mean of the MoE stats [W, 2], else None). ``attn_mask`` also
+    router aux summed over layers [W], with ``collect_stats`` the layer
+    mean of the MoE stats [W, 2] (else None), and the head [W, d, V]: the
+    untied ``lm_head`` (this rank's V / tp columns under tp, gathered
+    over fsdp) or the embedding's transpose, whole). ``attn_mask`` also
     tells the MoE layers which tokens are real, under flash too."""
     _check_supported(cfg)
     wn, b, s = tokens.shape
     cdt = dtype_of(cfg.dtype)
-    worker = torch.arange(wn, device=tokens.device)[:, None, None]
-    x = params["embed"][worker, tokens].to(cdt)
+    x = embed_lookup(params["embed"], tokens, mesh, cdt)
+    # a tied head is the whole embedding (gathered over fsdp), on every tp rank
+    head = (gather_fsdp(params["embed"], mesh, 1, cdt).transpose(-1, -2)
+            if "lm_head" not in params else gather_fsdp(params["lm_head"], mesh, 1, cdt))
     cos, sin = rope_tables(cfg, s, device=tokens.device)
     # flash is a packed-sequence kernel: attn_mask only weights the loss
     mask = None
@@ -329,15 +375,16 @@ def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, attn_mask,
         if cfg.remat:
             ctx = _remat_context(cfg)
             out = checkpoint(_decoder_layer, cfg, x, layer, cos, sin, mask, attn_mask,
-                             collect_stats, use_reentrant=False,
+                             collect_stats, mesh, use_reentrant=False,
                              **({"context_fn": ctx} if ctx is not None else {}))
         else:
-            out = _decoder_layer(cfg, x, layer, cos, sin, mask, attn_mask, collect_stats)
+            out = _decoder_layer(cfg, x, layer, cos, sin, mask, attn_mask, collect_stats,
+                                 mesh)
         x, aux = out[0], aux + out[1]
         if collect_stats:
             stats.append(out[2])
     stats = torch.stack(stats).mean(0) if collect_stats else None
-    return _norm(x, params["final_norm"], cfg.rms_norm_eps), aux, stats
+    return _norm(x, params["final_norm"], cfg.rms_norm_eps), aux, stats, head
 
 
 def forward(
@@ -360,10 +407,10 @@ def forward(
     ``moe.make_router_stats_fn``). aux and stats carry the worker axis
     [W] of stacked inputs."""
     params, tokens, (attn_mask,), squeeze = _stacked(params, tokens, (attn_mask,))
-    x, aux, stats = _hidden(params, tokens, cfg, attn_mask, collect_stats)
+    x, aux, stats, head = _hidden(params, tokens, cfg, attn_mask, collect_stats)
     if not return_hidden:
         wn, b, s, d = x.shape
-        x = torch.matmul(x.reshape(wn, b * s, d), _head(params).to(x.dtype))
+        x = torch.matmul(x.reshape(wn, b * s, d), head.to(x.dtype))
         x = x.float().reshape(wn, b, s, -1)
     if squeeze:
         x, aux = x[0], aux[0]
@@ -378,23 +425,35 @@ def causal_lm_loss(
     tokens: torch.Tensor,
     cfg: LlamaConfig,
     loss_mask: torch.Tensor | None = None,
+    mesh=None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Mean next-token cross-entropy with an internal label shift, plus
     ``router_aux_coef`` times the router's load-balance term (MoE).
 
     ``loss_mask`` marks real tokens; a position whose TARGET is padding
     is excluded. Returns (loss, {"n_tokens", "sum_loss", "router_aux"}),
-    per worker ([W]) for worker-stacked inputs, scalars otherwise."""
+    per worker ([W]) for worker-stacked inputs, scalars otherwise. Under
+    a sharded ``mesh`` (``params`` this rank's shards, ``tokens`` its rows)
+    the sums are the rank's rows' (the caller sums them over fsdp); every
+    tp rank returns the same."""
     params, tokens, (loss_mask,), squeeze = _stacked(params, tokens, (loss_mask,))
     wn, b, s = tokens.shape
     targets = tokens[..., 1:].reshape(wn, -1)
     m = (loss_mask[..., 1:] if loss_mask is not None
          else torch.ones_like(tokens[..., 1:])).reshape(wn, -1).float()
-    h, router_aux, _ = _hidden(params, tokens, cfg, loss_mask)
-    head = _head(params).to(h.dtype)
+    h, router_aux, _, head = _hidden(params, tokens, cfg, loss_mask, mesh=mesh)
+    head = head.to(h.dtype)
     rows = h[:, :, :-1].reshape(wn, b * (s - 1), -1)
+    # an untied head's columns are split over tp: the vocab-parallel loss
+    vocab_mesh = mesh if mesh is not None and mesh.tp > 1 and "lm_head" in params else None
+    if vocab_mesh is not None:
+        rows = copy_to_tp(rows, mesh)
     if cfg.loss_chunk:
-        sum_loss, n_tok = chunked_softmax_xent(rows, head, targets, m, chunk=cfg.loss_chunk)
+        sum_loss, n_tok = chunked_softmax_xent(rows, head, targets, m, chunk=cfg.loss_chunk,
+                                               mesh=vocab_mesh)
+    elif vocab_mesh is not None:
+        nll = softmax_xent(torch.matmul(rows, head).float(), targets, vocab_mesh)
+        sum_loss, n_tok = (nll * m).sum(dim=-1), m.sum(dim=-1)
     else:
         logits = torch.matmul(rows, head).float()
         nll = -torch.gather(torch.log_softmax(logits, dim=-1), -1, targets[..., None])[..., 0]

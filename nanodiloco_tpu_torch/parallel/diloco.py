@@ -39,6 +39,21 @@ gathered, so every rank computes the same coefficients and readout; the
 snapshot is broadcast from rank 0 at init. On one rank all of this runs
 too (a world of one), with every collective the identity.
 
+A worker group may span ``fsdp * tp`` ranks (``WorkerMesh``'s inner axes):
+each rank then holds its slices of the group's workers' weights, moments
+and snapshot (``parallel/sharding.py``) and its ``B / fsdp`` rows of each
+microbatch. The inner step sums ``sum_loss`` and ``n_tokens`` over the
+fsdp ranks before the loss and the ``1/n`` gradient scale, so the loss is
+the worker's; whole leaves' gradients (the norm scales) are summed over
+the fsdp ranks (a sharded leaf's are reduce-scattered inside the
+backward); the clip's squared norms are summed over the worker group's
+ranks, a whole leaf counted once; AdamW runs on the shards unchanged. The
+outer step runs per shard: the merge's collectives cross only the
+``"diloco"`` group (the ranks at one ``(f, t)``), the integer wire's
+per-leaf absmax is taken over every rank (so its scale is JAX's
+whole-leaf one), a replica is finite only if every shard is, and the
+dynamics readout's sums add over the group's ranks.
+
 The options, as in the JAX package: a quantized outer wire (a float cast
 or a per-worker absmax integer quantizer), the integer wire whose sum
 carries the quantized payload under one shared scale, divergence
@@ -72,6 +87,14 @@ from nanodiloco_tpu_torch.models.llama import (
     tree_map,
 )
 from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
+from nanodiloco_tpu_torch.parallel.sharding import (
+    check_layout,
+    counted,
+    named_leaves,
+    shard,
+    shard_leaf,
+    spec_of,
+)
 from nanodiloco_tpu_torch.training.optim import (
     StackedAdamW,
     clip_per_worker_,
@@ -108,7 +131,7 @@ def _div(x: torch.Tensor, c: float) -> torch.Tensor:
 
 
 def _packed_int16_sum(mesh: WorkerMesh, part: torch.Tensor, bound: int) -> torch.Tensor:
-    """The exact sum over the ranks of the integer tensors ``part`` whose
+    """The exact sum over the diloco group of the integer tensors ``part`` whose
     total is an int16 (``|total| <= bound = W * q_max <= 32767``) on 2
     bytes an element, in int32 words: NCCL has no 16-bit integer type and
     gloo refuses one. The flat tensor is cut in halves ``a | b`` (one zero
@@ -123,12 +146,13 @@ def _packed_int16_sum(mesh: WorkerMesh, part: torch.Tensor, bound: int) -> torch
     flat = part.reshape(-1).to(torch.int64)
     a, b = flat[:half], torch.zeros(half, dtype=torch.int64, device=flat.device)
     b[: n - half] = flat[half:]
-    off = bound // mesh.world
+    groups = mesh.worker_groups
+    off = bound // groups
     word = (b * 65536 + (a + off)).to(torch.int32)
-    mesh.all_reduce_(word, "sum", tag="pseudograd")
+    mesh.all_reduce_(word, "sum", tag="pseudograd", group="diloco")
     total = word.to(torch.int64)
     low = total & 0xFFFF
-    out = torch.cat([low - off * mesh.world, (total - low) // 65536])
+    out = torch.cat([low - off * groups, (total - low) // 65536])
     return out[:n].to(torch.int32).reshape(part.shape)
 
 
@@ -252,6 +276,17 @@ class _Dynamics:
         self.dir_sq += torch.linalg.vector_norm(u).square()
         self.mom_sq += torch.linalg.vector_norm(buf.float()).square()
 
+    @torch.no_grad()
+    def sum_over(self, mesh: WorkerMesh, group: str) -> None:
+        """Add every sum over ``group``'s ranks (a sharded readout: each
+        rank accumulated its own slices, a whole leaf on one rank)."""
+        w, n = self.pg_sq.numel(), self.pair_sq.numel()
+        flat = torch.cat([self.pg_sq, self.pair_sq, torch.stack(
+            [self.snap_sq, self.dot, self.d_sq, self.dir_sq, self.mom_sq])])
+        mesh.all_reduce_(flat, "sum", tag="dynamics", group=group)
+        self.pg_sq, self.pair_sq = flat[:w], flat[w:w + n]
+        self.snap_sq, self.dot, self.d_sq, self.dir_sq, self.mom_sq = flat[w + n:]
+
     def result(self) -> dict[str, torch.Tensor]:
         snap_norm = self.snap_sq.sqrt().clamp_min(_TINY)
         if self.pairs:
@@ -298,6 +333,8 @@ class Diloco:
         self.mesh = WorkerMesh.current(W) if mesh is None else mesh
         if self.mesh.num_workers != W:
             raise ValueError(f"mesh is for {self.mesh.num_workers} workers, the config {W}")
+        # every dim a shard splits must split evenly (MoE: not ported)
+        check_layout(model_cfg, self.mesh.fsdp, self.mesh.tp)
         self._float_wire = self._int_wire = None
         if cfg.outer_comm_dtype is not None:
             name = cfg.outer_comm_dtype
@@ -408,11 +445,19 @@ class Diloco:
         """Every worker and the snapshot start from one tree: ``params``
         if given (e.g. converted from the JAX package with
         ``params_from_numpy``), else ``init_params(generator, ...)``. The
-        outer momentum starts at zero, as optax's trace does."""
+        outer momentum starts at zero, as optax's trace does. The tree is
+        whole; a sharded mesh keeps this rank's slices (drawn leaf by leaf
+        from the generator, one whole leaf at a time)."""
         if params is None:
             if generator is None:
                 raise ValueError("init_state needs a generator or params")
-            params = init_params(generator, self.model_cfg, self.device)
+            if self.mesh.sharded:
+                params = init_params(generator, self.model_cfg, self.device,
+                                     leaf=lambda name, t: shard_leaf(name, t, self.mesh))
+            else:
+                params = init_params(generator, self.model_cfg, self.device)
+        else:
+            params = shard(params, self.mesh)
         W = self.mesh.local_workers
         snapshot = tree_map(lambda p: p.detach().to(self.device).clone(), params)
         self.broadcast_snapshot(snapshot)
@@ -432,12 +477,12 @@ class Diloco:
 
     @torch.no_grad()
     def broadcast_snapshot(self, snapshot: Params) -> Params:
-        """Rank 0's snapshot into every rank, in place (the reference's
-        init broadcast; after a restore too). The identity without a
-        process group."""
+        """Worker group 0's snapshot into every group, in place (the
+        reference's init broadcast; after a restore too), shard by shard
+        over the diloco group. The identity without a process group."""
         if self.mesh.distributed:
             for s in tree_leaves(snapshot):
-                self.mesh.broadcast_(s, tag="init")
+                self.mesh.broadcast_(s, tag="init", group="diloco")
         return snapshot
 
     def gather_workers(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -446,7 +491,7 @@ class Diloco:
         a process group."""
         if not self.mesh.distributed:
             return t
-        return self.mesh.all_gather(t, dim=dim, tag="workers")
+        return self.mesh.all_gather(t, dim=dim, tag="workers", group="diloco")
 
     def _as_async_state(self, base: DilocoState) -> AsyncDilocoState:
         """Every pending slot starts as a copy of the init snapshot with
@@ -488,11 +533,13 @@ class Diloco:
         if tokens.shape[1] != A:
             raise ValueError(f"batch accumulation axis is {tokens.shape[1]} but grad_accum is {A}")
         leaves = tree_leaves(state.params)
+        mesh = self.mesh if self.mesh.sharded else None
+        split_rows = mesh is not None and mesh.fsdp > 1
         loss_sum = torch.zeros(W, device=self.device)
         n_sum = torch.zeros(W, device=self.device)
         for a in range(A):
             loss, aux = causal_lm_loss(
-                state.params, tokens[:, a], self.model_cfg, loss_mask[:, a]
+                state.params, tokens[:, a], self.model_cfg, loss_mask[:, a], mesh=mesh
             )
             objective = aux["sum_loss"]
             if self.model_cfg.num_experts:
@@ -501,14 +548,33 @@ class Diloco:
                 objective = objective + (self.model_cfg.router_aux_coef
                                          * aux["n_tokens"].detach() * aux["router_aux"])
             objective.sum().backward()
+            n = aux["n_tokens"].detach()
+            if split_rows:
+                # the worker's loss is over all its fsdp ranks' rows
+                sums = torch.stack([aux["sum_loss"].detach(), n])
+                mesh.all_reduce_(sums, "sum", tag="loss", group="fsdp")
+                loss, n = sums[0] / sums[1].clamp_min(1.0), sums[1]
             loss_sum += loss.detach()
-            n_sum += aux["n_tokens"].detach()
+            n_sum += n
         with torch.no_grad():
+            specs = [spec_of(name, worker_axis=True) for name, _ in named_leaves(state.params)
+                     ] if mesh is not None else None
+            if split_rows:
+                # a whole leaf's gradient holds this rank's rows only
+                for p, spec in zip(leaves, specs):
+                    if "fsdp" not in spec:
+                        mesh.all_reduce_(p.grad, "sum", tag="fsdp", group="fsdp")
             inv = 1.0 / n_sum.clamp_min(1e-9)
             for p in leaves:
                 p.grad.mul_(inv.view((-1,) + (1,) * (p.ndim - 1)).to(p.grad.dtype))
             if self.cfg.clip_norm is not None:
-                clip_per_worker_([p.grad for p in leaves], self.cfg.clip_norm)
+                grads = [p.grad for p in leaves]
+                if mesh is None:
+                    clip_per_worker_(grads, self.cfg.clip_norm)
+                else:
+                    clip_per_worker_(
+                        grads, self.cfg.clip_norm, [counted(s, mesh) for s in specs],
+                        lambda sq: mesh.all_reduce_(sq, "sum", tag="clip", group="shard"))
         active = None
         if self._h_budget is not None:
             pos = state.inner_step_count % self.cfg.inner_steps
@@ -631,7 +697,7 @@ class Diloco:
                 d = self._wire_quantize(s.unsqueeze(0) - p)
                 for w in live:
                     merged.add_(d[w], alpha=coefs[lo + w])
-        self.mesh.all_reduce_(merged, "sum", tag="pseudograd")
+        self.mesh.all_reduce_(merged, "sum", tag="pseudograd", group="diloco")
         return merged.to(s.dtype)
 
     def _masked_deltas(self, s: torch.Tensor, p: torch.Tensor,
@@ -652,7 +718,8 @@ class Diloco:
                       weights: list[float] | None) -> list[torch.Tensor]:
         """The integer wire's per-leaf shared scales: the survivors'
         absmax / q_max of every leaf, the absmaxes taken across the ranks
-        by one MAX all-reduce of an f32 [n_leaves] vector."""
+        (every shard of every worker group) by one MAX all-reduce of an
+        f32 [n_leaves] vector."""
         q_max = self._int_wire[0]
         amax = torch.stack([
             torch.linalg.vector_norm(self._masked_deltas(s, p.detach(), weights),
@@ -660,7 +727,7 @@ class Diloco:
             for s, p in zip(tree_leaves(snapshot), tree_leaves(params_w))
         ]).float()
         if self.mesh.distributed:
-            self.mesh.all_reduce_(amax, "max", tag="scale")
+            self.mesh.all_reduce_(amax, "max", tag="scale", group="all")
         return [_div(a, q_max).clamp_min(_TINY) for a in amax]
 
     @torch.no_grad()
@@ -680,7 +747,7 @@ class Diloco:
         if scale is None:
             amax = torch.linalg.vector_norm(d, ord=float("inf")).float()
             if self.mesh.distributed:
-                self.mesh.all_reduce_(amax.reshape(1), "max", tag="scale")
+                self.mesh.all_reduce_(amax.reshape(1), "max", tag="scale", group="all")
             scale = _div(amax, q_max).clamp_min(_TINY)
         return (d / scale).round_().clamp_(-q_max, q_max).to(storage), scale
 
@@ -701,7 +768,7 @@ class Diloco:
             if acc == torch.int16:
                 total = _packed_int16_sum(self.mesh, total, int(W * q_max))
             else:
-                self.mesh.all_reduce_(total, "sum", tag="pseudograd")
+                self.mesh.all_reduce_(total, "sum", tag="pseudograd", group="diloco")
         denom = float(W) if weights is None else max(sum(weights), 1.0)
         return _div(total.float() * scale, denom).to(s.dtype)
 
@@ -742,7 +809,8 @@ class Diloco:
         ``raw_bytes_per_sync`` (the f32 wire), ``wire_compression`` (raw /
         wire) and ``wire_overhead_bytes`` (the integer wire's per-tensor
         scales and survivor count). ``snapshot`` supplies the synced
-        tree's actual sizes; else the model config's."""
+        tree's actual sizes (a rank's shards: its share of the sync); else
+        the model config's."""
         n, n_leaves = self._tree_size(snapshot)
         raw = 4 * n
         if self.cfg.outer_wire_collective:
@@ -770,7 +838,12 @@ class Diloco:
         local = torch.stack(flags).all(dim=0)
         if not self.mesh.distributed:
             return local
-        return self.mesh.all_gather(local.to(torch.uint8), tag="mask").to(torch.bool)
+        if self.mesh.sharded:  # finite only if every shard is
+            bad = (~local).to(torch.int32)
+            self.mesh.all_reduce_(bad, "max", tag="mask", group="shard")
+            local = bad == 0
+        return self.mesh.all_gather(local.to(torch.uint8), tag="mask",
+                                    group="diloco").to(torch.bool)
 
     # -- outer step (the only cross-worker traffic) --------------------------
 
@@ -782,7 +855,7 @@ class Diloco:
         if budget is not None and self.mesh.distributed:
             mine = torch.tensor(list(budget)[self.mesh.lo:self.mesh.hi], dtype=torch.int32,
                                 device=self.device)
-            budget = self.mesh.all_gather(mine, tag="budget").tolist()
+            budget = self.mesh.all_gather(mine, tag="budget", group="diloco").tolist()
         weights = None
         if worker_mask is not None:
             weights = [float(bool(m)) for m in torch.as_tensor(worker_mask).tolist()]
@@ -812,33 +885,41 @@ class Diloco:
         scales = None
         if cfg.outer_wire_collective and self.mesh.distributed:
             scales = self.shared_scales(snapshot, params_w, weights)
+        # a sharded readout counts a whole leaf on one rank of the group
+        count = [not self.mesh.sharded or counted(spec_of(n), self.mesh)
+                 for n, _ in named_leaves(snapshot)]
         for i, (s, p, buf) in enumerate(zip(tree_leaves(snapshot), tree_leaves(params_w),
                                             tree_leaves(momentum))):
             p = p.detach()
             delta = self._pseudograd_of(s, p, weights, None if scales is None else scales[i])
             if acc is not None:
-                self._read_replicas(acc, s, p)
+                self._read_replicas(acc, s, p, count[i])
             direction = nesterov_direction(delta, buf, cfg.outer_momentum, cfg.nesterov)
-            if acc is not None:
+            if acc is not None and count[i]:
                 acc.add_update(delta, direction, buf)
             del delta
             apply(i, direction, -cfg.outer_lr)
+        if acc is not None and self.mesh.sharded:
+            acc.sum_over(self.mesh, "shard")
         return None if acc is None else acc.result()
 
-    def _read_replicas(self, acc: _Dynamics, s: torch.Tensor, p: torch.Tensor) -> None:
+    def _read_replicas(self, acc: _Dynamics, s: torch.Tensor, p: torch.Tensor,
+                       count: bool = True) -> None:
         """The readout of one leaf's replicas. Its pairwise drift needs
-        every replica, so under a process group the rows are gathered, in
-        slices of at most ``_GATHER_ELEMS`` elements a worker (the sums it
-        accumulates split over slices; a smaller leaf is the one-process
-        arithmetic on the same values)."""
+        every replica, so under a process group the rows are gathered over
+        the diloco group, in slices of at most ``_GATHER_ELEMS`` elements
+        a worker (the sums it accumulates split over slices; a smaller
+        leaf is the one-process arithmetic on the same values). A leaf
+        this rank does not ``count`` is gathered and not added."""
         if not self.mesh.distributed:
             acc.add_replicas(s, p)
             return
         flat_s, flat_p = s.reshape(-1), p.reshape(p.shape[0], -1)
         for lo in range(0, flat_s.numel(), _GATHER_ELEMS):
             hi = lo + _GATHER_ELEMS
-            acc.add_replicas(flat_s[lo:hi],
-                             self.mesh.all_gather(flat_p[:, lo:hi], tag="dynamics"))
+            rows = self.mesh.all_gather(flat_p[:, lo:hi], tag="dynamics", group="diloco")
+            if count:
+                acc.add_replicas(flat_s[lo:hi], rows)
 
     @torch.no_grad()
     def outer_step(self, state: DilocoState, worker_mask=None):

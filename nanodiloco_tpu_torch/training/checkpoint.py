@@ -31,6 +31,11 @@ theirs); the step is committed by rank 0 alone and the other ranks wait
 for its verdict. A restore reads the file on every rank, each keeping its
 own rows, so a checkpoint does not depend on the world size it was
 written at: it resumes at another, and at another W elastically.
+Under fsdp and tp (``parallel/sharding.py``) the file still holds whole
+leaves: rank 0 places each rank's slice of a leaf where its box lies
+(the snapshot's and the momentum's from worker group 0's ranks alone),
+and a restore keeps this rank's box of each leaf, so the same file
+resumes at any ``(G, fsdp, tp)``, one process included.
 It writes no CRC-32 into the zip records: ``torch.load`` never reads one
 back (a flipped data byte loads silently with or without it), and
 computing it took about half of a save's time.
@@ -44,6 +49,7 @@ never holds two states: at Llama-3-8B width one state is most of it.
 
 from __future__ import annotations
 
+import dataclasses
 import mmap
 import os
 import re
@@ -52,9 +58,9 @@ from typing import Any, Callable
 import torch
 from torch.utils.serialization import config as serialization_config
 
-from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
-
 from nanodiloco_tpu_torch.models.llama import Params, tree_leaves
+from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
+from nanodiloco_tpu_torch.parallel.sharding import local_box, named_leaves, spec_of, whole_shape
 from nanodiloco_tpu_torch.resilience import faults
 from nanodiloco_tpu_torch.resilience.retry import RetryPolicy, retry_call
 
@@ -67,14 +73,6 @@ def committed_steps(directory: str) -> list[int]:
     it is on disk, so ``.tmp`` files never count."""
     found = (_STEP_FILE.fullmatch(name) for name in os.listdir(directory))
     return sorted(int(m.group(1)) for m in found if m)
-
-
-def named_leaves(tree: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
-    """``[("embed", t), ("final_norm", t), ("layers/attn_norm", t), ...]``
-    in ``tree_leaves`` order (sorted keys, depth first)."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in named_leaves(tree[k], f"{prefix}{k}/")]
-    return [(prefix[:-1], tree)]
 
 
 def _momentum_tree(momentum: Params) -> dict[str, dict[str, torch.Tensor]]:
@@ -134,16 +132,6 @@ def _check_kind(saved: dict, state) -> None:
         )
 
 
-def _stacked_paths(tree: dict) -> set[tuple]:
-    """Paths of the per-worker leaves of a ``state_tree``: the params and
-    the inner moments and step counts (their leading axis is the
-    workers')."""
-    paths = {("params",) + tuple(n.split("/")) for n, _ in named_leaves(tree["params"])}
-    for name, st in tree["inner_opt_state"].items():
-        paths |= {("inner_opt_state", name, k) for k in st}
-    return paths
-
-
 def _tensor_items(tree, path: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
     """Every tensor of a nested dict/list tree with its path, in a fixed
     (insertion) order."""
@@ -154,16 +142,39 @@ def _tensor_items(tree, path: tuple = ()) -> list[tuple[tuple, torch.Tensor]]:
     return [(path, tree)] if torch.is_tensor(tree) else []
 
 
+def _leaf_name(path: tuple) -> str | None:
+    """The parameter a ``state_tree`` path holds a copy or a moment of
+    ("layers/wq", ...), None for a path that is no parameter's (the step
+    counts, the launch rounds)."""
+    if path[-1] in ("exp_avg", "exp_avg_sq", "momentum_buffer"):
+        return path[-2]
+    if path[0] in ("params", "snapshot"):
+        return "/".join(path[1:])
+    if path[0] == "pending":
+        return "/".join(str(k) for k in path[2:])
+    return None
+
+
+def _spec(path: tuple, mesh: WorkerMesh) -> tuple:
+    """How a ``state_tree`` path's tensor is laid out over the mesh: the
+    worker axis of the per-worker leaves (the params and the inner moments
+    and step counts), then a parameter's own spec under fsdp or tp."""
+    name = _leaf_name(path)
+    spec = spec_of(name) if name is not None and mesh.sharded else ()
+    return (("diloco",) + spec) if path[0] in ("params", "inner_opt_state") else spec
+
+
 def _at(tree, path: tuple):
     for k in path:
         tree = tree[k]
     return tree
 
 
-def _skeleton(tree: dict, num_workers: int, stacked: set[tuple]):
-    """``tree`` with each per-worker leaf replaced by a fake tensor of the
-    full ``[W, ...]`` shape (no storage): what rank 0 writes without data
-    and fills afterwards."""
+def _skeleton(tree: dict, mesh: WorkerMesh):
+    """``tree`` with each leaf a rank holds part of replaced by a fake
+    tensor of the whole shape (no storage): the per-worker leaves at the
+    full ``[W, ...]``, under fsdp and tp every parameter's whole. What rank
+    0 writes without data and fills afterwards."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     mode = FakeTensorMode()
@@ -173,9 +184,13 @@ def _skeleton(tree: dict, num_workers: int, stacked: set[tuple]):
             return {k: walk(v, path + (k,)) for k, v in t.items()}
         if isinstance(t, list):
             return [walk(v, path + (i,)) for i, v in enumerate(t)]
-        if torch.is_tensor(t) and path in stacked:
+        spec = _spec(path, mesh) if torch.is_tensor(t) else ()
+        if spec:
+            shape = whole_shape(t.shape, spec, mesh)
+            if spec[0] == "diloco":
+                shape = (mesh.num_workers,) + shape[1:]
             with mode:
-                return torch.empty((num_workers,) + tuple(t.shape[1:]), dtype=t.dtype)
+                return torch.empty(shape, dtype=t.dtype)
         return t
 
     return walk(tree, ())
@@ -253,17 +268,16 @@ class CheckpointManager:
     @torch.no_grad()
     def _save_gathered(self, step: int, tree: dict, final: str, tmp: str) -> None:
         """The save under a process group. Rank 0 writes the tree's
-        skeleton, the per-worker leaves at the full ``[W, ...]`` shapes,
-        without its bytes (``torch.serialization.skip_data``), reserves its
-        blocks (a full disk fails here, as an error, not as a fault in the
-        fill), maps the file shared and fills it leaf by leaf, gathering
-        the other ranks' rows of one leaf at a time; it alone commits, and
-        every rank learns each outcome."""
+        skeleton, every leaf at its whole shape (the per-worker ones at
+        ``[W, ...]``), without its bytes (``torch.serialization.skip_data``),
+        reserves its blocks (a full disk fails here, as an error, not as a
+        fault in the fill), maps the file shared and fills it leaf by leaf,
+        gathering the other ranks' slices of one leaf at a time; it alone
+        commits, and every rank learns each outcome."""
         mesh = self.mesh
-        stacked = _stacked_paths(tree)
         err = None
         if mesh.is_root:
-            skeleton = _skeleton(tree, mesh.num_workers, stacked)
+            skeleton = _skeleton(tree, mesh)
 
             def attempt():
                 faults.check_io("save")  # injection hook (io_error op=save)
@@ -282,17 +296,23 @@ class CheckpointManager:
         if mesh.is_root:
             with torch.serialization.set_default_mmap_options(mmap.MAP_SHARED):
                 out = torch.load(tmp, map_location="cpu", mmap=True, weights_only=True)
-        n = mesh.local_workers
         for path, t in _tensor_items(tree):
-            if path in stacked:
-                parts = mesh.gather_to_root(t, tag="checkpoint")
+            spec = _spec(path, mesh)
+            if not spec:
                 if out is not None:
-                    dst = _at(out, path)
-                    for r, part in enumerate(parts):
-                        dst[r * n:(r + 1) * n].copy_(part)
-                del parts
-            elif out is not None:
-                _at(out, path).copy_(t)
+                    _at(out, path).copy_(t)
+                continue
+            # a per-worker leaf from every rank; a whole-model one (the
+            # snapshot's, a momentum's) from worker group 0's ranks
+            group = "all" if spec[0] == "diloco" else "shard"
+            if group == "shard" and mesh.group_index:
+                continue
+            parts = mesh.gather_to_root(t, tag="checkpoint", group=group)
+            if out is not None:
+                dst = _at(out, path)
+                for r, part in enumerate(parts):
+                    dst[local_box(spec, dst.shape, dataclasses.replace(mesh, rank=r))].copy_(part)
+            del parts
         err = None
         if mesh.is_root:
             del out
@@ -318,15 +338,19 @@ class CheckpointManager:
             raise err
         raise RuntimeError(f"rank 0 failed to {what}")
 
-    def _rows(self, tree):
-        """This rank's worker rows of a saved per-worker tree (the whole
-        tree without a process group)."""
+    def _mine(self, tree, path: tuple = ()):
+        """This rank's box of every tensor of a saved tree, as views: its
+        worker rows of a per-worker leaf and its slices under fsdp and tp
+        (the whole tree without a process group)."""
         if self.mesh is None:
             return tree
-        lo, hi = self.mesh.lo, self.mesh.hi
         if isinstance(tree, dict):
-            return {k: self._rows(v) for k, v in tree.items()}
-        return tree[lo:hi] if tree.ndim else tree
+            return {k: self._mine(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self._mine(v, path + (i,)) for i, v in enumerate(tree)]
+        if not torch.is_tensor(tree) or not tree.ndim:
+            return tree
+        return tree[local_box(_spec(path, self.mesh), tree.shape, self.mesh)]
 
     def _load(self, step: int | None) -> dict[str, Any]:
         step = self.latest_step if step is None else step
@@ -367,12 +391,12 @@ class CheckpointManager:
         streaming pending merges included."""
         saved = self._load(step)
         _check_kind(saved, state)
-        _copy_into(state.params, self._rows(saved["params"]), "params")
+        saved = self._mine(saved)
+        _copy_into(state.params, saved["params"], "params")
         _copy_into(state.snapshot, saved["snapshot"], "snapshot")
         W = int(tree_leaves(state.params)[0].shape[0])
         for name, p in named_leaves(state.params):
             st = saved["inner_opt_state"].get(name)
-            st = None if st is None else self._rows(st)
             if st is not None:
                 live = state.inner_opt.state[p]
                 for k in ("exp_avg", "exp_avg_sq"):
@@ -399,6 +423,8 @@ class CheckpointManager:
         re-warms."""
         saved = self._load(step)
         _check_kind(saved, fresh_state)
+        saved = {k: v for k, v in saved.items() if k not in ("params", "inner_opt_state")}
+        saved = self._mine(saved)
         _copy_into(fresh_state.snapshot, saved["snapshot"], "snapshot")
         _restore_outer(fresh_state, saved)
         count = int(saved["inner_step_count"])

@@ -7,8 +7,11 @@ i.e. "the model" DiLoCo produces — not any single worker's replica. The
 snapshot is unstacked; ``causal_lm_loss`` runs it as a worker axis of 1
 (a view, no copy) through the same forward as training, in training's
 compute dtype, so on the card every layer launches the flash forward
-(B1) once per batch. The JAX module's ring-attention branch has no
-counterpart: the port has no ring attention.
+(B1) once per batch. Under fsdp or tp the snapshot is this rank's shards
+and every rank of a worker group evaluates the same rows through the
+sharded forward (the same sums on every rank). The JAX module's
+ring-attention branch has no counterpart: the port has no ring
+attention.
 """
 
 from __future__ import annotations
@@ -25,9 +28,11 @@ from nanodiloco_tpu_torch.models.llama import Params, causal_lm_loss, resolve_de
 class Evaluator:
     """Loss-only pass over held-out batches, reusable across evals."""
 
-    def __init__(self, model_cfg: LlamaConfig, device: str | torch.device = "cuda"):
+    def __init__(self, model_cfg: LlamaConfig, device: str | torch.device = "cuda",
+                 mesh=None):
         self.cfg = model_cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
 
     @torch.no_grad()
     def __call__(self, params: Params, batches) -> dict[str, float]:
@@ -37,7 +42,7 @@ class Evaluator:
         for tokens, mask in batches:
             tokens = torch.as_tensor(tokens).to(self.device, torch.long)
             mask = torch.as_tensor(mask).to(self.device, torch.long)
-            _, aux = causal_lm_loss(params, tokens, self.cfg, loss_mask=mask)
+            _, aux = causal_lm_loss(params, tokens, self.cfg, loss_mask=mask, mesh=self.mesh)
             total_loss += float(aux["sum_loss"])
             total_n += float(aux["n_tokens"])
         loss = total_loss / max(total_n, 1.0)

@@ -137,17 +137,27 @@ def inner_optimizer(
 
 
 @torch.no_grad()
-def clip_per_worker_(grads: list[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_per_worker_(grads: list[torch.Tensor], max_norm: float,
+                     counted: Sequence[bool] | None = None,
+                     group_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
+                     ) -> torch.Tensor:
     """Clip, in place, each worker's slice ``g[w]`` of every gradient by
     that worker's global norm over all tensors, as optax's
     ``clip_by_global_norm`` does for one worker: unchanged below
     ``max_norm``, scaled to norm ``max_norm`` above it. Returns the [W]
     pre-clip norms. A worker whose norm is not finite scales only its own
-    slices: no value crosses the worker axis."""
+    slices: no value crosses the worker axis.
+
+    Sharded (``parallel/sharding.py``), ``grads`` are this rank's slices:
+    ``group_sum`` adds the [W] squared norms over the worker group's
+    ranks, and ``counted[i]`` says whether this rank counts tensor i (a
+    whole tensor, held alike by several ranks, is counted once)."""
     sq = sum(
         torch.linalg.vector_norm(g.reshape(g.shape[0], -1).float(), dim=1) ** 2
-        for g in grads
+        for g, c in zip(grads, counted or [True] * len(grads)) if c
     )
+    if group_sum is not None:
+        sq = group_sum(sq)
     norm = sq.sqrt()
     factor = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:

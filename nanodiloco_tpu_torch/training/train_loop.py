@@ -49,9 +49,12 @@ inner steps and one outer sync until ``total_steps``. Around the rounds:
   endpoint (``metrics_port``).
 
 Under a ``torch.distributed`` process group (``parallel/mesh.py``; the
-CLI starts one from torchrun's environment) each rank holds ``W / world``
-workers and runs this same loop: it keeps its workers' rows of the global
-batch (``parallel/feed.py``), the outer step's merge goes over the
+CLI starts one from torchrun's environment) each group of ``fsdp * tp``
+ranks holds ``W / G`` workers (``G = world / (fsdp * tp)``), each rank its
+slices of their weights (``parallel/sharding.py``), and runs this same
+loop: it keeps its workers' rows of the global batch and its fsdp index's
+``B / fsdp`` of each microbatch (``parallel/feed.py``), the outer step's
+merge goes over the
 collective (``parallel/diloco.py``), the round's [H, W] losses are
 gathered, the run name is rank 0's, and rank 0 alone writes the JSONL,
 stdout, wandb, the status file, the telemetry port, the flight-recorder
@@ -61,7 +64,9 @@ plan's worker index is global: the rank holding the worker poisons or
 stalls it. The stop latch (preemption, watchdog, resize) is agreed across
 the ranks at each round boundary, so a stop on any rank stops all of them
 at the same boundary, after one checkpoint. The summary's ``state`` holds
-this rank's rows.
+this rank's rows (its shards), and ``coords`` its ``(g, f, t)``.
+``dcn_slices`` places worker groups on nodes (``check_node_layout``): a
+node holds whole groups, so only the merge crosses nodes.
 
 The straggler policy reads per-worker round seconds as the JAX loop
 models them: the shared round wall time scaled by each worker's realized
@@ -123,7 +128,8 @@ from nanodiloco_tpu_torch.ops.cuda.flash_attention import (
 )
 from nanodiloco_tpu_torch.parallel.diloco import Diloco, DilocoConfig, host_dynamics
 from nanodiloco_tpu_torch.parallel.feed import BatchFeeder
-from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh
+from nanodiloco_tpu_torch.parallel.mesh import WorkerMesh, check_node_layout
+from nanodiloco_tpu_torch.parallel.sharding import map_leaves, spec_of, whole_shape
 from nanodiloco_tpu_torch.parallel.streaming import StreamingConfig, StreamingDiloco
 from nanodiloco_tpu_torch.resilience import faults
 from nanodiloco_tpu_torch.resilience.retry import RetryPolicy, retry_call
@@ -197,6 +203,13 @@ class TrainConfig:
     # loss (and out of attention under dense attention only)
     data_layout: str = "packed"
     num_workers: int = 1
+    # ranks of one worker: its weights sharded over fsdp (its batch rows
+    # too) and its heads and MLP columns over tp (parallel/sharding.py)
+    fsdp: int = 1
+    tp: int = 1
+    # nodes the job spans, each holding whole worker groups (the diloco
+    # axis across slices; parallel/mesh.py::check_node_layout)
+    dcn_slices: int = 1
     # fence the device around the outer step, so avg_sync_time_s and
     # comm_share time the sync alone; off, the outer step runs behind the
     # inner steps unfenced and those keys are None
@@ -350,9 +363,12 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
     if downtime_s > 0:
         ledger.book_external("restart_downtime", downtime_s)
     device = resolve_device(device)
-    # this rank's workers (all of them without a process group); raises
-    # when num_workers is not a multiple of the world size
-    mesh = WorkerMesh.current(cfg.num_workers)
+    # this rank's workers and shards (all of them without a process
+    # group); raises when the world is not G * fsdp * tp or num_workers
+    # not a multiple of G
+    mesh = WorkerMesh.current(cfg.num_workers, fsdp=cfg.fsdp, tp=cfg.tp)
+    check_node_layout(mesh.world, cfg.fsdp, cfg.tp, cfg.dcn_slices)
+    mesh.check_batch(cfg.per_device_batch_size)
     root = mesh.is_root
     quiet = cfg.quiet or not root
     if cfg.total_steps % cfg.inner_steps:
@@ -869,6 +885,9 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         shapes and the card's peak (obs/costs.py)."""
         with torch.no_grad():
             one_worker = tree_map(lambda p: p[0], state.params)
+        if mesh.sharded:  # the whole worker's shapes, from its shards'
+            one_worker = map_leaves(one_worker, lambda name, p: torch.empty(
+                whole_shape(p.shape, spec_of(name), mesh), dtype=p.dtype, device="meta"))
         tokens = cfg.per_device_batch_size * row_len
         flops = microbatch_flops(one_worker, model_cfg, (cfg.per_device_batch_size, row_len))
         logger.log({"cost_analysis": build_cost_record(
@@ -921,7 +940,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
                           f"{cfg.metrics_port}: {e}; continuing without the endpoint")
         evaluator = eval_set = None
         if cfg.eval_every:
-            evaluator = Evaluator(model_cfg, device)
+            evaluator = Evaluator(model_cfg, device, mesh if mesh.sharded else None)
             eval_set = holdout_batches(eval_rows, cfg.per_device_batch_size,
                                        mask_rows=eval_mask_rows)
         start_step = state.inner_step_count
@@ -1180,6 +1199,7 @@ def train(cfg: TrainConfig, device: str | torch.device = "cuda") -> dict[str, An
         "run_name": run_name,
         "rank": mesh.rank,
         "world": mesh.world,
+        "coords": mesh.coords,
         "state": state,
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if on_cuda else "cpu",
